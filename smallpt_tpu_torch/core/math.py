@@ -1,0 +1,33 @@
+"""Gradient-safe math helpers (PyTorch port of smallpt_tpu/core/math.py).
+
+``sqrt(max(x, 0))`` gives NaN gradients where x < 0; the masked-lane code
+evaluates every branch on every lane, so the helpers keep both the value
+and its gradient finite on the side that is masked off.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def safe_sqrt(x: torch.Tensor, min_val: float = 0.0) -> torch.Tensor:
+    """sqrt(max(x, min_val)) with zero (not NaN) gradient where x <= min_val."""
+    ok = x > min_val
+    return torch.where(ok, torch.sqrt(torch.where(ok, x, torch.ones_like(x))),
+                       torch.full_like(x, min_val))
+
+
+def safe_normalize(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """v / |v| with finite gradients at |v| ~ 0 (returns v unchanged there)."""
+    n2 = torch.sum(v * v, dim=dim, keepdim=True)
+    ok = n2 > 1e-24
+    one = torch.ones_like(n2)
+    inv = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, n2, one)), one)
+    return v * inv
+
+
+def safe_div(a: torch.Tensor, b: torch.Tensor, fallback: float = 0.0):
+    """a / b with ``fallback`` (and zero gradient) where b == 0."""
+    ok = b != 0
+    q = a / torch.where(ok, b, torch.ones_like(b))
+    return torch.where(ok, q, torch.full_like(q, fallback))

@@ -1,0 +1,18 @@
+"""Where the port runs: on the card unless the caller asks for the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA. Asking for CUDA where there is none raises: the
+    port never falls back to the CPU on its own. Pass ``"cpu"`` to run the
+    plain PyTorch versions of its kernels."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch version on the CPU"
+        )
+    return dev

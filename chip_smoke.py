@@ -6,8 +6,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's kernel from csrc/ with nvcc, holds it against its plain
-PyTorch version and against the stored f64 golden image, drives the main
-path (ProgressiveRenderer on the Cornell box at 1024x768, 4 spp a pass,
+PyTorch version (at small sizes, and on one key at the main path's full
+width) and against the stored f64 golden image, drives the main path
+(ProgressiveRenderer on the Cornell box at 1024x768, 4 spp a pass,
 max_depth 48) through the kernel, and times it. Each phase prints one
 flushed line with its elapsed seconds. The last three lines are the card's
 name and power limit as nvidia-smi gives them, a JSON object with one entry
@@ -33,13 +34,19 @@ GOLDEN = os.path.join(REPO, "tests", "data", "golden_cornell_48x36.npz")
 T0 = time.perf_counter()
 
 # H100 SXM float32 rate outside the tensor cores and HBM3 rate (NVIDIA data
-# sheet), for the least time the card could take for a pass.
+# sheet), for the least time the card could take for a pass. The 67 TFLOP/s
+# count an FMA as two flops; a kernel built with --fmad=false, as this one
+# is, issues no FMA and retires its adds and multiplies at most at half that
+# rate, PEAK_FP32_NOFMA, which bound_nofma_ms uses.
 PEAK_FP32_OPS = 67e12
+PEAK_FP32_NOFMA = PEAK_FP32_OPS / 2
 PEAK_BYTES = 3.35e12
 # float ops of one ray in csrc/megakernel.cu, counted from the source: each
 # sphere of the sweep (sphere_tt + the compare): 27 add/sub/mul, 3 sqrt,
 # 1 div, 1 max, 6 compares; the rest of a bounce (hit point, normal, flip,
-# emission, uniforms, roulette, the DIFF branch, state update): ~150.
+# emission, uniforms, roulette, the DIFF branch, state update): ~150. A
+# square root or a division (an SFU sequence of several instructions)
+# counts as one op.
 OPS_PER_SPHERE = 38
 OPS_PER_BOUNCE = 150
 
@@ -129,21 +136,26 @@ def main() -> int:
                 width=32, height=32, spp_per_cell=1, max_depth=12,
                 camera_model=CameraModel.MATRIX, filter=Filter.BOX), 2),
     }
-    cmp_stats = {}
-    for name, (scene, cam, cfg, seed) in cases.items():
-        table = mk.build_scene_table(scene, cfg, dev)
-        camv = mk.build_camera_vec(cam, cfg, dev)
-        key = rng.base_key(seed)
-        rad_k, rays_k = mk.mega_pass(table, camv, cfg, key)
-        k0, k1 = rng.key_words(key)
-        rad_p, rays_p = mk.render_pass_plain(table, camv, cfg, k0, k1)
+
+    def kernel_vs_plain(name, rad_k, rays_k, rad_p, rays_p):
         torch.cuda.synchronize()
         st = gate(rad_k.cpu().numpy(), rad_p.cpu().numpy(), 0.02)
         nk, np_ = int(rays_k.sum()), int(rays_p.sum())
         st.update(rays_kernel=nk, rays_plain=np_)
         if abs(nk - np_) > max(64, 0.001 * np_):
             raise AssertionError(f"{name}: ray counts differ: {st}")
-        cmp_stats[name] = st
+        return st
+
+    cmp_stats = {}
+    for name, (scene, cam, cfg, seed) in cases.items():
+        table = mk.build_scene_table(scene, cfg, dev)
+        camv = mk.build_camera_vec(cam, cfg, dev)
+        key = rng.base_key(seed)
+        ns = scene.n_spheres
+        cmp_stats[name] = kernel_vs_plain(
+            name, *mk.mega_pass(table, camv, cfg, key, n_spheres=ns),
+            *mk.render_pass_plain(table, camv, cfg, *rng.key_words(key),
+                                  n_spheres=ns))
     phase("kernel_vs_plain", **cmp_stats)
 
     # ---- 4. golden on the card --------------------------------------------
@@ -176,7 +188,8 @@ def main() -> int:
     camv = mk.build_camera_vec(legacy, small, dev)
     base = rng.base_key(0)
     ref = sum(mk.render_pass_plain(table, camv, small,
-                                   *rng.key_words(rng.fold_in(base, p)))[0]
+                                   *rng.key_words(rng.fold_in(base, p)),
+                                   n_spheres=cornell.n_spheres)[0]
               for p in range(2)).cpu().numpy() / (2 * small.spp)
     mean_rel = float(abs(img.mean() - ref.mean()) / ref.mean())
     if mean_rel >= 0.05:
@@ -193,23 +206,32 @@ def main() -> int:
           mrays_per_s=rays_per_pass / ms / 1e3, mean=float(img.mean()),
           plain_256x192_mean=float(ref.mean()), mean_rel=mean_rel, png=png)
 
-    # ---- 6. the kernel alone at the main path's shapes, and its bound ------
+    # ---- 6. the kernel alone at the main path's shapes: against its plain
+    # version on one key, its time, and its bound ---------------------------
     table = mk.build_scene_table(cornell, cfg, dev)
     camv = mk.build_camera_vec(legacy, cfg, dev)
+    ns = cornell.n_spheres
     key = rng.fold_in(base, 1000)
-    k_ms = cuda_ms(lambda: mk.mega_pass(table, camv, cfg, key), 5)
-    _, rays_k = mk.mega_pass(table, camv, cfg, key)
+    k_ms = cuda_ms(lambda: mk.mega_pass(table, camv, cfg, key, n_spheres=ns),
+                   5)
+    rad_k, rays_k = mk.mega_pass(table, camv, cfg, key, n_spheres=ns)
     n_rays = int(rays_k.sum())
+    torch.cuda.synchronize()
     t = time.perf_counter()
-    mk.render_pass_plain(table, camv, cfg, *rng.key_words(key))
+    rad_p, rays_p = mk.render_pass_plain(table, camv, cfg,
+                                         *rng.key_words(key), n_spheres=ns)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
-    ops = n_rays * (OPS_PER_SPHERE * cornell.n_spheres + OPS_PER_BOUNCE)
-    nbytes = table.numel() * 4 + camv.numel() * 4 + cfg.n_pixels * 16
+    cmp_stats["cornell_1024x768_main"] = kernel_vs_plain(
+        "cornell_1024x768_main", rad_k, rays_k, rad_p, rays_p)
+    ops = n_rays * (OPS_PER_SPHERE * ns + OPS_PER_BOUNCE)
+    nbytes = (ns * 16 * 4 + camv.numel() * 4 + cfg.n_pixels * 16)
     ops_ms, bytes_ms = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     phase("kernel_timing", kernel_ms=k_ms, rays=n_rays,
           mrays_per_s=n_rays / k_ms / 1e3, plain_ms=plain_ms, ops=ops,
-          bytes=nbytes, bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms)
+          bytes=nbytes, bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
+          bound_nofma_ms=ops / PEAK_FP32_NOFMA * 1e3,
+          vs_plain=cmp_stats["cornell_1024x768_main"])
 
     kernels = [{
         "name": "mega_pass",

@@ -8,9 +8,10 @@ the CPU tests run. Entry points render on the card unless given
 ``device="cpu"``; they never fall back on their own. The port imports
 neither JAX nor smallpt_tpu.
 
-Ported so far: the per-pass megakernel route — ProgressiveRenderer ->
-render_with_stats -> render_pass_megakernel -> one launch of
-csrc/megakernel.cu per pass — for sphere scenes (ROADMAP.md).
+Ported so far: the per-pass megakernel route — ProgressiveRenderer.step
+-> mega_pass -> one launch of csrc/megakernel.cu per pass, on a scene table
+and camera vector built once (render_with_stats -> render_pass_megakernel
+for a single pass) — for sphere scenes (ROADMAP.md).
 """
 
 from smallpt_tpu_torch.config import (

@@ -11,7 +11,10 @@
 // (plus 3 square roots and a division) and a few hundred for regeneration,
 // PCG4D hashing and shading. The Cornell box (S = 9) spends ~250 ops per ray
 // in the sweep and ~200 in the rest. The card's float32 rate outside the
-// tensor cores is 67 TFLOP/s.
+// tensor cores is 67 TFLOP/s, counting an FMA as two flops; built with
+// --fmad=false this kernel issues no FMA, so its adds and multiplies retire
+// at most at 33.5 T/s. Square roots and divisions are multi-instruction
+// sequences, counted here as one op each.
 //
 // What the design does about it:
 // - one thread per pixel lane, each looping on its own until its samples
@@ -23,6 +26,8 @@
 // - the sweep columns [cx cy cz r eps] sit in shared memory, loaded once per
 //   block and sized to the scene (2048 x 20 B = 40 KB at most, under the
 //   48 KB a launch gets without opting in), read as warp-wide broadcasts;
+//   the sweep visits the scene's n_spheres rows, not the table's padding to
+//   a multiple of 8 (as the JAX kernel's SMEM sweep does);
 // - the TPU kernel's 12-way per-sphere select fold (it has no per-lane
 //   gather) becomes one indexed load of the winner's material row;
 // - the sweep keeps _shadow_tt's citardauq arithmetic, strict < for ties
@@ -98,7 +103,9 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
 }
 
 // Candidate hit distance of one sphere: the stable citardauq form of the
-// JAX kernel's _shadow_tt (ops/megakernel.py:127-148), op for op.
+// JAX kernel's _shadow_tt (ops/megakernel.py:127-148), op for op; its
+// sr > 0 test keeps a zero-radius sphere from being hit by a ray through
+// its centre.
 __device__ __forceinline__ float sphere_tt(float ox, float oy, float oz,
                                            float dx, float dy, float dz,
                                            float scx, float scy, float scz,
@@ -423,7 +430,7 @@ mega_pass_kernel(const float* __restrict__ table,
 }  // namespace
 
 // Launch one per-pass megakernel over params[IP_N_LANES] pixel lanes.
-// table: (n_spheres, 16) f32 and cam: (16,) f32 on the device; rad: (G, 3)
+// table: (>= n_spheres, 16) f32 and cam: (16,) f32 on the device; rad: (G, 3)
 // f32 and rays: (G,) i32 outputs; iparams/fparams: host arrays of IP_COUNT
 // ints and FP_COUNT floats; stream: a cudaStream_t. Returns the launch's
 // cudaGetLastError().

@@ -5,8 +5,10 @@ semantics (smallpt.cpp:895-941) without a window.
 Each step renders one pass keyed with fold_in(base_key(seed),
 sample_count), adds it into an accumulation buffer on the device and bumps
 the pass count; the display image divides by passes * spp
-(smallpt.cpp:957). The JSON command queue and checkpoints are not ported
-yet (ROADMAP.md).
+(smallpt.cpp:957). The scene table and camera vector are built on the
+device once, when the renderer is made, so a step is one kernel launch and
+its accumulation, with no host-to-device copy. The JSON command queue and
+checkpoints are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 
 from smallpt_tpu_torch.config import RenderConfig
 from smallpt_tpu_torch.core import rng as prng
-from smallpt_tpu_torch.engine.renderer import render_with_stats
+from smallpt_tpu_torch.engine.renderer import pass_inputs
+from smallpt_tpu_torch.ops.megakernel import mega_pass
 from smallpt_tpu_torch.utils.device import resolve_device
 from smallpt_tpu_torch.utils.metrics import RenderStats, log_json
 
@@ -31,6 +34,8 @@ class ProgressiveRenderer:
         self.config = config
         self.seed = seed
         self.device = resolve_device(device)
+        self._table, self._cam = pass_inputs(scene, camera, config,
+                                             self.device)
         self._base = prng.base_key(seed)
         self.accum = torch.zeros((config.height, config.width, 3),
                                  dtype=torch.float32, device=self.device)
@@ -48,9 +53,10 @@ class ProgressiveRenderer:
             key = prng.fold_in(self._base, self.sample_count)
             if self._t_first_step is None:
                 self._t_first_step = time.perf_counter()
-            img, rays = render_with_stats(self.scene, self.camera,
-                                          self.config, key, self.device)
-            self.accum = self.accum + img
+            rad, rays = mega_pass(self._table, self._cam, self.config, key,
+                                  n_spheres=self.scene.n_spheres)
+            self.accum += rad.view(self.accum.shape)
+            rays = rays.sum(dtype=torch.int64)
             self._rays_dev = (rays if self._rays_dev is None
                               else self._rays_dev + rays)
             self._stats.passes += 1

@@ -21,6 +21,9 @@ from smallpt_tpu_torch.core import rng as prng
 from smallpt_tpu_torch.core.scene import SphereScene
 from smallpt_tpu_torch.ops.megakernel import (
     MEGA_MAX_SPHERES,
+    build_camera_vec,
+    build_scene_table,
+    mega_pass,
     render_pass_megakernel,
 )
 from smallpt_tpu_torch.utils.device import resolve_device
@@ -57,6 +60,17 @@ def _use_mega(scene, config: RenderConfig, differentiable: bool) -> bool:
     return True
 
 
+def pass_inputs(scene, camera, config: RenderConfig, device=None):
+    """The kernel's inputs that stay fixed from pass to pass: (scene table
+    (S_pad, 16), camera vector (1, 16)) on ``device`` (None means CUDA),
+    built once for a (scene, camera, config). Raises NotImplementedError for
+    a config outside the ported route."""
+    dev = resolve_device(device)
+    _use_mega(scene, config, False)
+    return (build_scene_table(scene, config, dev),
+            build_camera_vec(camera, config, dev))
+
+
 def render_with_stats(scene, camera, config: RenderConfig, key, device=None):
     """One full-frame pass: ((H, W, 3) summed radiance over config.spp
     samples per pixel, rays traced as a 0-d int64 tensor), on ``device``
@@ -81,11 +95,11 @@ def render_image(scene, camera, config: RenderConfig, seed: int = 0,
     """Run n_passes progressive passes and return the *mean* image
     (H, W, 3). Pass p is keyed with fold_in(base_key(seed), p), as in the
     JAX package."""
-    dev = resolve_device(device)
+    table, cam = pass_inputs(scene, camera, config, device)
     base = prng.base_key(seed)
-    acc = torch.zeros((config.height, config.width, 3), dtype=torch.float32,
-                      device=dev)
+    acc = torch.zeros((config.height * config.width, 3), dtype=torch.float32,
+                      device=table.device)
     for p in range(n_passes):
-        acc = acc + render(scene, camera, config, prng.fold_in(base, p),
-                           device=dev)
-    return acc / (n_passes * config.spp)
+        acc += mega_pass(table, cam, config, prng.fold_in(base, p),
+                         n_spheres=scene.n_spheres)[0]
+    return acc.view(config.height, config.width, 3) / (n_passes * config.spp)

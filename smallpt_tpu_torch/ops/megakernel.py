@@ -157,13 +157,16 @@ def _kernel_lib():
 
 def mega_pass(table: torch.Tensor, cam: torch.Tensor, config: RenderConfig,
               key, ip_offset: int = 0, row_offset: int = 0,
-              n_rows: int | None = None, k_samples: int | None = None):
+              n_rows: int | None = None, k_samples: int | None = None, *,
+              n_spheres: int | None = None):
     """One per-pass megakernel launch over a row band.
 
     table: (S_pad, 16) f32 (build_scene_table); cam: (1, 16) f32
     (build_camera_vec), both on the device to render on; key: (2,) uint32
-    key words. Returns (radiance (G, 3) f32 summed over the lane's
-    k_samples samples, rays (G,) int32), G = n_rows * width.
+    key words; n_spheres: the scene's sphere count, the leading rows the
+    sweep visits (None: every row; give it to skip the padding rows).
+    Returns (radiance (G, 3) f32 summed over the lane's k_samples samples,
+    rays (G,) int32), G = n_rows * width.
 
     A CUDA tensor launches csrc/megakernel.cu (and counts the launch in
     ``mega_pass.launches``); a CPU tensor runs ``render_pass_plain``."""
@@ -176,24 +179,29 @@ def mega_pass(table: torch.Tensor, cam: torch.Tensor, config: RenderConfig,
             raise ValueError(f"{name} must be a contiguous {shape} tensor")
     if cam.device != table.device:
         raise ValueError("table and cam must lie on one device")
-    if table.shape[0] > MEGA_MAX_SPHERES:
+    n_spheres = table.shape[0] if n_spheres is None else n_spheres
+    if not 0 <= n_spheres <= table.shape[0]:
+        raise ValueError(f"n_spheres={n_spheres} for a {table.shape[0]}-row "
+                         "table")
+    if n_spheres > MEGA_MAX_SPHERES:
         raise ValueError(
             f"the megakernel takes at most {MEGA_MAX_SPHERES} spheres, "
-            f"got a {table.shape[0]}-row table"
+            f"got {n_spheres}"
         )
     n_rows = config.height if n_rows is None else n_rows
     k_samples = config.spp if k_samples is None else k_samples
     k0, k1 = prng.key_words(key)
     if table.device.type == "cpu":
         return render_pass_plain(table, cam, config, k0, k1, ip_offset,
-                                 row_offset, n_rows, k_samples)
+                                 row_offset, n_rows, k_samples,
+                                 n_spheres=n_spheres)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     fn = _kernel_lib()
     g = n_rows * config.width
     rad = torch.empty((g, 3), dtype=torch.float32, device=table.device)
     rays = torch.empty((g,), dtype=torch.int32, device=table.device)
-    ints, floats = _launch_args(config, g, table.shape[0], k0, k1,
+    ints, floats = _launch_args(config, g, n_spheres, k0, k1,
                                 ip_offset, row_offset, k_samples)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -245,11 +253,13 @@ def render_pass_plain(table: torch.Tensor, cam: torch.Tensor,
                       config: RenderConfig, k0: int, k1: int,
                       ip_offset: int = 0, row_offset: int = 0,
                       n_rows: int | None = None,
-                      k_samples: int | None = None):
+                      k_samples: int | None = None, *,
+                      n_spheres: int | None = None):
     """The kernel's per-lane loop in PyTorch, on flat (G,) lanes with masks:
     a transliteration of the JAX ``_mega_kernel`` body with
     ``streaming=False``, no NEE and no record planes. Runs while any lane is
     alive or can regenerate, at most k_samples * max_depth iterations.
+    The sweep visits the first n_spheres rows (None: all of them).
     Returns (radiance (G, 3) f32, rays (G,) int32) on table's device."""
     _check_config(config)
     dev = table.device
@@ -261,7 +271,7 @@ def render_pass_plain(table: torch.Tensor, cam: torch.Tensor,
     js = config.jitter_size
     kk = (k0 + k1) & _MASK
 
-    rows = table.detach().cpu().tolist()
+    rows = table[:n_spheres].detach().cpu().tolist()
     camv = cam.detach().cpu().reshape(-1).tolist()
     ax, ay, az, bx, by, bz, cxv, cyv, czv, o0x, o0y, o0z, push = camv[:13]
 
@@ -369,7 +379,7 @@ def render_pass_plain(table: torch.Tensor, cam: torch.Tensor,
         bi = torch.full((G,), -1, dtype=torch.int64, device=dev)
         for si, row in enumerate(rows):
             if not row[3] > 0.0:
-                continue  # padding rows never hit
+                continue  # zero-radius rows never hit (_shadow_tt's sr > 0)
             tt = _sphere_tt(ox, oy, oz, dx, dy, dz, *row[:5])
             better = tt < bt
             bt = torch.where(better, tt, bt)
@@ -522,6 +532,6 @@ def render_pass_megakernel(scene: SphereScene, camera, config: RenderConfig,
     table = build_scene_table(scene, config, dev)
     cam = build_camera_vec(camera, config, dev)
     rad, rays = mega_pass(table, cam, config, key, ip_offset, row_offset,
-                          n_rows, k_samples)
+                          n_rows, k_samples, n_spheres=scene.n_spheres)
     return (rad.reshape(n_rows, config.width, 3),
             rays.sum(dtype=torch.int64))

@@ -179,6 +179,28 @@ def test_wrapper_rejects_big_tables_and_bad_tensors():
                       trng.base_key(0))
 
 
+def test_sweep_skips_table_padding():
+    """n_spheres: the sweep visits the scene's rows only. Cornell's 9
+    spheres pad to 16 rows; sweeping 9 gives the padded sweep's image and
+    rays exactly, and a count past the table or the limit raises."""
+    cfg = tcfg.RenderConfig(width=8, height=4, spp_per_cell=1, max_depth=6,
+                            **_T_LEG)
+    scene = tscene.cornell_box_scene()
+    table, cam = _tables(scene, cfg)
+    assert table.shape[0] == 16 and scene.n_spheres == 9
+    key = trng.base_key(4)
+    want = tmk.mega_pass(table, cam, cfg, key)
+    got = tmk.mega_pass(table, cam, cfg, key, n_spheres=scene.n_spheres)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    with pytest.raises(ValueError, match="17"):
+        tmk.mega_pass(table, cam, cfg, key, n_spheres=17)
+    big = tscene.procedural_sphere_scene(n=tmk.MEGA_MAX_SPHERES + 1)
+    table, cam = _tables(big, cfg)
+    with pytest.raises(ValueError, match="at most 2048"):
+        tmk.mega_pass(table, cam, cfg, key, n_spheres=big.n_spheres)
+
+
 def test_cpu_tensors_run_plain_and_count_no_launch():
     cfg = tcfg.RenderConfig(width=8, height=4, spp_per_cell=1, max_depth=4,
                             **_T_LEG)

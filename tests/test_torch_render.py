@@ -105,6 +105,34 @@ def test_render_image_keys_passes_like_jax():
     np.testing.assert_allclose(mean.numpy(), want.numpy(), rtol=1e-6)
 
 
+def test_progressive_builds_pass_inputs_once(monkeypatch):
+    """ProgressiveRenderer builds the scene table and the camera vector once,
+    when it is made; each step is one mega_pass on them, sweeping the
+    scene's spheres and not the table's padding."""
+    from smallpt_tpu_torch.engine import progressive, renderer
+
+    cfg = RenderConfig(width=8, height=4, spp_per_cell=1, max_depth=4,
+                       camera_model=CameraModel.LEGACY, filter=Filter.TENT)
+    scene, cam = cornell_box_scene(), smallpt_camera()
+    builds, sweeps = [], []
+    build = renderer.build_scene_table
+    monkeypatch.setattr(renderer, "build_scene_table",
+                        lambda *a: builds.append(1) or build(*a))
+    real_pass = progressive.mega_pass
+
+    def counting_pass(*a, **kw):
+        sweeps.append(kw["n_spheres"])
+        return real_pass(*a, **kw)
+
+    monkeypatch.setattr(progressive, "mega_pass", counting_pass)
+    r = ProgressiveRenderer(scene, cam, cfg, seed=3, device="cpu")
+    r.step(3)
+    assert builds == [1] and sweeps == [scene.n_spheres] * 3
+    want = render_image(scene, cam, cfg, seed=3, n_passes=3, device="cpu")
+    np.testing.assert_array_equal(r.image, want.numpy())
+    assert r.stats.passes == 3 and r.stats.rays > 0
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

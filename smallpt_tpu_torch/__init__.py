@@ -8,10 +8,14 @@ the CPU tests run. Entry points render on the card unless given
 ``device="cpu"``; they never fall back on their own. The port imports
 neither JAX nor smallpt_tpu.
 
-Ported so far: the per-pass megakernel route — ProgressiveRenderer.step
--> mega_pass -> one launch of csrc/megakernel.cu per pass, on a scene table
-and camera vector built once (render_with_stats -> render_pass_megakernel
-for a single pass) — for sphere scenes (ROADMAP.md).
+Ported so far, for sphere scenes, with next-event estimation (ROADMAP.md):
+- the per-pass megakernel route: ProgressiveRenderer.step -> mega_pass ->
+  one launch of csrc/megakernel.cu per pass, on a scene table and camera
+  vector built once (render_with_stats -> render_pass_megakernel for a
+  single pass);
+- the streaming route: StreamingRenderer.step/flush/image -> stream_step ->
+  the streaming mode of the same kernel body, on path state that persists
+  across launches.
 """
 
 from smallpt_tpu_torch.config import (
@@ -25,10 +29,11 @@ from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
 from smallpt_tpu_torch.engine.renderer import (
     render, render_image, render_with_stats,
 )
+from smallpt_tpu_torch.engine.streaming import StreamingRenderer
 
 __all__ = [
     "RenderConfig", "Mode", "Filter", "CameraModel", "Intersector",
     "Scheduler", "SphereScene", "Material", "DIFF", "SPEC", "REFR",
     "LegacyCamera", "MatrixCamera", "render", "render_image",
-    "render_with_stats", "ProgressiveRenderer",
+    "render_with_stats", "ProgressiveRenderer", "StreamingRenderer",
 ]

@@ -167,3 +167,81 @@ def shade_uniforms(key, sample_ids: torch.Tensor, hist: torch.Tensor,
          _to_unit(d, dtype)],
         dim=-1,
     )
+
+
+def nee_uniforms(key, sample_ids: torch.Tensor, hist: torch.Tensor,
+                 depth: torch.Tensor, light_slot: int, dtype=torch.float32):
+    """(N, 2) uniforms for next-event estimation's light-cone sample at one
+    shading event, one pair per sampled light. The c-word is
+    depth + _NEE_SALT + light_slot * _NEE_SLOT_STRIDE."""
+    k1 = key_words(key)[1]
+    a, b, _, _ = _keyed(key, sample_ids, _u32(hist, hist) ^ k1,
+                        (_u32(depth, depth) + _nee_salt(light_slot)) & _MASK)
+    return torch.stack([_to_unit(a, dtype), _to_unit(b, dtype)], dim=-1)
+
+
+def _nee_salt(light_slot: int) -> int:
+    """The NEE c-word offset of one light slot: a bare ``+ slot`` would
+    alias slot s+1 at depth d with slot s at depth d+1."""
+    return (_NEE_SALT + light_slot * _NEE_SLOT_STRIDE) & _MASK
+
+
+# -- streaming keying (v2) ----------------------------------------------------
+#
+# The streaming kernel keys a sample by (pixel, ip) as two separate PCG4D
+# words: a = pixel ^ k0, b = k1 ^ (ip * _STREAM_IP_MULT) (odd, so injective
+# in ip). Streams stay unique for any ip < 2^32 at any resolution; v1 packed
+# pixel + n_pixels * ip into one word and wrapped inside real budgets.
+
+
+def stream_key_words(key, pixel: torch.Tensor, ip: torch.Tensor):
+    """(a, b) PCG4D input words of the streaming samples (pixel, ip), as
+    int64 tensors holding uint32 values."""
+    k0, k1 = key_words(key)
+    a = _u32(pixel, pixel) ^ k0
+    b = _mul32(_u32(ip, ip), _STREAM_IP_MULT) ^ k1
+    return a, b
+
+
+def _stream_keyed(key, pixel, ip, word_c):
+    k0, k1 = key_words(key)
+    a, b = stream_key_words(key, pixel, ip)
+    return _pcg4d(a, b, _u32(word_c, a), _u32(k0 + k1, a))
+
+
+def stream_camera_uniforms(key, pixel: torch.Tensor, ip: torch.Tensor,
+                           dtype=torch.float32):
+    """(N, 2) pixel-filter uniforms of the streaming samples (pixel, ip)."""
+    a, b, _, _ = _stream_keyed(key, pixel, ip, _CAMERA_SALT)
+    return torch.stack([_to_unit(a, dtype), _to_unit(b, dtype)], dim=-1)
+
+
+def stream_lens_uniforms(key, pixel: torch.Tensor, ip: torch.Tensor,
+                         dtype=torch.float32):
+    """(N, 2) thin-lens aperture uniforms of the streaming samples."""
+    a, b, _, _ = _stream_keyed(key, pixel, ip, _LENS_SALT)
+    return torch.stack([_to_unit(a, dtype), _to_unit(b, dtype)], dim=-1)
+
+
+def stream_shade_uniforms(key, pixel: torch.Tensor, ip: torch.Tensor,
+                          depth: torch.Tensor, dtype=torch.float32):
+    """(N, 4) per-bounce shade uniforms [rr, bsdf_u1, bsdf_u2, refr_choice]
+    of the streaming samples; streaming paths never split, so there is no
+    history word."""
+    a, b, c, d = _stream_keyed(key, pixel, ip,
+                               (_u32(depth, depth) + _GOLDEN) & _MASK)
+    return torch.stack(
+        [_to_unit(a, dtype), _to_unit(b, dtype), _to_unit(c, dtype),
+         _to_unit(d, dtype)],
+        dim=-1,
+    )
+
+
+def stream_nee_uniforms(key, pixel: torch.Tensor, ip: torch.Tensor,
+                        depth: torch.Tensor, light_slot: int,
+                        dtype=torch.float32):
+    """(N, 2) light-cone uniforms of one NEE light slot for the streaming
+    samples at a bounce depth."""
+    a, b, _, _ = _stream_keyed(
+        key, pixel, ip, (_u32(depth, depth) + _nee_salt(light_slot)) & _MASK)
+    return torch.stack([_to_unit(a, dtype), _to_unit(b, dtype)], dim=-1)

@@ -5,11 +5,12 @@ smallpt_tpu/engine/renderer.py).
 like the reference (smallpt.cpp:813); progressive accumulation divides by
 the total sample count only at display/save time (smallpt.cpp:957).
 
-The port has one route so far: the JAX package's default MEGA scheduler on
-sphere scenes, one megakernel launch per pass (ops/megakernel.py). Every
-config the JAX package would send elsewhere raises NotImplementedError
-naming the ROADMAP.md item that ports it; nothing falls back to another
-route. Entry points run on the card unless given ``device="cpu"``.
+The per-pass route of the port is the JAX package's default MEGA scheduler
+on sphere scenes, NEE included: one megakernel launch per pass
+(ops/megakernel.py). Every config the JAX package would send elsewhere
+raises NotImplementedError naming the ROADMAP.md item that ports it;
+nothing falls back to another route. Entry points run on the card unless
+given ``device="cpu"``. The streaming route is engine/streaming.py.
 """
 
 from __future__ import annotations
@@ -31,9 +32,9 @@ from smallpt_tpu_torch.utils.device import resolve_device
 
 def _use_mega(scene, config: RenderConfig, differentiable: bool) -> bool:
     """Megakernel eligibility, as in the JAX package: the forward Mode.FULL
-    single-path transport on f32 sphere scenes of at most MEGA_MAX_SPHERES
-    spheres, without NEE (the NEE megakernel is a later slice). Raises
-    NotImplementedError for every config outside it."""
+    single-path transport (NEE included) on f32 sphere scenes of at most
+    MEGA_MAX_SPHERES spheres. Raises NotImplementedError for every config
+    outside it."""
     todo = None
     if differentiable:
         todo = "differentiable rendering (ROADMAP.md, modules item 8)"
@@ -48,8 +49,6 @@ def _use_mega(scene, config: RenderConfig, differentiable: bool) -> bool:
     elif config.mode != Mode.FULL:
         todo = (f"the {config.mode.value} AOV mode (ROADMAP.md, modules "
                 "item 4: ops/wavefront.py)")
-    elif config.nee_lights:
-        todo = "next-event estimation (ROADMAP.md, kernel K1c)"
     elif config.dtype != "float32":
         todo = f"dtype {config.dtype} (the port renders float32 only)"
     elif scene.n_spheres > MEGA_MAX_SPHERES:

@@ -28,6 +28,8 @@ names = [m.name for m in pkgutil.walk_packages(smallpt_tpu_torch.__path__,
                                                "smallpt_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {{"smallpt_tpu_torch.engine.streaming",
+         "smallpt_tpu_torch.engine.quality"}} <= set(names)
 import chip_smoke
 assert callable(chip_smoke.main)
 assert not any(k.startswith("jax") and sys.modules[k] is not None
@@ -42,7 +44,8 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         capture_output=True, text=True, timeout=300, cwd=str(ROOT),
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15  # every submodule imported
+    # every submodule imported, the streaming route's among them
+    assert int(proc.stdout.split()[-1]) >= 17
 
 
 def _sources():
@@ -83,12 +86,16 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     from smallpt_tpu_torch.utils import nvcc
 
     fn = types.SimpleNamespace(argtypes=None, restype=None)
+    sfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
                         lambda name, src: types.SimpleNamespace(
-                            smallpt_mega_pass=fn))
+                            smallpt_mega_pass=fn, smallpt_stream_step=sfn))
     assert mk._kernel_lib() is fn
     assert fn.argtypes == [ctypes.c_void_p] * 7
     assert fn.restype is ctypes.c_int
+    assert mk._stream_lib() is sfn
+    assert sfn.argtypes == [ctypes.c_void_p] * 8
+    assert sfn.restype is ctypes.c_int
 
 
 def test_find_nvcc_reports_every_place_tried(monkeypatch, tmp_path):

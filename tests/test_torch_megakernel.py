@@ -152,7 +152,7 @@ def _tables(scene, cfg):
 
 
 @pytest.mark.parametrize("bad,exc", [
-    (dict(nee_lights=(8,)), NotImplementedError),
+    (dict(nee_lights=tuple(range(8)) * 4), ValueError),  # 32 > 31 slots
     (dict(split_budget=2), ValueError),
     (dict(mode=tcfg.Mode.NORMAL), ValueError),
 ])
@@ -218,19 +218,24 @@ def test_cpu_tensors_run_plain_and_count_no_launch():
 
 def test_launch_args_layout():
     """The integer and float launch arguments the kernel reads by position
-    (csrc/megakernel.cu's IP_*/FP_* enums): 19 ints, 7 floats; the key
-    words travel as their uint32 bit patterns."""
+    (csrc/megakernel.cu's IP_*/FP_* enums): 20 ints and 31 light slots, 7
+    floats; the key words travel as their uint32 bit patterns."""
     cfg = tcfg.RenderConfig(width=64, height=48, spp_per_cell=2,
                             max_depth=12, env_emission=(1.0, 2.0, 3.0),
-                            aperture=2.0, **_T_LEG)
+                            aperture=2.0, nee_lights=(8, 3), **_T_LEG)
     ints, floats = tmk._launch_args(cfg, 64 * 48, 16, 2467461003,
                                     3840466878, 4, 8, 3)
-    assert ints.dtype == np.int32 and ints.shape == (19,)
+    assert ints.dtype == np.int32 and ints.shape == (20 + 31,)
+    assert ints[20:].tolist() == [8, 3] + [0] * 29
     assert floats.dtype == np.float32 and floats.shape == (7,)
     named = dict(zip(tmk._IP_NAMES, ints.view(np.uint32).tolist()))
     assert named["k0"] == 2467461003 and named["k1"] == 3840466878
     assert named["max_it"] == 3 * 12 and named["spp"] == 8
     assert named["tent"] == 1 and named["matrix"] == 0
     assert named["has_env"] == 1 and named["row_offset"] == 8
+    assert named["n_lights"] == 2
+    stream_ints, _ = tmk._launch_args(cfg, 8192, 16, 0, 0, 0, 0, 0,
+                                      max_it=10_000_000)
+    assert dict(zip(tmk._IP_NAMES, stream_ints))["max_it"] == 10_000_000
     np.testing.assert_array_equal(
         floats, np.float32([1.5, 0.05, 2.0, 100.0, 1.0, 2.0, 3.0]))

@@ -155,7 +155,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
 @pytest.mark.parametrize("kw", [
     dict(scheduler=Scheduler.REGEN), dict(scheduler=Scheduler.FLAT),
     dict(split_budget=2), dict(mode=Mode.NORMAL), dict(mode=Mode.UV),
-    dict(nee_lights=(8,)), dict(dtype="float64"),
+    dict(mode=Mode.INST_ID), dict(dtype="float64"),
 ])
 def test_unported_configs_raise(kw):
     cfg = RenderConfig(width=8, height=8, **kw)
@@ -177,8 +177,9 @@ def test_unported_scenes_and_gradients_raise():
                differentiable=True)
 
 
-@pytest.mark.parametrize("flag", [["--streaming"], ["--binned"],
-                                  ["--interactive"], ["--nee", "8"]])
+@pytest.mark.parametrize("flag", [["--frames", "f_%04d.ppm"], ["--binned"],
+                                  ["--interactive"],
+                                  ["--checkpoint", "ck.npz"]])
 def test_cli_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(flag + ["--device", "cpu", "--out", str(tmp_path / "x.ppm")])

@@ -74,3 +74,64 @@ def test_per_pass_uniforms_bit_equal(seed, fold):
         trng.shade_uniforms(tkey, ts, th, td).numpy(),
         np.asarray(jrng.shade_uniforms(jkey, jnp.asarray(sids),
                                        jnp.asarray(hist), jnp.asarray(depth))))
+
+
+# ip on both sides of the v1 wrap at 1024x768 (n_pixels * 16384 = 3 * 2^32:
+# (pixel, ip) and (pixel, ip + 16384) shared one v1 key word), and far past
+# it (tests/test_streaming.py pins these values for the JAX package)
+_STREAM_IPS = [np.full(64, 100), np.full(64, 100 + 16384),
+               np.arange(64) + 2_000_000, np.arange(64) * 40503 + 7]
+
+
+@pytest.mark.parametrize("which", range(len(_STREAM_IPS)))
+def test_streaming_uniforms_bit_equal(which):
+    seed = 7 + which
+    jkey, tkey = jax.random.PRNGKey(seed), trng.base_key(seed)
+    r = np.random.default_rng(seed)
+    pixel = r.integers(0, 1024 * 768, size=64).astype(np.int32)
+    ip = _STREAM_IPS[which].astype(np.int32)
+    depth = r.integers(0, 64, size=64).astype(np.int32)
+    jp, ji, jd = (jnp.asarray(a) for a in (pixel, ip, depth))
+    tp, ti, td = (torch.from_numpy(a) for a in (pixel, ip, depth))
+    a, b = trng.stream_key_words(tkey, tp, ti)
+    ja, jb = jrng.stream_key_words(jkey, jp, ji)
+    np.testing.assert_array_equal(a.numpy().astype(np.uint32), np.asarray(ja))
+    np.testing.assert_array_equal(b.numpy().astype(np.uint32), np.asarray(jb))
+    for name in ("stream_camera_uniforms", "stream_lens_uniforms"):
+        np.testing.assert_array_equal(
+            getattr(trng, name)(tkey, tp, ti).numpy(),
+            np.asarray(getattr(jrng, name)(jkey, jp, ji)), err_msg=name)
+    np.testing.assert_array_equal(
+        trng.stream_shade_uniforms(tkey, tp, ti, td).numpy(),
+        np.asarray(jrng.stream_shade_uniforms(jkey, jp, ji, jd)))
+    for slot in (0, 1, 30):
+        np.testing.assert_array_equal(
+            trng.stream_nee_uniforms(tkey, tp, ti, td, slot).numpy(),
+            np.asarray(jrng.stream_nee_uniforms(jkey, jp, ji, jd, slot)))
+
+
+def test_stream_keying_v2_unique_across_v1_wrap():
+    """The pairs that collided under v1 keying draw distinct streams."""
+    key = trng.base_key(7)
+    pixel = torch.arange(0, 1024 * 768, 12345, dtype=torch.int32)
+    u0 = trng.stream_camera_uniforms(key, pixel, torch.full_like(pixel, 100))
+    u1 = trng.stream_camera_uniforms(key, pixel,
+                                     torch.full_like(pixel, 100 + 16384))
+    assert not (u0 == u1).all(dim=-1).any()
+
+
+@pytest.mark.parametrize("slot", [0, 2])
+def test_per_pass_nee_uniforms_bit_equal(slot):
+    jkey = jax.random.fold_in(jax.random.PRNGKey(3), 9)
+    tkey = trng.fold_in(trng.base_key(3), 9)
+    r = np.random.default_rng(slot)
+    sids = r.integers(0, 2**31 - 1, size=256).astype(np.int32)
+    hist = r.integers(0, 64, size=256).astype(np.int32)
+    depth = r.integers(0, 64, size=256).astype(np.int32)
+    np.testing.assert_array_equal(
+        trng.nee_uniforms(tkey, *(torch.from_numpy(a)
+                                  for a in (sids, hist, depth)),
+                          slot).numpy(),
+        np.asarray(jrng.nee_uniforms(jkey, *(jnp.asarray(a)
+                                             for a in (sids, hist, depth)),
+                                     slot)))

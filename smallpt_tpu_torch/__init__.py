@@ -15,7 +15,10 @@ Ported so far, for sphere scenes, with next-event estimation (ROADMAP.md):
   single pass);
 - the streaming route: StreamingRenderer.step/flush/image -> stream_step ->
   the streaming mode of the same kernel body, on path state that persists
-  across launches.
+  across launches;
+- the DDA streaming route for big sphere scenes: StreamingRenderer (above
+  2048 spheres, at most one NEE light) -> stream_step_dda -> one launch of
+  csrc/stream_dda.cu, which walks each ray through a uniform grid.
 """
 
 from smallpt_tpu_torch.config import (

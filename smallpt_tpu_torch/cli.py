@@ -13,6 +13,7 @@ Examples:
     python -m smallpt_tpu_torch 4 --scene two_sphere --camera matrix --device cpu
     python -m smallpt_tpu_torch 16 --streaming --nee 8 --device cpu \
         --scene cornell_small_light --width 32 --height 24 --out s.ppm
+    python -m smallpt_tpu_torch 4 --streaming --scene procedural
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ SCENES = {
     "cornell_dim": scenes.cornell_box_dim_light_scene,
     "cornell_small_light": scenes.cornell_box_small_light_scene,
     "two_sphere": scenes.two_sphere_scene,
+    # 10,000 spheres: --streaming renders it through the DDA route (kernel
+    # K3); per pass it needs the binned drain, not ported yet
+    "procedural": scenes.procedural_sphere_scene,
 }
 
 # flags of the JAX package's CLI whose routes are not ported yet

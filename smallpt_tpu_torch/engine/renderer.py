@@ -52,8 +52,9 @@ def _use_mega(scene, config: RenderConfig, differentiable: bool) -> bool:
     elif config.dtype != "float32":
         todo = f"dtype {config.dtype} (the port renders float32 only)"
     elif scene.n_spheres > MEGA_MAX_SPHERES:
-        todo = (f"scenes above {MEGA_MAX_SPHERES} spheres (ROADMAP.md, "
-                "modules item 9: kernels K2-K4)")
+        todo = (f"per-pass scenes above {MEGA_MAX_SPHERES} spheres "
+                "(ROADMAP.md, modules item 11: the binned drain, kernel K8; "
+                "--streaming renders them through the DDA route)")
     if todo is not None:
         raise NotImplementedError(f"not ported yet: {todo}")
     return True

@@ -1,5 +1,5 @@
 """Streaming progressive renderer, the continuous wavefront (PyTorch port of
-the classic route of smallpt_tpu/engine/streaming.py).
+smallpt_tpu/engine/streaming.py).
 
 The per-pass renderer drains every sample before it returns. Streaming
 removes that barrier: the path state persists across steps
@@ -16,10 +16,14 @@ separate PCG4D words (core/rng.py::stream_key_words, keying v2), so streams
 stay unique for any budget below 2^32 samples per pixel; v1 checkpoints are
 refused.
 
-The state buffers and the checkpoint file have the JAX package's layout,
-keys and shapes, so a checkpoint from either package resumes in the other.
-The DDA route of the JAX package (big sphere scenes, kernel K3) is not
-ported yet. Entry points run on the card unless given ``device="cpu"``.
+Two routes, chosen as the JAX package chooses them (``dda_auto``): the
+classic streaming megakernel sweeps every sphere for every ray
+(ops/megakernel.py::stream_step, kernel K1c); sphere scenes above
+MEGA_MAX_SPHERES spheres with at most one NEE light walk each ray through a
+uniform grid instead (ops/stream_dda.py::stream_step_dda, kernel K3). The
+state buffers and the checkpoint file have the JAX package's layout, keys
+and shapes for both routes, so a checkpoint from either package resumes in
+the other. Entry points run on the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -36,20 +40,16 @@ from smallpt_tpu_torch.engine.quality import (
     adaptive_allocation, drive_to_quality,
 )
 from smallpt_tpu_torch.ops import megakernel as mk
+from smallpt_tpu_torch.ops import stream_dda as sd
 from smallpt_tpu_torch.utils.device import resolve_device
 from smallpt_tpu_torch.utils.metrics import RenderStats
 
 
-def _check_route(scene, config: RenderConfig, dda) -> None:
-    """Raise for what the port's streaming route does not run."""
+def _check_route(scene, config: RenderConfig) -> None:
+    """Raise for what the port's streaming routes do not run."""
     todo = None
-    if dda:
-        todo = "the DDA streaming route (ROADMAP.md, modules item 9)"
-    elif not isinstance(scene, SphereScene):
+    if not isinstance(scene, SphereScene):
         todo = "streaming mesh scenes (ROADMAP.md, modules item 10)"
-    elif scene.n_spheres > mk.MEGA_MAX_SPHERES:
-        todo = (f"streaming scenes above {mk.MEGA_MAX_SPHERES} spheres, the "
-                "DDA route (ROADMAP.md, modules item 9)")
     elif config.dtype != "float32":
         todo = f"dtype {config.dtype} (the port renders float32 only)"
     if todo is not None:
@@ -58,6 +58,18 @@ def _check_route(scene, config: RenderConfig, dda) -> None:
         raise ValueError("streaming requires split_budget == 1")
     if config.mode != Mode.FULL:
         raise ValueError("streaming renders Mode.FULL only")
+
+
+def dda_auto(scene, config: RenderConfig) -> bool:
+    """The streaming routing rule of the JAX package
+    (engine/streaming.py::_dda_auto): sphere scenes above MEGA_MAX_SPHERES
+    spheres walk the DDA grid (kernel K3); the classic sweep (K1c) keeps
+    small scenes, where the sweep beats the walk, and scenes with several
+    NEE lights, since the shadow walk carries one light slot. The one
+    routing rule of the port's streaming renderers."""
+    return (isinstance(scene, SphereScene)
+            and len(config.nee_lights) <= 1
+            and scene.n_spheres > mk.MEGA_MAX_SPHERES)
 
 
 class StreamingRenderer:
@@ -69,18 +81,23 @@ class StreamingRenderer:
 
     def __init__(self, scene, camera, config: RenderConfig, seed: int = 0,
                  dda=None, device=None):
-        """dda: None or False is the classic route, the only one ported;
-        True raises NotImplementedError, as does a scene that the JAX
-        package would send to its DDA route. device: None means CUDA."""
-        _check_route(scene, config, dda)
+        """dda: None picks the route by ``dda_auto``; False is the classic
+        route; True builds DDA tables for the scene; or prebuilt
+        StreamDDATables. A DDA iteration is finer than a classic bounce (one
+        cell step), so the DDA route scales n_iters by _DDA_ITER_SCALE and
+        callers keep bounce-denominated budgets. device: None means CUDA."""
+        _check_route(scene, config)
         self.scene = scene
         self.camera = camera
         self.config = config
         self.device = resolve_device(device)
         self.key = prng.base_key(seed)  # ONE key for the whole stream
-        self._table = mk.build_scene_table(scene, config, self.device)
+        self._dda = self._dda_tables_for(dda)
+        # the classic route's scene table (the DDA tables hold their own)
+        self._table = (None if self._dda is not None
+                       else mk.build_scene_table(scene, config, self.device))
         self._cam = mk.build_camera_vec(camera, config, self.device)
-        self.f, self.i = mk.init_stream_state(config, device=self.device)
+        self.f, self.i = self._init()
         self.budget = 0  # the uniform allowance; the least of the budgets
         self._budget_max = 0
         self._budgets = None  # per-pixel budgets once adaptive stepping ran
@@ -90,8 +107,33 @@ class StreamingRenderer:
         # the split does not change the result.
         self.max_launch_iters: int | None = None
 
+    _DDA_ITER_SCALE = 5  # ~ mean walk steps + resolve per bounce
+
+    def _dda_tables_for(self, dda):
+        if dda is False or dda is None and not dda_auto(self.scene,
+                                                        self.config):
+            return None
+        if isinstance(dda, sd.StreamDDATables):
+            if dda.device != self.device:
+                raise ValueError(f"DDA tables on {dda.device}, the renderer "
+                                 f"on {self.device}")
+            return dda
+        return sd.build_stream_dda_tables(self.scene, self.config,
+                                          device=self.device)
+
+    def _init(self):
+        if self._dda is not None:
+            return sd.init_stream_dda_state(self.config, device=self.device)
+        return mk.init_stream_state(self.config, device=self.device)
+
     def _advance(self, budget, n_iters: int):
-        """One kernel launch; returns the rays it traced, on the device."""
+        """One kernel launch (classic bounces or scaled DDA iterations);
+        returns the rays it traced, on the device."""
+        if self._dda is not None:
+            self.f, self.i, rays = sd.stream_step_dda(
+                self._dda, self._cam, self.config, self.key, self.f, self.i,
+                budget, n_iters * self._DDA_ITER_SCALE)
+            return rays
         self.f, self.i, rays = mk.stream_step(
             self._table, self._cam, self.config, self.key, self.f, self.i,
             budget, n_iters, n_spheres=self.scene.n_spheres)
@@ -200,17 +242,21 @@ class StreamingRenderer:
     def flush(self) -> None:
         """Drain all in-flight paths (no new budget): afterwards image() is
         the exact Monte Carlo estimate over each pixel's budgeted samples."""
-        # each round's cap covers the outstanding work (a lane may still owe
-        # its whole budget of samples x max_depth bounces), so one uncapped
-        # round drains every lane, and a second round with the same pending
-        # counts means a stuck stream. Capped rounds may legitimately leave
-        # the counts unchanged while a backlog drains.
+        # each round's cap covers the outstanding bounces (a lane may still
+        # owe its whole budget of samples x max_depth bounces), so one
+        # uncapped classic round drains every lane, and a second round with
+        # the same pending counts means a stuck stream. Capped rounds may
+        # legitimately leave the counts unchanged while a backlog drains, and
+        # so may an uncapped DDA round: a DDA bounce costs its walk steps + 1
+        # iterations, and its budget only scales by _DDA_ITER_SCALE. Both get
+        # the tolerance of a worst-case walk (<= ~2x the grid diameter per
+        # bounce) over max_depth bounces.
         cap = self.config.max_depth * max(self._budget_max, 1) + 64
         capped = (self.max_launch_iters is not None
                   and self.max_launch_iters < cap)
         if capped:
             cap = self.max_launch_iters
-        stall_limit = (1 if not capped
+        stall_limit = (1 if not (capped or self._dda is not None)
                        else max(3, (self.config.max_depth * 40)
                                 // max(cap, 1) + 2))
         last_pending = None
@@ -239,7 +285,7 @@ class StreamingRenderer:
     # -- invalidation (the reference's camera-update accumulation reset,
     # smallpt.cpp:906-920) ---------------------------------------------------
     def reset(self) -> None:
-        self.f, self.i = mk.init_stream_state(self.config, device=self.device)
+        self.f, self.i = self._init()
         self.budget = 0
         self._budget_max = 0
         self._budgets = None
@@ -250,9 +296,17 @@ class StreamingRenderer:
         self.reset()
 
     def update_scene(self, scene) -> None:
-        _check_route(scene, self.config, None)
+        """A new scene on the same route: the DDA route rebuilds its tables
+        (interactive edits do not re-run the routing rule, as in the JAX
+        package)."""
+        _check_route(scene, self.config)
         self.scene = scene
-        self._table = mk.build_scene_table(scene, self.config, self.device)
+        if self._dda is not None:
+            self._dda = sd.build_stream_dda_tables(scene, self.config,
+                                                   device=self.device)
+        else:
+            self._table = mk.build_scene_table(scene, self.config,
+                                               self.device)
         self.reset()
 
     # -- checkpoint / resume: the full stream state, in the JAX package's
@@ -269,7 +323,7 @@ class StreamingRenderer:
             stats_passes=self.stats.passes,
             stats_wall=self.stats.wall_s,
             stream_key_version=prng.STREAM_KEY_VERSION,
-            dda=False,
+            dda=self._dda is not None,
         )
 
     def load_checkpoint(self, path: str) -> None:
@@ -282,18 +336,21 @@ class StreamingRenderer:
                 f"uses v{prng.STREAM_KEY_VERSION} (resuming would mix "
                 "incompatible sample streams) — re-render from scratch"
             )
-        if "dda" in data and bool(data["dda"]):
+        ck_dda = bool(data["dda"]) if "dda" in data else False
+        if ck_dda != (self._dda is not None):
             raise ValueError(
-                "stream checkpoint traversal mode (dda=True) does not match "
-                "this renderer (dda=False); the DDA route is not ported yet "
-                "(ROADMAP.md, modules item 9)"
+                f"stream checkpoint traversal mode (dda={ck_dda}) does not "
+                f"match this renderer (dda={self._dda is not None}) — "
+                "construct the renderer with the matching dda= option"
             )
+        nf, ni = ((sd._nf_d(self.config), sd._NI_D) if ck_dda
+                  else (mk._NF, mk._NI))
         f, i = data["f"], data["i"]
         # validate the FULL shape, lane count included: a checkpoint of
         # another resolution would pass a rows-only check and fail later
         _, _, _, n_cols = mk._stream_geometry(self.config, None)
-        want_f = (mk._SUB * mk._NF, n_cols)
-        want_i = (mk._SUB * mk._NI, n_cols)
+        want_f = (mk._SUB * nf, n_cols)
+        want_i = (mk._SUB * ni, n_cols)
         if f.shape != want_f or i.shape != want_i:
             raise ValueError(
                 f"incompatible stream checkpoint: f{tuple(f.shape)}/"
@@ -304,7 +361,7 @@ class StreamingRenderer:
         self.f, self.i = mk.state_from_jax(f, i, self.device)
         # the per-pixel budgets live in the checkpointed budget plane
         G = self.config.n_pixels
-        plane = i.reshape(mk._NI, -1)[mk._I_BUDGET, :G].astype(np.int32)
+        plane = i.reshape(ni, -1)[mk._I_BUDGET, :G].astype(np.int32)
         self._budgets = plane
         self.budget = int(plane.min())
         self._budget_max = int(plane.max())

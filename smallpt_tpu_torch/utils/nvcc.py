@@ -3,9 +3,9 @@ with ``ctypes``.
 
 The kernels of this package have a plain ``extern "C"`` interface and do not
 include PyTorch's headers, so one ``nvcc`` call builds each in seconds. The
-library goes to ``smallpt_tpu_torch/_build/``, named by a hash of the source
-and the flags, and is built at first use in each checkout. Nothing is
-compiled at import time.
+library goes to ``smallpt_tpu_torch/_build/``, named by a hash of the source,
+the ``csrc/`` headers it includes and the flags, and is built at first use
+in each checkout. Nothing is compiled at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -58,31 +59,70 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found; tried: " + "; ".join(tried))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_digest(source: str) -> str:
+    """Hash of ``csrc/<source>``, of every ``csrc/`` header it includes
+    (followed through the headers' own includes), and of the flags: an edit
+    to a shared header gives the library a new name."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.add(name)
+        text = (CSRC_DIR / name).read_bytes()
+        h.update(name.encode() + b"\0" + text)
+        todo += [m.decode() for m in _INCLUDE.findall(text)]
+    return h.hexdigest()[:16]
+
+
+def _library_path(name: str, source: str) -> Path:
+    return BUILD_DIR / f"lib{name}_{source_digest(source)}.so"
+
+
+def build(libraries: dict[str, str]) -> None:
+    """Build every library {name: source} not built yet, with one nvcc
+    process per source, all started together; raises if one fails. Each
+    build's command, seconds and ptxas report go to ``builds``."""
+    todo = {n: s for n, s in libraries.items()
+            if not _library_path(n, s).exists()}
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, source in todo.items():
+        out = _library_path(name, source)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+        procs[name] = (cmd, tmp, out, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (cmd, tmp, out, t0, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}: "
+                          f"{' '.join(cmd)}\n{stdout}{stderr}")
+            continue
+        os.replace(tmp, out)
+        builds[name] = {"cmd": cmd, "seconds": time.perf_counter() - t0,
+                        "ptxas": stderr.strip()}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str, source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` (once per source hash) and load it."""
     if name in _loaded:
         return _loaded[name]
-    src = CSRC_DIR / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if not out.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"lib{name}_{digest}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-        builds[name] = {"cmd": cmd, "seconds": time.perf_counter() - t0,
-                        "ptxas": proc.stderr.strip()}
-    lib = ctypes.CDLL(str(out))
+    build({name: source})
+    lib = ctypes.CDLL(str(_library_path(name, source)))
     _loaded[name] = lib
     return lib

@@ -29,7 +29,8 @@ names = [m.name for m in pkgutil.walk_packages(smallpt_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert {{"smallpt_tpu_torch.engine.streaming",
-         "smallpt_tpu_torch.engine.quality"}} <= set(names)
+         "smallpt_tpu_torch.engine.quality",
+         "smallpt_tpu_torch.ops.stream_dda"}} <= set(names)
 import chip_smoke
 assert callable(chip_smoke.main)
 assert not any(k.startswith("jax") and sys.modules[k] is not None
@@ -44,8 +45,8 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         capture_output=True, text=True, timeout=300, cwd=str(ROOT),
     )
     assert proc.returncode == 0, proc.stderr
-    # every submodule imported, the streaming route's among them
-    assert int(proc.stdout.split()[-1]) >= 17
+    # every submodule imported, the streaming routes' among them
+    assert int(proc.stdout.split()[-1]) >= 18
 
 
 def _sources():
@@ -75,8 +76,8 @@ def test_nothing_built_or_launched_at_import():
                if re.match(r"(import|from)\s", ln)]
         assert not any("triton" in ln or "cpp_extension" in ln
                        for ln in top), path
-    assert "torch/extension.h" not in (PORT / "csrc" / "megakernel.cu"
-                                       ).read_text()
+    for src in (PORT / "csrc").iterdir():
+        assert "torch/extension.h" not in src.read_text(), src
 
 
 def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
@@ -85,17 +86,77 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     from smallpt_tpu_torch.ops import megakernel as mk
     from smallpt_tpu_torch.utils import nvcc
 
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
     fn = types.SimpleNamespace(argtypes=None, restype=None)
     sfn = types.SimpleNamespace(argtypes=None, restype=None)
+    dfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
                         lambda name, src: types.SimpleNamespace(
-                            smallpt_mega_pass=fn, smallpt_stream_step=sfn))
+                            smallpt_mega_pass=fn, smallpt_stream_step=sfn,
+                            smallpt_stream_dda=dfn))
     assert mk._kernel_lib() is fn
     assert fn.argtypes == [ctypes.c_void_p] * 7
     assert fn.restype is ctypes.c_int
     assert mk._stream_lib() is sfn
     assert sfn.argtypes == [ctypes.c_void_p] * 8
     assert sfn.restype is ctypes.c_int
+    assert sd._dda_lib() is dfn
+    assert dfn.argtypes == [ctypes.c_void_p] * 12
+    assert dfn.restype is ctypes.c_int
+
+
+def test_build_key_covers_included_headers(monkeypatch, tmp_path):
+    """The library's name hashes the source and every csrc/ header it
+    includes: an edit to lane.cuh gives both kernels new libraries, an edit
+    to one source only its own."""
+    from smallpt_tpu_torch.utils import nvcc
+
+    for src in (PORT / "csrc").iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(nvcc, "CSRC_DIR", tmp_path)
+    before = {s: nvcc.source_digest(s) for s in ("megakernel.cu",
+                                                  "stream_dda.cu")}
+    assert b'#include "lane.cuh"' in (tmp_path / "stream_dda.cu").read_bytes()
+    with open(tmp_path / "lane.cuh", "a") as f:
+        f.write("\n// an edit\n")
+    after = {s: nvcc.source_digest(s) for s in before}
+    assert all(after[s] != before[s] for s in before)
+    with open(tmp_path / "stream_dda.cu", "a") as f:
+        f.write("\n// an edit\n")
+    assert nvcc.source_digest("megakernel.cu") == after["megakernel.cu"]
+    assert nvcc.source_digest("stream_dda.cu") != after["stream_dda.cu"]
+
+
+def test_build_starts_every_nvcc_before_waiting(monkeypatch, tmp_path):
+    """nvcc.build runs one nvcc per source, all started together, and
+    raises with the failing command's output."""
+    from smallpt_tpu_torch.utils import nvcc
+
+    events = []
+
+    class FakeProc:
+        def __init__(self, cmd, **kw):
+            self.cmd, self.returncode = cmd, 0
+            events.append(("start", cmd[-1]))
+
+        def communicate(self, timeout=None):
+            events.append(("wait", self.cmd[-1]))
+            if "stream_dda" in self.cmd[-1]:
+                self.returncode = 1
+                return "", "error: a fault"
+            pathlib.Path(self.cmd[self.cmd.index("-o") + 1]).write_bytes(b"")
+            return "", "ptxas info    : Used 64 registers"
+
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nvcc, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", FakeProc)
+    with pytest.raises(RuntimeError, match="a fault"):
+        nvcc.build({"a": "megakernel.cu", "b": "stream_dda.cu"})
+    assert [e[0] for e in events] == ["start", "start", "wait", "wait"]
+    assert nvcc.builds["a"]["ptxas"].endswith("64 registers")
+    assert nvcc._library_path("a", "megakernel.cu").exists()
+    assert not nvcc._library_path("b", "stream_dda.cu").exists()
 
 
 def test_find_nvcc_reports_every_place_tried(monkeypatch, tmp_path):

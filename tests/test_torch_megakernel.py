@@ -165,9 +165,9 @@ def test_wrapper_rejects_unsupported_configs(bad, exc):
 
 def test_wrapper_rejects_big_tables_and_bad_tensors():
     cfg = tcfg.RenderConfig(width=8, height=8, **_T_LEG)
-    big = tscene.procedural_sphere_scene(n=tmk.MEGA_MAX_SPHERES + 1)
+    big = tscene.procedural_sphere_scene(n=tmk.MAX_SPHERES + 1)
     table, cam = _tables(big, cfg)
-    with pytest.raises(ValueError, match="at most 2048"):
+    with pytest.raises(ValueError, match="at most 65536"):
         tmk.mega_pass(table, cam, cfg, trng.base_key(0))
     table, cam = _tables(tscene.cornell_box_scene(), cfg)
     with pytest.raises(TypeError):
@@ -195,9 +195,9 @@ def test_sweep_skips_table_padding():
         np.testing.assert_array_equal(g.numpy(), w.numpy())
     with pytest.raises(ValueError, match="17"):
         tmk.mega_pass(table, cam, cfg, key, n_spheres=17)
-    big = tscene.procedural_sphere_scene(n=tmk.MEGA_MAX_SPHERES + 1)
+    big = tscene.procedural_sphere_scene(n=tmk.MAX_SPHERES + 1)
     table, cam = _tables(big, cfg)
-    with pytest.raises(ValueError, match="at most 2048"):
+    with pytest.raises(ValueError, match="at most 65536"):
         tmk.mega_pass(table, cam, cfg, key, n_spheres=big.n_spheres)
 
 

@@ -446,6 +446,13 @@ def test_v1_checkpoint_refused(tmp_path):
     np.savez(p, **data)
     with pytest.raises(ValueError, match="dda=True"):
         r.load_checkpoint(p)
+    # the DDA route refuses a classic checkpoint the same way
+    d = StreamingRenderer(cornell_box_scene(), smallpt_camera(), CFG,
+                          dda=True, device="cpu")
+    data["dda"] = False
+    np.savez(p, **data)
+    with pytest.raises(ValueError, match="dda=False"):
+        d.load_checkpoint(p)
 
 
 def test_checkpoint_wrong_resolution_refused(tmp_path):
@@ -493,13 +500,17 @@ def test_stream_step_wrapper_checks_and_counts_no_cpu_launch():
 
 
 def test_unported_streaming_routes_raise():
+    """The streaming routes the port runs and the refusals that remain:
+    dda=True and a scene the JAX package sends to its DDA route (above 2048
+    spheres, at most one NEE light) take the DDA route; mesh scenes and
+    refraction splitting raise."""
     cam = smallpt_camera()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StreamingRenderer(cornell_box_scene(), cam, CFG, dda=True,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StreamingRenderer(procedural_sphere_scene(n=2049), cam, CFG,
-                          device="cpu")
+    forced = StreamingRenderer(cornell_box_scene(), cam, CFG, dda=True,
+                               device="cpu")
+    assert forced._dda is not None and forced.f.shape[0] == 8 * 19
+    big = StreamingRenderer(procedural_sphere_scene(n=2049), cam, CFG,
+                            device="cpu")
+    assert big._dda is not None and big.i.shape[0] == 8 * 9
     with pytest.raises(NotImplementedError, match="mesh"):
         StreamingRenderer(object(), cam, CFG, device="cpu")
     with pytest.raises(ValueError, match="split_budget"):

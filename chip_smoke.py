@@ -5,13 +5,14 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's two kernel libraries from csrc/ with nvcc, both at
+It builds the port's four kernel libraries from csrc/ with nvcc, all at
 once: megakernel.cu (the per-pass mega_pass and the streaming stream_step,
-with NEE in both) and stream_dda.cu (the DDA streaming kernel,
-stream_step_dda). It holds each kernel against its plain PyTorch version (at
-small sizes, and on one key at the main paths' full width) and against the
-stored f64 golden images, drives the main paths through the kernels and
-times them:
+with NEE in both), stream_dda.cu (the DDA streaming kernel,
+stream_step_dda), closest_hit.cu (K2, the wavefronts' sphere closest hit)
+and closest_tri.cu (K6, their triangle closest hit). It holds each kernel
+against its plain PyTorch version (at small sizes, and on the main paths'
+own rays at full width) and against the stored f64 golden images, drives
+the main paths through the kernels and times them:
 - per pass: ProgressiveRenderer on the Cornell box at 1024x768, 4 spp a
   pass, max_depth 48;
 - streaming (bench.py's headline configuration): StreamingRenderer on the
@@ -23,7 +24,15 @@ times them:
   and its image is held to the classic route's on the same scene; then the
   config-5 shape (--procedural-hd): 1920x1080, 24 spp, launches capped at
   16 bounce iterations, whose launches are chained through the plain
-  version too and held to it.
+  version too and held to it;
+- the wavefront schedulers through the closest-hit kernels
+  (ProgressiveRenderer): REGEN with K2 on the Cornell box at 1024x768, 4
+  spp a pass, max_depth 48, without and with NEE, and on
+  procedural_sphere_scene(10000) at 512x384, 4 spp, max_depth 24, each
+  pass's image held to the megakernel's on the same key; FLAT with K6 on
+  procedural_mesh_scene(500) at 256x192, held to the plain intersector
+  route; FLAT with K2 and split_budget 8 on the Cornell box at 1024x768.
+  The goldens and the AOV modes run through these routes too.
 The megakernel's branches that the main paths do not take (thin lens,
 environment light, two NEE lights, row bands and sample slices, 2048
 spheres, the opted-in shared memory at 4096 spheres and the global-memory
@@ -54,6 +63,7 @@ GOLDEN_NEE = os.path.join(REPO, "tests", "data",
 GOLDEN_DOF = os.path.join(REPO, "tests", "data", "golden_dof_32x24.npz")
 GOLDEN_SHALLOW = os.path.join(REPO, "tests", "data",
                               "golden_cornell_shallow_48x36.npz")
+GOLDEN_MESH = os.path.join(REPO, "tests", "data", "golden_mesh_32x24.npz")
 T0 = time.perf_counter()
 
 # H100 SXM float32 rate outside the tensor cores and HBM3 rate (NVIDIA data
@@ -96,6 +106,16 @@ MAX_FRAC = 0.02
 # reads 1.22e-2 at the first NEE check (PERF.md, "the kernel-vs-plain mean
 # limit"). KP_MEAN sits between.
 KP_MEAN = 5e-3
+# The JAX suite's gate for a dense procedural sphere scene at 512x384, path
+# for path on the same sample streams (tests/test_golden.py::
+# test_binned_route_oracle_gate_512x384_procedural): at most 5% of values
+# diverge by more than 10%, its thousands of sphere rims razoring more paths
+# than Cornell's 9 spheres. The REGEN route through K2 sweeps part B's small
+# spheres in the direct quadratic, K1a every sphere in the stable form; on
+# procedural_sphere_scene(10000) at 512x384 that formula alone moves 3.4%
+# of values against a stable-only K2 with everything else equal (PERF.md
+# §6, F8), above tests/test_megakernel.py::_compare's 2%.
+MAX_FRAC_PROCEDURAL = 0.05
 
 
 def phase(name: str, **info) -> None:
@@ -848,6 +868,536 @@ def k3_hd(dev) -> dict:
                                        sd._nf_d(cfg), r._dda)))
 
 
+# float ops of one (ray, row) test of the closest-hit kernels, counted from
+# csrc/lane.cuh and csrc/closest_tri.cu (a square root or a division counts
+# as one op): K2's stable form (sphere_tt) 37 and the fold's compare 1; its
+# direct quadratic (sphere_tt_fast) 25 and the compare; K6's row (iq's
+# formulation, the bounds and the fold) 49; a skipped row (radius 0, or a
+# padding triangle) its one compare.
+OPS_K2_STABLE = 38
+OPS_K2_FAST = 26
+OPS_K6_ROW = 49
+OPS_ROW_SKIP = 1
+
+
+def k2_bound(table, n_a: int, n_b: int, n_rays: int) -> dict:
+    """The least time of one K2 launch over n_rays rays: its operations
+    (every live row of part A in the stable form, of part B in the direct
+    quadratic, a compare per skipped row) at the float rate, and its bytes
+    (24 B of ray in and 8 B out a ray, the table's rows once) at the
+    memory rate."""
+    r = table[:n_a + n_b, 3].cpu()
+    live_a, live_b = int((r[:n_a] > 0).sum()), int((r[n_a:] > 0).sum())
+    dead = n_a + n_b - live_a - live_b
+    ops = n_rays * (OPS_K2_STABLE * live_a + OPS_K2_FAST * live_b
+                    + OPS_ROW_SKIP * dead)
+    nbytes = n_rays * (24 + 8) + (n_a + n_b) * 32
+    return _bound(ops, nbytes, live_a=live_a, live_b=live_b, dead=dead)
+
+
+def k6_bound(table, n_rays: int) -> dict:
+    """The least time of one K6 launch over n_rays rays: OPS_K6_ROW per
+    (ray, triangle), a compare per padding row, at the float rate; 24 B in
+    and 16 B out a ray and the table's 64-B rows once at the memory rate."""
+    live = int((table[:, 12] > 0.5).sum())
+    dead = table.shape[0] - live
+    ops = n_rays * (OPS_K6_ROW * live + OPS_ROW_SKIP * dead)
+    nbytes = n_rays * (24 + 16) + table.shape[0] * 64
+    return _bound(ops, nbytes, live=live, dead=dead)
+
+
+def _bound(ops, nbytes, **info) -> dict:
+    ops_ms, bytes_ms = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(info, ops=ops, bytes=nbytes, bound_ops_ms=ops_ms,
+                bound_bytes_ms=bytes_ms,
+                bound_nofma_ms=ops / PEAK_FP32_NOFMA * 1e3,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
+    for fn in (mk.mega_pass, mk.stream_step, sd.stream_step_dda,
+               ip.closest_hit, mp.closest_tri):
+        fn.launches = 0
+
+
+def counts() -> dict:
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
+    return {fn.__name__: fn.launches for fn in (
+        mk.mega_pass, mk.stream_step, sd.stream_step_dda, ip.closest_hit,
+        mp.closest_tri)}
+
+
+def camera_and_bounce_rays(scene, cfg, camera, key, intersect_fn, dev):
+    """The camera ray of each pixel's first sample, and the ray each lane
+    continues with after one bounce through intersect_fn (its own ray where
+    the path ends): ((org, dirs), (org, dirs)), (N, 3) each on dev."""
+    import torch
+
+    from smallpt_tpu_torch.core import camera as cam
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.ops import wavefront as wf
+
+    pixel = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(pixel)
+    org, dirs = cam.generate_rays(
+        camera, rng.camera_uniforms(key, pixel * cfg.spp), cfg,
+        pixel % cfg.width, pixel // cfg.width, zero, zero)
+    nxt = wf.bounce_step(wf.initial_state(org, dirs, 1), intersect_fn,
+                         scene.material, cfg, key, pixel)
+    return (org, dirs), (nxt.org, nxt.dir)
+
+
+def exact(name, got, want) -> dict:
+    """Kernel outputs against the plain version's: every tensor equal."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            diff = int((a != b).sum())
+            raise AssertionError(f"{name}: output {k} differs on {diff} of "
+                                 f"{a.numel()} rays")
+    t = got[0]
+    hit = t < 3e38
+    return dict(rays=t.numel(), hit_share=float(hit.float().mean()),
+                equal=True, max_abs_err=0.0)
+
+
+def k2_vs_plain(name, scene, org, dirs, dev) -> dict:
+    """K2 against closest_hit_plain on the same rays ((N, 3) each): t and
+    slot bit-equal."""
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    table, _, nbc, nsc = ip.build_sphere_table(scene, device=dev)
+    o, d = org.T.contiguous(), dirs.T.contiguous()
+    args = (o, d, table, 64 * nbc, 64 * nsc)
+    return exact(name, ip.closest_hit(*args), ip.closest_hit_plain(*args))
+
+
+def k6_vs_plain(name, scene, org, dirs, dev) -> dict:
+    """K6 against closest_tri_plain on the same rays: t, id, u, v
+    bit-equal."""
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    table = mp.build_tri_table(scene, device=dev)
+    o, d = org.T.contiguous(), dirs.T.contiguous()
+    return exact(name, mp.closest_tri(o, d, table),
+                 mp.closest_tri_plain(o, d, table))
+
+
+def closest_hit_phases(dev) -> dict:
+    """K2 against its plain version: the Cornell box on the 786,432 camera
+    rays of 1024x768 and their first-bounce rays, procedural_sphere_scene
+    (10000) on 16,384 camera and first-bounce rays (128x128), the
+    300-sphere scene (part A truncates) likewise, 77 rays, and 77 rays that
+    miss every sphere."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, procedural_sphere_scene, scene_to,
+    )
+    from smallpt_tpu_torch.engine.renderer import make_intersect_fn
+
+    leg = dict(camera_model=CameraModel.LEGACY, filter=Filter.TENT)
+    key = rng.fold_in(rng.base_key(0), 1000)
+    out = {}
+    for name, scene, (w, h) in (
+            ("cornell_1024x768", cornell_box_scene(), (1024, 768)),
+            ("procedural10000_128x128", procedural_sphere_scene(10000),
+             (128, 128)),
+            ("procedural300_128x128", procedural_sphere_scene(300),
+             (128, 128))):
+        cfg = RenderConfig(width=w, height=h, max_depth=48, **leg)
+        ds = scene_to(scene, dev)
+        cam_rays, bounce_rays = camera_and_bounce_rays(
+            ds, cfg, smallpt_camera(), key, make_intersect_fn(ds, cfg), dev)
+        out[f"{name}_camera"] = k2_vs_plain(name, scene, *cam_rays, dev)
+        out[f"{name}_bounce"] = k2_vs_plain(name, scene, *bounce_rays, dev)
+    org, dirs = cam_rays[0][:77], cam_rays[1][:77]
+    out["cornell_77"] = k2_vs_plain("77 rays", cornell_box_scene(), org,
+                                    dirs, dev)
+    far = torch.tensor([[50.0, 40.0, 1e6]], device=dev).expand(77, 3)
+    away = torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(77, 3)
+    miss = k2_vs_plain("all miss", cornell_box_scene(), far, away, dev)
+    if miss["hit_share"] != 0.0:
+        raise AssertionError("all-miss rays hit")
+    out["cornell_all_miss_77"] = miss
+    return out
+
+
+def closest_tri_phases(dev) -> dict:
+    """K6 against its plain version: the debug triangle on the matrix
+    camera's rays (64x48), procedural_mesh_scene(500) (32,014 triangles) on
+    16,384 camera and first-bounce rays (128x128), and the 60-ball scene
+    (3,854 triangles) on 32x24 camera and first-bounce rays."""
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import (
+        default_matrix_camera, smallpt_camera,
+    )
+    from smallpt_tpu_torch.core.scene import (
+        procedural_mesh_scene, scene_to, single_triangle_scene,
+    )
+    from smallpt_tpu_torch.engine.renderer import make_intersect_fn
+
+    key = rng.fold_in(rng.base_key(0), 1001)
+    out = {}
+    for name, scene, cam, cfg in (
+            ("triangle_64x48", single_triangle_scene(),
+             default_matrix_camera(), RenderConfig(width=64, height=48)),
+            ("mesh500_128x128", procedural_mesh_scene(500), smallpt_camera(),
+             RenderConfig(width=128, height=128, camera_model=CameraModel
+                          .LEGACY, filter=Filter.TENT)),
+            ("mesh60_32x24", procedural_mesh_scene(60, seed=3),
+             smallpt_camera(), RenderConfig(width=32, height=24,
+                                            camera_model=CameraModel.LEGACY,
+                                            filter=Filter.TENT))):
+        ds = scene_to(scene, dev)
+        cam_rays, bounce_rays = camera_and_bounce_rays(
+            ds, cfg, cam, key, make_intersect_fn(ds, cfg), dev)
+        out[f"{name}_camera"] = k6_vs_plain(name, scene, *cam_rays, dev)
+        out[f"{name}_bounce"] = k6_vs_plain(name, scene, *bounce_rays, dev)
+    if not 0 < out["triangle_64x48_camera"]["hit_share"] < 1:
+        raise AssertionError("the debug triangle is not in view")
+    return out
+
+
+def wavefront_golden_phases(dev) -> dict:
+    """The goldens through the wavefront routes and the closest-hit
+    kernels (tests/test_torch_wavefront.py's cases): Cornell 48x36 through
+    REGEN and K2 (5% gate), the NEE small light 32x24 through FLAT and K2,
+    the thin lens 32x24 through REGEN and K2, and the 60-ball mesh 32x24
+    through FLAT and K6 (2% gates)."""
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig, Scheduler,
+    )
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, cornell_box_small_light_scene,
+        procedural_mesh_scene,
+    )
+    from smallpt_tpu_torch.engine.renderer import render
+
+    base = dict(camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+                intersector=Intersector.PALLAS)
+    regen, flat = Scheduler.REGEN, Scheduler.FLAT
+    cases = {
+        "cornell48_regen": (GOLDEN, cornell_box_scene(), dict(
+            width=48, height=36, spp_per_cell=4, max_depth=24,
+            scheduler=regen), 7, 0.05, "closest_hit"),
+        "nee32_flat": (GOLDEN_NEE, cornell_box_small_light_scene(), dict(
+            width=32, height=24, spp_per_cell=2, max_depth=16,
+            nee_lights=(8,), scheduler=flat), 11, 0.02, "closest_hit"),
+        "dof32_regen": (GOLDEN_DOF, cornell_box_scene(), dict(
+            width=32, height=24, spp_per_cell=2, max_depth=12, aperture=4.0,
+            focal_distance=120.0, scheduler=regen), 13, 0.02, "closest_hit"),
+        "mesh32_flat": (GOLDEN_MESH, procedural_mesh_scene(60, seed=3), dict(
+            width=32, height=24, spp_per_cell=2, max_depth=10,
+            scheduler=flat), 19, 0.02, "closest_tri"),
+    }
+    out = {}
+    for name, (path, scene, kw, seed, frac, kernel) in cases.items():
+        zero_counts()
+        img = render(scene, smallpt_camera(), RenderConfig(**base, **kw),
+                     rng.base_key(seed), device=dev)
+        if not counts()[kernel]:
+            raise AssertionError(f"{name}: {kernel} never launched")
+        out[name] = gate(img.cpu().numpy(), np.load(path)["image"], frac)
+    return out
+
+
+def aov_phases(dev) -> dict:
+    """The AOV modes at 256x192, REGEN, through K2 against the plain
+    intersector route on the same key: NORMAL, EMISSION and UV under the
+    image gate (2%); INST_ID per sample value within two ulp of the colour
+    hash (2^-7) on 98% of values (a razor flip changes the id)."""
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, Mode, RenderConfig, Scheduler,
+    )
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene
+    from smallpt_tpu_torch.engine.renderer import render
+
+    out = {}
+    for mode in (Mode.NORMAL, Mode.EMISSION, Mode.UV, Mode.INST_ID):
+        cfg = RenderConfig(width=256, height=192, spp_per_cell=1,
+                           max_depth=4, mode=mode, scheduler=Scheduler.REGEN,
+                           camera_model=CameraModel.LEGACY,
+                           filter=Filter.TENT)
+        key = rng.base_key(21)
+        zero_counts()
+        img = render(cornell_box_scene(), smallpt_camera(),
+                     cfg.replace(intersector=Intersector.PALLAS), key,
+                     device=dev).cpu().numpy()
+        if not counts()["closest_hit"]:
+            raise AssertionError(f"{mode.value}: K2 never launched")
+        ref = render(cornell_box_scene(), smallpt_camera(), cfg, key,
+                     device=dev).cpu().numpy()
+        if mode == Mode.INST_ID:
+            close = float((np.abs(img - ref) <= 2.0 ** -7 * cfg.spp).mean())
+            if close < 0.98 or not np.isfinite(img).all():
+                raise AssertionError(f"inst_id: {close} of values close")
+            out[mode.value] = {"close_share": close}
+        else:
+            out[mode.value] = gate(img, ref, 0.02)
+    return out
+
+
+def capture_calls(mod, name: str, fn, which) -> list:
+    """Run fn() with mod.name wrapped so that the arguments of its calls
+    numbered in ``which`` (from 0) are kept; returns them."""
+    real, kept, n = getattr(mod, name), [], [0]
+
+    def spy(*a, **k):
+        if n[0] in which:
+            kept.append(a)
+        n[0] += 1
+        return real(*a, **k)
+
+    # the wrapper counts its launches on the name it is bound to
+    spy.launches = real.launches
+    setattr(mod, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(mod, name, real)
+        real.launches = spy.launches
+    return kept
+
+
+def compare_images(name, img, rays, ref, ref_rays,
+                   max_frac: float = MAX_FRAC) -> dict:
+    """tests/test_megakernel.py::_compare's gate: max_frac (2%) of values
+    off by 10%, means within 5%, rays within max(64, 0.1%)."""
+    st = gate(img, ref, max_frac)
+    rays_close(name, int(rays), int(ref_rays))
+    st.update(rays=int(rays), ref_rays=int(ref_rays))
+    return st
+
+
+def wavefront_path(name, scene, camera, cfg, dev, kernel: str,
+                   n_passes: int = 3) -> dict:
+    """A wavefront main path at full width: ProgressiveRenderer passes (one
+    warm-up, then n_passes timed with CUDA events), the launch counts zeroed
+    just before the timed passes and read just after; the image finite.
+    Then the inputs of the first launch of a pass and of one in its middle,
+    captured from a further pass: the kernel on them against its plain
+    version (bit-equal), its CUDA-event time, the plain version's host time
+    and the launch's bound; the device's busy share over one pass
+    (torch.profiler); the host part of a pass (pass time less its launches
+    at the kernel's time)."""
+    import torch
+
+    from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    r = ProgressiveRenderer(scene, camera, cfg, seed=0, device=dev)
+    r.step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_build
+    rays0 = r.stats.rays
+    zero_counts()
+    pass_ms = [cuda_ms(r.step, 1)[0] for _ in range(n_passes)]
+    launched = counts()
+    rays = (r.stats.rays - rays0) / n_passes
+    if not launched[kernel] or launched["mega_pass"]:
+        raise AssertionError(f"{name}: launches {launched}")
+    img = r.image
+    if not np.isfinite(img).all() or img.shape != (cfg.height, cfg.width, 3):
+        raise AssertionError(f"{name}: image not finite {img.shape}")
+    per_pass = launched[kernel] / n_passes
+    mod, plain = ((ip, ip.closest_hit_plain) if kernel == "closest_hit"
+                  else (mp, mp.closest_tri_plain))
+    kept = capture_calls(mod, kernel, r.step, {0, int(per_pass) // 2})
+    launches = {}
+    for k, args in zip(("first", "middle"), kept):
+        n = args[0].shape[1]
+        k_ms, got = cuda_ms(lambda: getattr(mod, kernel)(*args), 5)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        bound = (k2_bound(args[2], args[3], args[4], n)
+                 if kernel == "closest_hit" else k6_bound(args[2], n))
+        launches[k] = dict(rays=n, kernel_ms=k_ms, plain_ms=plain_ms,
+                           vs_plain=exact(name, got, want), **bound)
+    ms = float(np.mean(pass_ms))
+    kernel_ms = float(np.mean([v["kernel_ms"] for v in launches.values()]))
+    return dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
+                max_depth=cfg.max_depth, scheduler=cfg.scheduler.value,
+                split_budget=cfg.split_budget, nee=list(cfg.nee_lights),
+                first_pass_s=warm_s, passes=n_passes, launches=launched,
+                launches_per_pass=per_pass, pass_ms=pass_ms,
+                ms_per_pass=ms, rays=rays, mrays_per_s=rays / ms / 1e3,
+                kernel=launches, kernel_ms_per_launch=kernel_ms,
+                host_ms=ms - per_pass * kernel_ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                mean=float(img.mean()), profile=profile(r.step))
+
+
+def part_b_effect(scene, camera, cfg, key, dev) -> dict:
+    """What part B's direct quadratic alone does to a REGEN pass (reported,
+    not gated): the pass through K2 against the same pass through K2 on a
+    table that holds every sphere in its stable part, and that pass against
+    K1a's on the same key (the image gate's numbers and rays)."""
+    import torch
+
+    from smallpt_tpu_torch.core.scene import scene_to
+    from smallpt_tpu_torch.engine.renderer import make_intersect_fn, \
+        render_pixels
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    ds = scene_to(scene, dev)
+    n = scene.n_spheres
+    n_pad = -(-n // 64) * 64
+    rows = torch.zeros((n_pad, 8), dtype=torch.float32, device=dev)
+    rows[:n, 0:3], rows[:n, 3] = ds.center, ds.radius
+    rows[:n, 4] = torch.clamp(float(np.float32(cfg.intersect_eps_rel))
+                              * ds.radius, min=cfg.intersect_eps)
+    perm = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+    perm[:n] = torch.arange(n, device=dev)
+    stable = (rows, perm, n_pad // 64, 0)
+    pixel = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
+
+    def regen(fn):
+        rad, rays = render_pixels(ds, camera, cfg, key, pixel,
+                                  pixel % cfg.width, pixel // cfg.width, 0,
+                                  cfg.spp, intersect_fn=fn)
+        return rad.view(cfg.height, cfg.width, 3).cpu().numpy(), int(rays)
+
+    def report(a, b):
+        rel = np.abs(a[0] - b[0]) / (1.0 + np.abs(b[0]))
+        return dict(frac_div=float((rel > 0.1).mean()),
+                    mean_rel=float(abs(a[0].mean() - b[0].mean())
+                                   / (abs(b[0].mean()) + 0.1)),
+                    rays=a[1], ref_rays=b[1])
+
+    k2 = regen(make_intersect_fn(ds, cfg))
+    k2_stable = regen(lambda o, d: ip.intersect_spheres_pallas(
+        o, d, ds, want_uv=False, tables=stable))
+    rad, rays = mk.mega_pass(mk.build_scene_table(scene, cfg, dev),
+                             mk.build_camera_vec(camera, cfg, dev), cfg,
+                             key, n_spheres=n)
+    mega = (rad.view(cfg.height, cfg.width, 3).cpu().numpy(),
+            int(rays.sum(dtype=torch.int64)))
+    return {"k2_vs_k2_stable_only": report(k2, k2_stable),
+            "k2_stable_only_vs_mega_pass": report(k2_stable, mega),
+            "k2_vs_mega_pass": report(k2, mega)}
+
+
+def wavefront_main_paths(dev) -> dict:
+    """The four wavefront main paths at full width:
+    1. REGEN + K2 on the Cornell box at 1024x768, 4 spp a pass, max_depth
+       48, without and with NEE on sphere 8; a pass's image held to the
+       megakernel's (mega_pass, K1a) on the same key;
+    2. REGEN + K2 on procedural_sphere_scene(10000) at 512x384, 4 spp,
+       max_depth 24 (bench.py --procedural-brute with the scheduler named);
+       held to mega_pass on the same key under the JAX suite's gate for
+       this scene class (MAX_FRAC_PROCEDURAL);
+    3. FLAT + K6 on procedural_mesh_scene(500) at 256x192, 4 spp, max_depth
+       12 (bench.py --mesh's brute shape); held to the plain intersector
+       route of the same config on the card;
+    4. FLAT + K2 with split_budget 8 on the Cornell box at 1024x768, the
+       rest as path 1: finite, its mean within 2% of path 1's."""
+    import torch
+
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig, Scheduler,
+    )
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, procedural_mesh_scene, procedural_sphere_scene,
+    )
+    from smallpt_tpu_torch.engine.renderer import render_with_stats
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    leg = dict(camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+               intersector=Intersector.PALLAS)
+    cam = smallpt_camera()
+    key = rng.fold_in(rng.base_key(0), 0)
+    out = {}
+
+    def vs_mega(name, scene, cfg, max_frac=MAX_FRAC):
+        img, rays = render_with_stats(scene, cam, cfg, key, device=dev)
+        ref, ref_rays = mk.mega_pass(mk.build_scene_table(scene, cfg, dev),
+                                     mk.build_camera_vec(cam, cfg, dev),
+                                     cfg, key, n_spheres=scene.n_spheres)
+        torch.cuda.synchronize()
+        return compare_images(name, img.cpu().numpy(),
+                              rays, ref.view(img.shape).cpu().numpy(),
+                              ref_rays.sum(dtype=torch.int64), max_frac)
+
+    cornell = cornell_box_scene()
+    c1 = RenderConfig(width=1024, height=768, spp_per_cell=1, max_depth=48,
+                      scheduler=Scheduler.REGEN, **leg)
+    for name, cfg in (("regen_main_cornell_1024x768", c1),
+                      ("regen_main_cornell_1024x768_nee",
+                       c1.replace(nee_lights=(8,)))):
+        out[name] = wavefront_path(name, cornell, cam, cfg, dev,
+                                   "closest_hit")
+        out[name]["vs_mega_pass"] = vs_mega(name, cornell, cfg)
+        phase(name, **out[name])
+
+    big = procedural_sphere_scene(10000)
+    c2 = RenderConfig(width=512, height=384, spp_per_cell=1, max_depth=24,
+                      scheduler=Scheduler.REGEN, **leg)
+    name = "regen_main_procedural10000_512x384"
+    out[name] = wavefront_path(name, big, cam, c2, dev, "closest_hit")
+    out[name]["vs_mega_pass"] = vs_mega(name, big, c2, MAX_FRAC_PROCEDURAL)
+    out[name]["part_b_formula"] = part_b_effect(big, cam, c2, key, dev)
+    phase(name, **out[name])
+
+    mesh = procedural_mesh_scene(500)
+    c3 = RenderConfig(width=256, height=192, spp_per_cell=1, max_depth=12,
+                      scheduler=Scheduler.FLAT, **leg)
+    name = "flat_main_mesh500_256x192"
+    out[name] = wavefront_path(name, mesh, cam, c3, dev, "closest_tri")
+    img, rays = render_with_stats(mesh, cam, c3, key, device=dev)
+    t = time.perf_counter()
+    ref, ref_rays = render_with_stats(
+        mesh, cam, c3.replace(intersector=Intersector.JAX), key, device=dev)
+    torch.cuda.synchronize()
+    out[name]["vs_plain_route"] = dict(
+        seconds=time.perf_counter() - t,
+        **compare_images(name, img.cpu().numpy(), rays, ref.cpu().numpy(),
+                         ref_rays))
+    phase(name, **out[name])
+
+    name = "flat_split8_cornell_1024x768"
+    c4 = c1.replace(scheduler=Scheduler.FLAT, split_budget=8)
+    out[name] = wavefront_path(name, cornell, cam, c4, dev, "closest_hit")
+    ref_mean = out["regen_main_cornell_1024x768"]["mean"]
+    mean_rel = abs(out[name]["mean"] - ref_mean) / ref_mean
+    if mean_rel >= 0.02:
+        raise AssertionError(f"{name}: mean {out[name]['mean']} vs REGEN "
+                             f"{ref_mean}")
+    out[name]["mean_rel_vs_regen"] = mean_rel
+    phase(name, **out[name])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -865,7 +1415,9 @@ def main() -> int:
     )
     from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
     from smallpt_tpu_torch.engine.renderer import render
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
     from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
     from smallpt_tpu_torch.ops import stream_dda as sd
     from smallpt_tpu_torch.utils import image as img_io
     from smallpt_tpu_torch.utils import nvcc
@@ -880,15 +1432,18 @@ def main() -> int:
     phase("device", kind=kind, count=torch.cuda.device_count(),
           nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- 2. build: both libraries at once -------------------------------
+    # ---- 2. build: the four libraries at once ---------------------------
+    libraries = (mk.LIBRARY, sd.LIBRARY, ip.LIBRARY, mp.LIBRARY)
     t_build = time.perf_counter()
-    nvcc.build(dict([mk.LIBRARY, sd.LIBRARY]))
+    nvcc.build(dict(libraries))
     t_build = time.perf_counter() - t_build
     mk._kernel_lib()
     mk._stream_lib()
     sd._dda_lib()
+    ip._kernel_lib()
+    mp._kernel_lib()
     builds = {}
-    for lib, _ in (mk.LIBRARY, sd.LIBRARY):
+    for lib, _ in libraries:
         info = nvcc.builds.get(lib, {"cmd": None, "seconds": 0.0,
                                      "ptxas": ""})
         builds[lib] = dict(
@@ -1069,6 +1624,53 @@ def main() -> int:
     ptxas = [ln.strip() for ln in nvcc.builds.get(sd.LIBRARY[0], {}).get(
         "ptxas", "").splitlines() if "registers" in ln]
 
+    # ---- 18-21. the closest-hit kernels against their plain versions, the
+    # goldens and the AOV modes through the wavefront routes -----------------
+    k2_stats = closest_hit_phases(dev)
+    phase("closest_hit_vs_plain", **k2_stats)
+    k6_stats = closest_tri_phases(dev)
+    phase("closest_tri_vs_plain", **k6_stats)
+    phase("wavefront_goldens", **wavefront_golden_phases(dev))
+    phase("aov_modes_256x192", **aov_phases(dev))
+
+    # ---- 22-26. the four wavefront main paths -------------------------------
+    wf = wavefront_main_paths(dev)
+
+    def ptxas_of(lib):
+        return [ln.strip() for ln in nvcc.builds.get(lib, {}).get(
+            "ptxas", "").splitlines() if "registers" in ln]
+
+    def wf_kernel(name, path, entry, replaces, cmp_stats):
+        launch = path["kernel"]["middle"]
+        errs = [st["max_abs_err"] for st in cmp_stats.values()]
+        errs += [v["vs_plain"]["max_abs_err"] for v in path["kernel"].values()]
+        return {
+            "name": name, "route": "cuda", "source": entry,
+            "replaces": replaces, "launches": path["launches"][name],
+            "max_abs_err": max(errs), "ms": launch["kernel_ms"],
+            "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
+            "bound_by": launch["bound_by"], "rays": launch["rays"],
+            "ptxas": ptxas_of(ip.LIBRARY[0] if name == "closest_hit"
+                              else mp.LIBRARY[0]),
+            "library_ms": None,
+        }
+
+    wf_kernels = [
+        wf_kernel("closest_hit", wf["regen_main_cornell_1024x768"],
+                  "smallpt_tpu_torch/csrc/closest_hit.cu",
+                  "smallpt_tpu/ops/intersect_pallas.py:64", k2_stats),
+        wf_kernel("closest_tri", wf["flat_main_mesh500_256x192"],
+                  "smallpt_tpu_torch/csrc/closest_tri.cu",
+                  "smallpt_tpu/ops/mesh_pallas.py:43", k6_stats),
+    ]
+    wf_kernels[0]["launches_by_path"] = {
+        n: wf[n]["launches"]["closest_hit"] for n in wf
+        if n != "flat_main_mesh500_256x192"}
+    wf_kernels[0]["ms_procedural10000"] = wf[
+        "regen_main_procedural10000_512x384"]["kernel"]["middle"]["kernel_ms"]
+    wf_kernels[0]["bound_ms_procedural10000"] = wf[
+        "regen_main_procedural10000_512x384"]["kernel"]["middle"]["bound_ms"]
+
     def bound(k):
         ms_ = max(k["bound_ops_ms"], k["bound_bytes_ms"])
         by = ("operations" if k["bound_ops_ms"] >= k["bound_bytes_ms"]
@@ -1137,7 +1739,7 @@ def main() -> int:
             "ms_per_round"],
         "ptxas": ptxas,
         "library_ms": None,
-    }]
+    }, *wf_kernels]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

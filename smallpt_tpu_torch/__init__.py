@@ -8,11 +8,16 @@ the CPU tests run. Entry points render on the card unless given
 ``device="cpu"``; they never fall back on their own. The port imports
 neither JAX nor smallpt_tpu.
 
-Ported so far, for sphere scenes, with next-event estimation (ROADMAP.md):
+Ported so far, with next-event estimation (ROADMAP.md):
 - the per-pass megakernel route: ProgressiveRenderer.step -> mega_pass ->
   one launch of csrc/megakernel.cu per pass, on a scene table and camera
   vector built once (render_with_stats -> render_pass_megakernel for a
   single pass);
+- the per-pass REGEN and FLAT wavefronts (ops/wavefront.py), routed as in
+  the JAX package, for the other schedulers, the AOV modes, refraction
+  splitting and triangle-mesh scenes: plain PyTorch around one closest-hit
+  launch a bounce, csrc/closest_hit.cu (K2) for spheres and
+  csrc/closest_tri.cu (K6) for triangles with Intersector.PALLAS;
 - the streaming route: StreamingRenderer.step/flush/image -> stream_step ->
   the streaming mode of the same kernel body, on path state that persists
   across launches;
@@ -26,7 +31,7 @@ from smallpt_tpu_torch.config import (
 )
 from smallpt_tpu_torch.core.camera import LegacyCamera, MatrixCamera
 from smallpt_tpu_torch.core.scene import (
-    DIFF, REFR, SPEC, Material, SphereScene,
+    DIFF, REFR, SPEC, Material, MeshScene, SphereScene,
 )
 from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
 from smallpt_tpu_torch.engine.renderer import (
@@ -36,7 +41,8 @@ from smallpt_tpu_torch.engine.streaming import StreamingRenderer
 
 __all__ = [
     "RenderConfig", "Mode", "Filter", "CameraModel", "Intersector",
-    "Scheduler", "SphereScene", "Material", "DIFF", "SPEC", "REFR",
+    "Scheduler", "SphereScene", "MeshScene", "Material", "DIFF", "SPEC",
+    "REFR",
     "LegacyCamera", "MatrixCamera", "render", "render_image",
     "render_with_stats", "ProgressiveRenderer", "StreamingRenderer",
 ]

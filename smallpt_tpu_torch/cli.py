@@ -1,12 +1,13 @@
 """Command-line entry point of the PyTorch port (the per-pass and streaming
-routes of smallpt_tpu/cli.py on sphere scenes).
+routes of smallpt_tpu/cli.py).
 
 The reference's CLI is one positional arg — total spp, divided by the 4
 jitter cells (smallpt.cpp:276,846). Here every compile-time constant of the
 reference that those routes read is a flag. Passes run through
-ProgressiveRenderer, or with ``--streaming`` through StreamingRenderer, on
-the card (``--device cuda``, the default) or through the plain PyTorch
-version (``--device cpu``).
+ProgressiveRenderer (the megakernel, or the REGEN and FLAT wavefronts with
+the closest-hit kernels for --intersector pallas), or with ``--streaming``
+through StreamingRenderer, on the card (``--device cuda``, the default) or
+through the plain PyTorch versions (``--device cpu``).
 
 Examples:
     python -m smallpt_tpu_torch 16 --width 1024 --height 768 --out c.png
@@ -14,6 +15,8 @@ Examples:
     python -m smallpt_tpu_torch 16 --streaming --nee 8 --device cpu \
         --scene cornell_small_light --width 32 --height 24 --out s.ppm
     python -m smallpt_tpu_torch 4 --streaming --scene procedural
+    python -m smallpt_tpu_torch 4 --scheduler regen --intersector pallas
+    python -m smallpt_tpu_torch 4 --scene mesh --scheduler flat --intersector pallas
 """
 
 from __future__ import annotations
@@ -23,12 +26,13 @@ import sys
 import time
 
 from smallpt_tpu_torch.config import (
-    CameraModel, Filter, Mode, RenderConfig, Scheduler,
+    CameraModel, Filter, Intersector, Mode, RenderConfig, Scheduler,
 )
 from smallpt_tpu_torch.core import scene as scenes
 from smallpt_tpu_torch.core.camera import default_matrix_camera, smallpt_camera
 from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
 from smallpt_tpu_torch.engine.streaming import StreamingRenderer
+from smallpt_tpu_torch.ops.megakernel import MEGA_MAX_SPHERES
 from smallpt_tpu_torch.utils import image as img_io
 from smallpt_tpu_torch.utils.metrics import log_json
 
@@ -37,10 +41,14 @@ SCENES = {
     "cornell_dim": scenes.cornell_box_dim_light_scene,
     "cornell_small_light": scenes.cornell_box_small_light_scene,
     "two_sphere": scenes.two_sphere_scene,
+    "triangle": scenes.single_triangle_scene,
     # 10,000 spheres: --streaming renders it through the DDA route (kernel
     # K3); per pass it needs the binned drain, not ported yet
     "procedural": scenes.procedural_sphere_scene,
+    # 32,014 triangles: quad-walled Cornell with tessellated balls
+    "mesh": scenes.procedural_mesh_scene,
 }
+_MESH_SCENES = ("triangle", "mesh")
 
 # flags of the JAX package's CLI whose routes are not ported yet
 _NOT_PORTED = {
@@ -64,8 +72,17 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None)
     p.add_argument("--camera", choices=[c.value for c in CameraModel],
                    default=None)
+    p.add_argument("--intersector", choices=[i.value for i in Intersector],
+                   default=None,
+                   help="the wavefronts' closest hit: pallas (the "
+                        "hand-written kernels K2 and K6) or jax (plain "
+                        "PyTorch); default pallas for meshes of 64 "
+                        "triangles or more, jax otherwise")
     p.add_argument("--scheduler", choices=[s.value for s in Scheduler],
-                   default=None)
+                   default=None,
+                   help="mega (the megakernel, default), regen (persistent "
+                        "lanes) or flat (masked lanes; implied by "
+                        "--split-budget > 1)")
     p.add_argument("--max-depth", type=int, default=64)
     p.add_argument("--rr-depth", type=int, default=5)
     p.add_argument("--split-budget", type=int, default=1)
@@ -131,11 +148,20 @@ def main(argv=None) -> int:
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {what} is not yet ported")
-    # the JAX CLI's defaults for sphere scenes: legacy camera + tent filter
-    camera_model = (CameraModel(args.camera) if args.camera
-                    else CameraModel.LEGACY)
+    scene = SCENES[args.scene]()
+    mesh_scene = args.scene in _MESH_SCENES
+    # the JAX CLI's defaults: the triangle scene takes the matrix camera,
+    # every other scene the legacy one; the filter follows the camera
+    camera_model = CameraModel(args.camera) if args.camera else (
+        CameraModel.MATRIX if args.scene == "triangle"
+        else CameraModel.LEGACY)
     filt = Filter(args.filter) if args.filter else (
         Filter.BOX if camera_model == CameraModel.MATRIX else Filter.TENT)
+    # real meshes take the triangle kernel; the 1-triangle debug scene and
+    # sphere scenes the plain route
+    intersector = Intersector(args.intersector) if args.intersector else (
+        Intersector.PALLAS if mesh_scene and scene.n_triangles >= 64
+        else Intersector.JAX)
     if args.quality is not None and not args.streaming:
         build_parser().error("--quality requires --streaming (equal-quality "
                              "stopping drives the stream's moment planes)")
@@ -150,6 +176,7 @@ def main(argv=None) -> int:
         mode=Mode(args.mode),
         filter=filt,
         camera_model=camera_model,
+        intersector=intersector,
         scheduler=(Scheduler.FLAT if args.split_budget > 1
                    else Scheduler(args.scheduler or "mega")),
         max_depth=args.max_depth,
@@ -162,14 +189,40 @@ def main(argv=None) -> int:
     )
     camera = (default_matrix_camera() if camera_model == CameraModel.MATRIX
               else smallpt_camera())
-    scene = SCENES[args.scene]()
+    # sphere scenes: NEE indices are sphere ids (cone sampling); mesh
+    # scenes: instance ids (triangle area sampling)
+    n_ent = scene.material.refl.shape[0]
+    kind = "instances" if mesh_scene else "spheres"
     for li in args.nee or ():
-        if not 0 <= li < scene.n_spheres:
+        if not 0 <= li < n_ent:
             build_parser().error(f"--nee index {li} out of range (scene has "
-                                 f"{scene.n_spheres} spheres)")
+                                 f"{n_ent} {kind})")
         if float(scene.material.emission[li].max()) <= 0:
             print(f"warning: --nee light {li} has zero emission",
                   file=sys.stderr)
+        if mesh_scene and not bool((scene.tri_inst == li).any()):
+            build_parser().error(f"--nee instance {li} has no triangles")
+    if args.streaming and mesh_scene:
+        raise NotImplementedError(
+            "--streaming on a mesh scene: the mesh streaming wavefront "
+            "(ROADMAP.md, modules item 10) is not yet ported")
+    if (not args.streaming and mesh_scene and config.mode == Mode.FULL
+            and config.split_budget == 1 and args.scheduler is None):
+        # the JAX CLI drives its mesh streaming renderer here; an explicit
+        # --scheduler pins the per-pass engine
+        raise NotImplementedError(
+            "a mesh scene in full transport without --scheduler: the mesh "
+            "streaming renderer (ROADMAP.md, modules item 10) is not yet "
+            "ported; pass --scheduler regen or flat")
+    if (not args.streaming and not mesh_scene
+            and scene.n_spheres > MEGA_MAX_SPHERES
+            and config.mode == Mode.FULL and config.split_budget == 1):
+        # the JAX CLI sends big sphere scenes to its binned renderer,
+        # whatever the scheduler
+        raise NotImplementedError(
+            f"per-pass scenes above {MEGA_MAX_SPHERES} spheres: the binned "
+            "renderer (ROADMAP.md, modules item 11, kernel K8) is not yet "
+            "ported; --streaming renders them through the DDA route")
     n_passes = args.passes if args.passes is not None else 1
 
     t0 = time.time()

@@ -72,9 +72,9 @@ class Scheduler(enum.Enum):
 
     MEGA: the REGEN schedule as ONE fused bounce kernel
     (ops/megakernel.py): regen + RNG + intersect + shade in a single
-    kernel. Same sample streams as REGEN (bit-identical PCG4D keying). In
-    the port MEGA is the only scheduler so far: a config that would leave
-    it raises NotImplementedError (engine/renderer.py::_use_mega).
+    kernel. Same sample streams as REGEN (bit-identical PCG4D keying). The
+    port routes the three as the JAX package does
+    (engine/renderer.py::_route).
     """
 
     FLAT = "flat"
@@ -87,9 +87,10 @@ class Intersector(enum.Enum):
     ``using Intersector = OptixIntersector`` switch (smallpt.cpp:605).
 
     JAX: plain chunked intersect (the CPUIntersector analog, also the
-    differentiable-replay path). PALLAS: the hand-written kernel (the
-    OptiX Prime analog). The sphere megakernel sweeps its own table, so
-    neither value changes the port's per-pass sphere path.
+    differentiable-replay path), ops/intersect.py. PALLAS: the
+    hand-written closest-hit kernels (the OptiX Prime analog), K2 for
+    spheres and K6 for triangles. The sphere megakernel sweeps its own
+    table, so neither value changes the MEGA route.
     """
 
     JAX = "jax"
@@ -206,7 +207,7 @@ class RenderConfig:
     prim_chunk: int = 512
 
     # dtype for path state. The port renders "float32" only; any other
-    # value raises NotImplementedError in engine/renderer.py.
+    # value raises NotImplementedError (engine/renderer.py::_route).
     dtype: str = "float32"
 
     def __post_init__(self):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+from smallpt_tpu_torch.core.math import fdiv
 
 
 class LegacyCamera(NamedTuple):
@@ -126,13 +127,13 @@ def filter_offsets(u: torch.Tensor, config: RenderConfig, cell_x, cell_y):
     js = config.jitter_size
     cell = torch.stack([cell_x, cell_y], -1).to(u.dtype)
     if config.filter == Filter.BOX:
-        jittered = (cell + u) / js
+        jittered = fdiv(cell + u, js)
         return 0.5 * (2.0 * jittered - 1.0)
     if config.filter == Filter.TENT:
         r = 2.0 * u
         d = torch.where(r < 1.0, torch.sqrt(r) - 1.0,
                         1.0 - torch.sqrt(torch.clamp(2.0 - r, min=0.0)))
-        return (cell + 0.5 + d) / js - 0.5
+        return fdiv(cell + 0.5 + d, js) - 0.5
     raise ValueError(config.filter)
 
 
@@ -161,8 +162,8 @@ def generate_rays(camera, u: torch.Tensor, config: RenderConfig, col, row,
         if not isinstance(camera, LegacyCamera):
             raise TypeError("LEGACY camera_model needs a LegacyCamera")
         w, h = config.width, config.height
-        sx = (col.to(dt) + 0.5 + offset[:, 0]) / w - 0.5
-        sy = (row.to(dt) + 0.5 + offset[:, 1]) / h - 0.5
+        sx = fdiv(col.to(dt) + 0.5 + offset[:, 0], w) - 0.5
+        sy = fdiv(row.to(dt) + 0.5 + offset[:, 1], h) - 0.5
         cx, cy = _legacy_frame(camera, config)
         cx, cy = cx.to(dev), cy.to(dev)
         cd = camera.direction.to(dev)

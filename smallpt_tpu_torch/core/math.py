@@ -31,3 +31,15 @@ def safe_div(a: torch.Tensor, b: torch.Tensor, fallback: float = 0.0):
     ok = b != 0
     q = a / torch.where(ok, b, torch.ones_like(b))
     return torch.where(ok, q, torch.full_like(q, fallback))
+
+
+def fdiv(a, b):
+    """a / b rounded once, as the kernels divide, where one of a and b is a
+    Python number: torch divides a CUDA tensor by a Python scalar as
+    a * (1 / b) and a scalar by a tensor as (1 / b) * a, which can differ
+    from the quotient in the last bit and move a path."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full_like(b, a)
+    elif not isinstance(b, torch.Tensor):
+        b = torch.full_like(a, b)
+    return a / b

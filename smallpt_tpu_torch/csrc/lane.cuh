@@ -156,6 +156,28 @@ __device__ __forceinline__ float sphere_tt(float ox, float oy, float oz,
   return (det >= 0.0f && sr > 0.0f) ? tt : kBig;
 }
 
+// Candidate hit distance of one sphere in the direct quadratic: the JAX
+// closest-hit kernel's fast_body (ops/intersect_pallas.py:106-120), op for
+// op, for spheres below its STABLE_RADIUS, where b and |op|^2 are of the
+// scene's scale and their cancellation is harmless in float32.
+__device__ __forceinline__ float sphere_tt_fast(float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float scx, float scy,
+                                                float scz, float sr,
+                                                float seps) {
+  const float opx = scx - ox;
+  const float opy = scy - oy;
+  const float opz = scz - oz;
+  const float b = opx * dx + opy * dy + opz * dz;
+  const float op2 = opx * opx + opy * opy + opz * opz;
+  const float det = b * b - op2 + sr * sr;
+  const float s = sqrtf(fmaxf(det, 0.0f));
+  const float t0 = b - s;
+  const float t1 = b + s;
+  const float tt = t0 > seps ? t0 : (t1 > seps ? t1 : kBig);
+  return (det >= 0.0f && sr > 0.0f) ? tt : kBig;
+}
+
 // A pixel lane: its image coordinates and its streaming key word a.
 struct Pixel {
   int col, row;

@@ -1,25 +1,45 @@
-"""The render engine (PyTorch port of the per-pass route of
-smallpt_tpu/engine/renderer.py).
+"""The render engine (PyTorch port of smallpt_tpu/engine/renderer.py):
+camera sampling, the route to a scheduler, and the per-pixel reduction.
 
 ``render`` returns *summed* (unnormalized) per-pixel radiance for the pass,
 like the reference (smallpt.cpp:813); progressive accumulation divides by
 the total sample count only at display/save time (smallpt.cpp:957).
 
-The per-pass route of the port is the JAX package's default MEGA scheduler
-on sphere scenes, NEE included: one megakernel launch per pass
-(ops/megakernel.py). Every config the JAX package would send elsewhere
-raises NotImplementedError naming the ROADMAP.md item that ports it;
-nothing falls back to another route. Entry points run on the card unless
-given ``device="cpu"``. The streaming route is engine/streaming.py.
+The port routes each per-pass config as the JAX package does (``_route``):
+- MEGA, Mode.FULL, split_budget 1, f32 sphere scenes of at most
+  MEGA_MAX_SPHERES spheres: one megakernel launch per pass (K1a,
+  ops/megakernel.py);
+- MEGA or REGEN otherwise with split_budget 1 (the AOV modes, REGEN named,
+  mesh scenes): the regenerative wavefront (ops/wavefront.py);
+- FLAT, or split_budget > 1: the flat wavefront.
+The wavefronts intersect through ``make_intersect_fn``: with
+``Intersector.PALLAS`` the closest-hit kernels K2 (spheres) and K6
+(triangles), with ``Intersector.JAX`` the plain route of ops/intersect.py.
+What the JAX package sends elsewhere raises NotImplementedError naming the
+ROADMAP.md item that ports it: the binned drain for MEGA sphere scenes
+above MEGA_MAX_SPHERES (item 11), the grid-culled mesh sweep (item 10) and
+gradients (item 8). Nothing falls back to another route. Entry points run
+on the card unless given ``device="cpu"``. The streaming route is
+engine/streaming.py.
 """
 
 from __future__ import annotations
 
+import os
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
-from smallpt_tpu_torch.config import Mode, RenderConfig, Scheduler
+from smallpt_tpu_torch.config import Intersector, Mode, RenderConfig, Scheduler
+from smallpt_tpu_torch.core import camera as cam
 from smallpt_tpu_torch.core import rng as prng
-from smallpt_tpu_torch.core.scene import SphereScene
+from smallpt_tpu_torch.core.scene import MeshScene, SphereScene, scene_to
+from smallpt_tpu_torch.ops import intersect as isect
+from smallpt_tpu_torch.ops import wavefront
+from smallpt_tpu_torch.ops.intersect_pallas import (
+    build_sphere_table, intersect_spheres_pallas,
+)
 from smallpt_tpu_torch.ops.megakernel import (
     MEGA_MAX_SPHERES,
     build_camera_vec,
@@ -27,46 +47,238 @@ from smallpt_tpu_torch.ops.megakernel import (
     mega_pass,
     render_pass_megakernel,
 )
+from smallpt_tpu_torch.ops.mesh_pallas import (
+    build_tri_table, intersect_mesh_pallas,
+)
 from smallpt_tpu_torch.utils.device import resolve_device
 
+# Triangle count at and above which the JAX package sends mesh scenes with
+# Intersector.PALLAS to its grid-culled sweep (K7); opt-in there through the
+# same variable, off by default (2^31).
+MESH_ACCEL_MIN_TRIS = int(
+    os.environ.get("SMALLPT_TPU_MESH_ACCEL_MIN", str(1 << 31)))
 
-def _use_mega(scene, config: RenderConfig, differentiable: bool) -> bool:
-    """Megakernel eligibility, as in the JAX package: the forward Mode.FULL
-    single-path transport (NEE included) on f32 sphere scenes of at most
-    MEGA_MAX_SPHERES spheres. Raises NotImplementedError for every config
-    outside it."""
-    todo = None
+
+def _not_ported(what: str):
+    return NotImplementedError(f"not ported yet: {what}")
+
+
+def _route(scene, config: RenderConfig, differentiable: bool) -> str:
+    """The scheduler of a per-pass config, as the JAX package picks it
+    (_use_mega, _use_binned, _use_regen): "mega", "regen" or "flat".
+    Raises NotImplementedError for the routes not ported."""
     if differentiable:
-        todo = "differentiable rendering (ROADMAP.md, modules item 8)"
-    elif not isinstance(scene, SphereScene):
-        todo = "mesh scenes (ROADMAP.md, modules item 10)"
-    elif config.scheduler != Scheduler.MEGA:
-        todo = (f"the {config.scheduler.value.upper()} scheduler (ROADMAP.md, "
-                "modules item 4: ops/wavefront.py)")
-    elif config.split_budget != 1:
-        todo = ("refraction splitting, split_budget > 1 (ROADMAP.md, "
-                "modules item 4: ops/wavefront.py)")
-    elif config.mode != Mode.FULL:
-        todo = (f"the {config.mode.value} AOV mode (ROADMAP.md, modules "
-                "item 4: ops/wavefront.py)")
-    elif config.dtype != "float32":
-        todo = f"dtype {config.dtype} (the port renders float32 only)"
-    elif scene.n_spheres > MEGA_MAX_SPHERES:
-        todo = (f"per-pass scenes above {MEGA_MAX_SPHERES} spheres "
-                "(ROADMAP.md, modules item 11: the binned drain, kernel K8; "
-                "--streaming renders them through the DDA route)")
-    if todo is not None:
-        raise NotImplementedError(f"not ported yet: {todo}")
-    return True
+        raise _not_ported("differentiable rendering (ROADMAP.md, modules "
+                          "item 8: gradients, kernel K1b)")
+    if not isinstance(scene, (SphereScene, MeshScene)):
+        raise TypeError(f"unknown scene type {type(scene)}")
+    if config.dtype != "float32":
+        raise _not_ported(f"dtype {config.dtype} (the port renders float32 "
+                          "only)")
+    mega_sched = (config.scheduler == Scheduler.MEGA
+                  and config.split_budget == 1)
+    if mega_sched and isinstance(scene, SphereScene):
+        if scene.n_spheres <= MEGA_MAX_SPHERES:
+            if config.mode == Mode.FULL:
+                return "mega"
+        elif not (config.nee_lights and config.mode != Mode.FULL):
+            raise _not_ported(
+                f"per-pass scenes above {MEGA_MAX_SPHERES} spheres under the "
+                "MEGA scheduler (ROADMAP.md, modules item 11: the binned "
+                "drain, kernel K8; --scheduler regen renders them through "
+                "K2, --streaming through the DDA route)")
+    if (config.scheduler in (Scheduler.REGEN, Scheduler.MEGA)
+            and config.split_budget == 1):
+        return "regen"
+    return "flat"
+
+
+def make_intersect_fn(scene, config: RenderConfig):
+    """The closest-hit backend (the reference's ``using Intersector``
+    switch, smallpt.cpp:605) for a scene whose tensors lie on the device to
+    render on. The K2 and K6 tables are built here, once per call, and the
+    returned function (org, dirs) -> Hit reuses them on every bounce.
+
+    The sphere kernel route takes the config's intersect_eps_rel; the JAX
+    package's passes only intersect_eps there and so keeps the default 5e-7
+    (hazard H5 of ROADMAP.md; the two agree at the default)."""
+    if isinstance(scene, SphereScene):
+        if config.intersector == Intersector.PALLAS:
+            tables = build_sphere_table(scene, eps=config.intersect_eps,
+                                        eps_rel=config.intersect_eps_rel,
+                                        device=scene.center.device)
+            # uv (atan2 and asin per lane) only where the transport reads it
+            want_uv = config.mode == Mode.UV
+            return lambda o, d: intersect_spheres_pallas(
+                o, d, scene, want_uv=want_uv, tables=tables)
+        return lambda o, d: isect.intersect_spheres(
+            o, d, scene, eps=config.intersect_eps,
+            eps_rel=config.intersect_eps_rel, chunk=config.prim_chunk)
+    if isinstance(scene, MeshScene):
+        if config.intersector == Intersector.PALLAS:
+            if scene.n_triangles >= MESH_ACCEL_MIN_TRIS:
+                raise _not_ported(
+                    f"the grid-culled mesh sweep for meshes of "
+                    f"{MESH_ACCEL_MIN_TRIS} triangles or more "
+                    "(SMALLPT_TPU_MESH_ACCEL_MIN; ROADMAP.md, modules item "
+                    "10: kernel K7)")
+            table = build_tri_table(scene, device=scene.positions.device)
+            return lambda o, d: intersect_mesh_pallas(o, d, scene, eps=0.0,
+                                                      table=table)
+        return lambda o, d: isect.intersect_mesh(o, d, scene, eps=0.0,
+                                                 chunk=config.prim_chunk)
+    raise TypeError(f"unknown scene type {type(scene)}")
+
+
+def _nee_scene_for(scene, config: RenderConfig, mesh_nee=None):
+    """Light-sampling data for bounce_step's NEE block: the sphere scene
+    itself (cone sampling), or the TriLightData tuple of mesh area
+    lights."""
+    if not config.nee_lights:
+        return None
+    if isinstance(scene, SphereScene):
+        return scene
+    if mesh_nee is None:
+        raise ValueError("config.nee_lights on a mesh scene requires the "
+                         "per-light triangle tables (_mesh_nee_for)")
+    return mesh_nee
+
+
+def _mesh_nee_for(scene, config: RenderConfig, device=None):
+    """Per-light TriLightData for mesh area lights (config.nee_lights holds
+    instance ids on mesh scenes), built on the host in float64 and stored
+    in float32 on ``device``, as the JAX package builds them. None for
+    sphere scenes or without NEE."""
+    if not config.nee_lights or not isinstance(scene, MeshScene):
+        return None
+    pos = scene.positions.detach().cpu().numpy().astype(np.float64)
+    idx = scene.indices.cpu().numpy()
+    tri_inst = scene.tri_inst.cpu().numpy()
+    emission = scene.material.emission.detach().cpu().numpy().astype(
+        np.float64)
+    dev = device or "cpu"
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float64)).to(
+            torch.float32).to(dev)
+
+    out = []
+    for li in config.nee_lights:
+        if li >= emission.shape[0]:
+            raise ValueError(f"nee light instance {li} out of range")
+        tris = np.nonzero(tri_inst == li)[0]
+        if tris.size == 0:
+            raise ValueError(f"nee light instance {li} has no triangles")
+        a, b, c = (pos[idx[tris, k]] for k in range(3))
+        cross = np.cross(b - a, c - a)
+        area2 = np.linalg.norm(cross, axis=1)
+        if not (area2 > 0).all():
+            raise ValueError(f"nee light instance {li} has degenerate tris")
+        areas = 0.5 * area2
+        total = float(areas.sum())
+        cdf = np.cumsum(areas) / total
+        cdf[-1] = 1.0
+        out.append(wavefront.TriLightData(
+            a=f32(a), b=f32(b), c=f32(c), n=f32(cross / area2[:, None]),
+            cdf=f32(cdf), area_total=f32(total), le=f32(emission[li]),
+            inst=int(li)))
+    return tuple(out)
+
+
+def render_samples(scene, camera, config: RenderConfig, key,
+                   sample_ids, pixel_cols, pixel_rows, cell_x, cell_y,
+                   differentiable: bool = False, return_stats: bool = False,
+                   mesh_nee=None, intersect_fn=None):
+    """Render a flat batch of camera samples through the FLAT scheduler.
+    The scene's tensors and the index tensors lie on the device to render
+    on. Returns per-sample radiance (N,3) (summed over the sample's
+    split-budget lanes), or (radiance, rays_traced) with return_stats.
+    intersect_fn: ``make_intersect_fn``'s result, built once by a caller
+    that renders many batches (None: built here)."""
+    u_cam = prng.camera_uniforms(key, sample_ids)
+    u_lens = (prng.lens_uniforms(key, sample_ids)
+              if config.aperture > 0.0 else None)
+    org, dirs = cam.generate_rays(camera, u_cam, config, pixel_cols,
+                                  pixel_rows, cell_x, cell_y, u_lens=u_lens)
+    state = wavefront.initial_state(org, dirs, config.split_budget)
+    lane_sample_ids = (sample_ids if config.split_budget == 1 else
+                       sample_ids.repeat_interleave(config.split_budget))
+    if intersect_fn is None:
+        intersect_fn = make_intersect_fn(scene, config)
+    final, rays = wavefront.run_wavefront(
+        state, intersect_fn, scene.material, config, key, lane_sample_ids,
+        differentiable=differentiable,
+        nee_scene=_nee_scene_for(scene, config, mesh_nee))
+    rad = final.radiance
+    if config.split_budget > 1:
+        rad = rad.reshape(-1, config.split_budget, 3).sum(dim=1)
+    return (rad, rays) if return_stats else rad
+
+
+def render_pixels(scene, camera, config: RenderConfig, key, pixel, col, row,
+                  ip_offset, k_samples: int, mesh_nee=None,
+                  intersect_fn=None):
+    """The regenerative scheduler's core: one lane per pixel consuming
+    k_samples in turn. Returns (per-pixel radiance (G,3), rays_traced)."""
+    if intersect_fn is None:
+        intersect_fn = make_intersect_fn(scene, config)
+    return wavefront.run_wavefront_regen(
+        camera, intersect_fn, scene.material, config, key, pixel, col, row,
+        ip_offset, k_samples,
+        nee_scene=_nee_scene_for(scene, config, mesh_nee))
+
+
+class WavefrontInputs(NamedTuple):
+    """What a wavefront pass reads and that stays fixed from pass to pass:
+    the scene on the device, its intersect function (with the K2 or K6
+    table) and the mesh NEE tables."""
+
+    route: str  # "regen" or "flat"
+    scene: object
+    intersect_fn: object
+    mesh_nee: object
+
+
+def wavefront_inputs(scene, config: RenderConfig, route: str,
+                     device) -> WavefrontInputs:
+    """Build a wavefront route's inputs on ``device`` once."""
+    dscene = scene_to(scene, device)
+    return WavefrontInputs(route, dscene, make_intersect_fn(dscene, config),
+                           _mesh_nee_for(scene, config, device))
+
+
+def wavefront_pass(inputs: WavefrontInputs, camera, config: RenderConfig,
+                   key):
+    """One full-frame pass through a wavefront route: ((H, W, 3) summed
+    radiance, rays traced as a 0-d int64 tensor)."""
+    dev = inputs.scene.material.refl.device
+    h, w = config.height, config.width
+    if inputs.route == "regen":
+        pixel = torch.arange(config.n_pixels, dtype=torch.int32, device=dev)
+        rad, rays = render_pixels(
+            inputs.scene, camera, config, key, pixel, pixel % w, pixel // w,
+            0, config.spp, mesh_nee=inputs.mesh_nee,
+            intersect_fn=inputs.intersect_fn)
+        return rad.reshape(h, w, 3), rays
+    sample_ids, _, col, row, cx, cy = cam.sample_indices(
+        config, config.n_pixels, device=dev)
+    rad, rays = render_samples(
+        inputs.scene, camera, config, key, sample_ids, col, row, cx, cy,
+        return_stats=True, mesh_nee=inputs.mesh_nee,
+        intersect_fn=inputs.intersect_fn)
+    img = rad.reshape(config.n_pixels, config.spp, 3).sum(dim=1)
+    return img.reshape(h, w, 3), rays
 
 
 def pass_inputs(scene, camera, config: RenderConfig, device=None):
-    """The kernel's inputs that stay fixed from pass to pass: (scene table
-    (S_pad, 16), camera vector (1, 16)) on ``device`` (None means CUDA),
-    built once for a (scene, camera, config). Raises NotImplementedError for
-    a config outside the ported route."""
+    """The megakernel's inputs that stay fixed from pass to pass: (scene
+    table (S_pad, 16), camera vector (1, 16)) on ``device`` (None means
+    CUDA), built once for a (scene, camera, config) of the MEGA route.
+    Raises ValueError for a config of another route."""
     dev = resolve_device(device)
-    _use_mega(scene, config, False)
+    if _route(scene, config, False) != "mega":
+        raise ValueError("pass_inputs: the config does not take the "
+                         "megakernel route")
     return (build_scene_table(scene, config, dev),
             build_camera_vec(camera, config, dev))
 
@@ -76,30 +288,39 @@ def render_with_stats(scene, camera, config: RenderConfig, key, device=None):
     samples per pixel, rays traced as a 0-d int64 tensor), on ``device``
     (None means CUDA). key: (2,) uint32 key words (core/rng.py)."""
     dev = resolve_device(device)
-    _use_mega(scene, config, False)
-    return render_pass_megakernel(scene, camera, config, key, device=dev)
+    route = _route(scene, config, False)
+    if route == "mega":
+        return render_pass_megakernel(scene, camera, config, key, device=dev)
+    return wavefront_pass(wavefront_inputs(scene, config, route, dev), camera,
+                          config, key)
 
 
 def render(scene, camera, config: RenderConfig, key,
            differentiable: bool = False, device=None) -> torch.Tensor:
     """One full-frame pass. Returns (H, W, 3) summed radiance over
     config.spp samples per pixel (unnormalized, like smallpt.cpp:813)."""
-    dev = resolve_device(device)
-    _use_mega(scene, config, differentiable)
-    img, _ = render_pass_megakernel(scene, camera, config, key, device=dev)
-    return img
+    _route(scene, config, differentiable)
+    return render_with_stats(scene, camera, config, key, device=device)[0]
 
 
 def render_image(scene, camera, config: RenderConfig, seed: int = 0,
                  n_passes: int = 1, device=None) -> torch.Tensor:
     """Run n_passes progressive passes and return the *mean* image
     (H, W, 3). Pass p is keyed with fold_in(base_key(seed), p), as in the
-    JAX package."""
-    table, cam = pass_inputs(scene, camera, config, device)
+    JAX package; the pass inputs are built once."""
+    dev = resolve_device(device)
+    route = _route(scene, config, False)
     base = prng.base_key(seed)
-    acc = torch.zeros((config.height * config.width, 3), dtype=torch.float32,
-                      device=table.device)
-    for p in range(n_passes):
-        acc += mega_pass(table, cam, config, prng.fold_in(base, p),
-                         n_spheres=scene.n_spheres)[0]
-    return acc.view(config.height, config.width, 3) / (n_passes * config.spp)
+    acc = torch.zeros((config.height, config.width, 3), dtype=torch.float32,
+                      device=dev)
+    if route == "mega":
+        table, camv = pass_inputs(scene, camera, config, dev)
+        for p in range(n_passes):
+            acc += mega_pass(table, camv, config, prng.fold_in(base, p),
+                             n_spheres=scene.n_spheres)[0].view(acc.shape)
+    else:
+        inputs = wavefront_inputs(scene, config, route, dev)
+        for p in range(n_passes):
+            acc += wavefront_pass(inputs, camera, config,
+                                  prng.fold_in(base, p))[0]
+    return acc / (n_passes * config.spp)

@@ -1,0 +1,276 @@
+"""The closest-hit sphere kernel K2 and its host side (port of
+smallpt_tpu/ops/intersect_pallas.py, whose Pallas body
+``_intersect_kernel`` becomes the CUDA kernel csrc/closest_hit.cu; the
+module keeps its name so a reader finds the counterpart).
+
+The scene is packed on the host into a two-part table of 8-float rows
+[cx cy cz r eps 0 0 0] (``build_sphere_table``):
+- part A, the first MAX_BIG rows: the spheres in big-first order (radius
+  >= STABLE_RADIUS first), truncated or padded to MAX_BIG rows, swept with
+  the cancellation-stable citardauq form that smallpt's 1e5-radius walls
+  need in float32;
+- part B: every sphere in scene order with the big ones zeroed, padded to
+  a multiple of 64 rows, swept with the direct quadratic.
+A small sphere inside part A is swept twice, once in each form; the
+closest-hit fold keeps the lesser t (the JAX package's table, value for
+value). The kernel returns, per ray, the least t and the table slot that
+first attains it; ``perm`` maps the slot back to the sphere id.
+
+``closest_hit`` launches K2 on a CUDA tensor (and counts the launch in
+``closest_hit.launches``) or raises; on a CPU tensor it runs
+``closest_hit_plain``, the same function in the kernel's op order.
+``intersect_spheres_pallas`` is the drop-in for ops/intersect.py's
+``intersect_spheres`` that the wavefront schedulers call.
+
+Not in this module yet: K5 (``intersect_spheres_mxu``) and the gradient
+path's ``intersect_spheres_hybrid_diff`` (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from smallpt_tpu_torch.core.math import safe_normalize
+from smallpt_tpu_torch.core.scene import SphereScene
+from smallpt_tpu_torch.ops.intersect import Hit, sphere_uv
+from smallpt_tpu_torch.ops.megakernel import _BIG, _sphere_tt
+
+# Radius above which the cancellation-stable form is required in f32.
+STABLE_RADIUS = 100.0
+# Rows of part A. Scenes with more than MAX_BIG spheres of radius >=
+# STABLE_RADIUS are out of contract (smallpt-class scenes have ~7).
+MAX_BIG = 128
+# Part B pads to whole chunks of this many rows, as the JAX table does.
+_S_CHUNK = 64
+
+# (library name, csrc/ source) of the kernel of this module
+LIBRARY = ("smallpt_closest_hit", "closest_hit.cu")
+
+
+def build_sphere_table(scene: SphereScene, eps: float = 1e-4,
+                       eps_rel: float = 5e-7,
+                       stable_radius: float = STABLE_RADIUS, device=None):
+    """The two-part sphere table, built in float32 on the host as the JAX
+    package builds it: (table (MAX_BIG + S_pad, 8) f32, perm (MAX_BIG +
+    S_pad,) int64 table slot -> sphere id, n_big_chunks, n_small_chunks),
+    both tensors on ``device`` (None: the CPU). eps_i = max(eps, eps_rel *
+    r) per sphere, the pure route's root rejection. Raises ValueError when
+    more than MAX_BIG spheres need the stable form."""
+    s = scene.n_spheres
+    c = scene.center.detach().cpu().numpy().astype(np.float32)
+    r = scene.radius.detach().cpu().numpy().astype(np.float32)
+    big = r >= np.float32(stable_radius)
+    n_big = int(big.sum())
+    if n_big > MAX_BIG:
+        raise ValueError(
+            f"{n_big} spheres with radius >= {stable_radius} exceed the "
+            f"stable-sweep capacity MAX_BIG={MAX_BIG}")
+    eps_i = np.maximum(np.float32(eps), np.float32(eps_rel) * r)
+    rows = np.zeros((s, 8), np.float32)
+    rows[:, 0:3] = c
+    rows[:, 3] = r
+    rows[:, 4] = eps_i
+
+    # part A: big-first order, truncated or padded to MAX_BIG rows
+    order = np.argsort(np.where(big, 0, 1), kind="stable")
+    n_a = min(MAX_BIG, s)
+    table_a = np.zeros((MAX_BIG, 8), np.float32)
+    perm_a = np.zeros(MAX_BIG, np.int64)
+    table_a[:n_a] = rows[order[:n_a]]
+    perm_a[:n_a] = order[:n_a]
+
+    # part B: scene order, the big spheres (all in part A) zeroed
+    s_pad = s + (-s) % _S_CHUNK
+    table_b = np.zeros((s_pad, 8), np.float32)
+    table_b[:s] = np.where(big[:, None], np.float32(0.0), rows)
+    perm_b = np.zeros(s_pad, np.int64)
+    perm_b[:s] = np.arange(s)
+
+    dev = device or "cpu"
+    return (torch.from_numpy(np.concatenate([table_a, table_b])).to(dev),
+            torch.from_numpy(np.concatenate([perm_a, perm_b])).to(dev),
+            MAX_BIG // _S_CHUNK, s_pad // _S_CHUNK)
+
+
+def _kernel_lib():
+    """The entry point of the K2 library (built at first use)."""
+    from smallpt_tpu_torch.utils.nvcc import load_library
+
+    fn = load_library(*LIBRARY).smallpt_closest_hit
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_rays(org, dirs, table, width: int):
+    """Validate (3, N) f32 ray planes and a (rows, width) f32 table on one
+    device; returns N."""
+    for name, t in (("org", org), ("dirs", dirs), ("table", table)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be a float32 tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != table.device:
+            raise ValueError(f"{name} lies on {t.device}, the table on "
+                             f"{table.device}")
+    if org.ndim != 2 or org.shape[0] != 3 or dirs.shape != org.shape:
+        raise ValueError(f"org and dirs must be (3, N), got "
+                         f"{tuple(org.shape)} and {tuple(dirs.shape)}")
+    if table.ndim != 2 or table.shape[1] != width:
+        raise ValueError(f"table must be (rows, {width}), got "
+                         f"{tuple(table.shape)}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {table.device}")
+    if table.device.type == "cuda" and table.data_ptr() % 16:
+        # the kernels read the rows as float4
+        raise ValueError("table must start on a 16-byte boundary")
+    return org.shape[1]
+
+
+def closest_hit(org: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
+                n_a: int, n_b: int):
+    """Closest sphere of every ray over the table: rows [0, n_a) swept in
+    the stable form, rows [n_a, n_a + n_b) in the direct quadratic.
+
+    org, dirs: (3, N) f32 ray planes (unit directions); table: (rows, 8)
+    f32 (``build_sphere_table``; n_a = 64 * n_big_chunks, n_b = 64 *
+    n_small_chunks). Returns (t (N,) f32, slot (N,) int32): the least t,
+    3e38 where nothing is hit, and the first slot attaining it (0 on a
+    miss), exactly as the JAX kernel returns them.
+
+    A CUDA tensor launches csrc/closest_hit.cu (and counts the launch in
+    ``closest_hit.launches``); a CPU tensor runs ``closest_hit_plain``."""
+    n = _check_rays(org, dirs, table, 8)
+    if not (0 <= n_a and 0 <= n_b and n_a + n_b <= table.shape[0]):
+        raise ValueError(f"n_a={n_a}, n_b={n_b} for a {table.shape[0]}-row "
+                         "table")
+    if table.device.type == "cpu":
+        return closest_hit_plain(org, dirs, table, n_a, n_b)
+    fn = _kernel_lib()
+    t = torch.empty((n,), dtype=torch.float32, device=table.device)
+    slot = torch.empty((n,), dtype=torch.int32, device=table.device)
+    ints = np.array([n, n_a, n_b], np.int32)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(org.data_ptr(), dirs.data_ptr(), table.data_ptr(),
+                 t.data_ptr(), slot.data_ptr(), ints.ctypes.data, stream)
+    if err != 0:
+        raise RuntimeError(f"closest_hit launch failed: CUDA error {err}")
+    closest_hit.launches += 1
+    return t, slot
+
+
+closest_hit.launches = 0
+
+
+def _sphere_tt_fast(ox, oy, oz, dx, dy, dz, scx, scy, scz, sr, seps):
+    """Candidate hit distance of a sphere in the direct quadratic (the JAX
+    kernel's ``fast_body``, csrc/lane.cuh::sphere_tt_fast), for spheres
+    below STABLE_RADIUS where the cancellation is harmless in float32; a
+    sphere of radius 0 is never hit."""
+    opx = scx - ox
+    opy = scy - oy
+    opz = scz - oz
+    b = opx * dx + opy * dy + opz * dz
+    op2 = opx * opx + opy * opy + opz * opz
+    det = b * b - op2 + sr * sr
+    s_ = torch.sqrt(torch.clamp(det, min=0.0))
+    t0 = b - s_
+    t1 = b + s_
+    tt = torch.where(t0 > seps, t0, torch.where(t1 > seps, t1, _BIG))
+    return torch.where((det >= 0.0) & (sr > 0.0), tt, _BIG)
+
+
+def fold_rows(n_rays: int, device, n_rows: int, chunk_rows: int,
+              candidates, init=()):
+    """The kernels' closest-hit fold over table rows [0, n_rows), in chunks
+    of rows: candidates(lo, hi) -> (tt (N, hi-lo), *payload (N, hi-lo))
+    gives each (ray, row) candidate; returns (bt, bi, *payload): per ray
+    the least tt (_BIG if none is less), the first row attaining it (0
+    where none does) and the payload of that row (init where none does).
+    Equal to the sequential strict-< fold over the rows in order."""
+    bt = torch.full((n_rays,), _BIG, dtype=torch.float32, device=device)
+    bi = torch.zeros((n_rays,), dtype=torch.int32, device=device)
+    out = [bt, bi, *init]
+    for lo in range(0, n_rows, chunk_rows):
+        hi = min(n_rows, lo + chunk_rows)
+        tt, *payload = candidates(lo, hi)
+        m = tt.min(dim=1).values
+        col = torch.arange(hi - lo, device=device).expand_as(tt)
+        first = torch.where(tt == m[:, None], col, hi - lo).min(dim=1).values
+        better = m < out[0]
+        first = first.clamp(max=hi - lo - 1)
+        out[0] = torch.where(better, m, out[0])
+        out[1] = torch.where(better, (first + lo).to(torch.int32), out[1])
+        for k, p in enumerate(payload):
+            out[2 + k] = torch.where(better, p.gather(1, first[:, None])[:, 0],
+                                     out[2 + k])
+    return tuple(out)
+
+
+def _chunk_rows(n_rays: int) -> int:
+    """Rows a plain sweep takes at once: (rays x rows) stays near 4 M."""
+    return max(1, (1 << 22) // max(n_rays, 1))
+
+
+def closest_hit_plain(org: torch.Tensor, dirs: torch.Tensor,
+                      table: torch.Tensor, n_a: int, n_b: int):
+    """The plain PyTorch version of K2: the same function in the kernel's
+    op order (each sum written out left to right, each division tensor by
+    tensor), swept over the rows in chunks so (rays x rows) never
+    materialises whole. Rows of radius 0 are skipped, as the kernel skips
+    them: they never win. Returns (t, slot) as ``closest_hit``."""
+    n = org.shape[1]
+    lane = [v[:, None] for v in (*org, *dirs)]
+    live = torch.nonzero(table[:n_a + n_b, 3] > 0.0)[:, 0]
+    rows = table.index_select(0, live)
+    stable = live < n_a
+
+    def candidates(lo, hi):
+        c = [rows[lo:hi, k][None, :] for k in range(5)]
+        tt = torch.where(stable[None, lo:hi], _sphere_tt(*lane, *c),
+                         _sphere_tt_fast(*lane, *c))
+        return (tt,)
+
+    bt, bi = fold_rows(n, org.device, live.shape[0], _chunk_rows(n),
+                       candidates)
+    if not live.numel():
+        return bt, bi
+    # the fold's row among the live rows -> its table slot (0 on a miss)
+    return bt, torch.where(bt < _BIG, live.to(torch.int32)[bi.long()], 0)
+
+
+def intersect_spheres_pallas(org, dirs, scene: SphereScene,
+                             eps: float = 1e-4, eps_rel: float = 5e-7,
+                             want_uv: bool = True, tables=None) -> Hit:
+    """Closest analytic sphere hit through K2 — the drop-in for
+    ops/intersect.py::intersect_spheres (the traceRays backend contract,
+    smallpt.cpp:427-605). org, dirs: (N, 3) on the device of the scene's
+    tensors. tables: the ``build_sphere_table`` result on that device, built
+    once by the caller (None: built here).
+
+    want_uv=False skips sphere_uv's atan2 and asin (the transport reads uv
+    only in Mode.UV): Hit.uv is zeros."""
+    if tables is None:
+        tables = build_sphere_table(scene, eps=eps, eps_rel=eps_rel,
+                                    device=org.device)
+    table, perm, n_big_chunks, n_small_chunks = tables
+    n = org.shape[0]
+    t, slot = closest_hit(org.T.contiguous(), dirs.T.contiguous(), table,
+                          _S_CHUNK * n_big_chunks, _S_CHUNK * n_small_chunks)
+    best_i = perm.index_select(0, slot.long())
+    t = torch.where(t >= _BIG, float("inf"), t).to(org.dtype)
+    ok = torch.isfinite(t)[:, None]
+    x = org + torch.where(ok, t[:, None], 0.0) * dirs
+    ctr = scene.center.index_select(0, best_i)
+    nrm = safe_normalize(torch.where(ok, x - ctr, 1.0))
+    if want_uv:
+        uv = torch.where(ok, sphere_uv(nrm), 0.0).to(org.dtype)
+    else:
+        uv = torch.zeros((n, 2), dtype=org.dtype, device=org.device)
+    return Hit(t=t, inst=best_i, prim=best_i, x=torch.where(ok, x, 0.0),
+               n=nrm, uv=uv)

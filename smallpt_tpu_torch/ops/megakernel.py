@@ -43,12 +43,13 @@ import torch
 from smallpt_tpu_torch.config import CameraModel, Filter, Mode, RenderConfig
 from smallpt_tpu_torch.core import rng as prng
 from smallpt_tpu_torch.core.camera import LegacyCamera, MatrixCamera
+from smallpt_tpu_torch.core.math import fdiv as _fdiv
 from smallpt_tpu_torch.core.scene import SphereScene
 from smallpt_tpu_torch.utils.device import resolve_device
 
-# The routing limit, as in the JAX package: per pass, scenes above it go to
-# the binned drain (engine/renderer.py::_use_mega, not ported yet); streaming,
-# to the DDA route when they have at most one NEE light
+# The routing limit, as in the JAX package: per pass under MEGA, scenes above
+# it go to the binned drain (engine/renderer.py::_route, not ported yet);
+# streaming, to the DDA route when they have at most one NEE light
 # (engine/streaming.py::dda_auto).
 MEGA_MAX_SPHERES = 2048
 # The kernel's own limit, the JAX kernel's MAX_VMEM_SPHERES: the sweep
@@ -486,18 +487,6 @@ def _normalize3(x, y, z):
     # approximation; on the CPU the two agree bit for bit)
     inv = 1.0 / torch.sqrt(x * x + y * y + z * z)
     return x * inv, y * inv, z * inv
-
-
-def _fdiv(a, b):
-    """a / b rounded once, as the kernels divide, where one of a and b is a
-    Python number: torch divides a CUDA tensor by a Python scalar as
-    a * (1 / b) and a scalar by a tensor as (1 / b) * a, which can differ
-    from the quotient in the last bit and move a path."""
-    if not isinstance(a, torch.Tensor):
-        a = torch.full_like(b, a)
-    elif not isinstance(b, torch.Tensor):
-        b = torch.full_like(a, b)
-    return a / b
 
 
 def _sphere_tt(ox, oy, oz, dx, dy, dz, scx, scy, scz, sr, seps):

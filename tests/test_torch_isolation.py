@@ -30,7 +30,11 @@ for name in names:
     importlib.import_module(name)
 assert {{"smallpt_tpu_torch.engine.streaming",
          "smallpt_tpu_torch.engine.quality",
-         "smallpt_tpu_torch.ops.stream_dda"}} <= set(names)
+         "smallpt_tpu_torch.ops.stream_dda",
+         "smallpt_tpu_torch.ops.intersect",
+         "smallpt_tpu_torch.ops.intersect_pallas",
+         "smallpt_tpu_torch.ops.mesh_pallas",
+         "smallpt_tpu_torch.ops.wavefront"}} <= set(names)
 import chip_smoke
 assert callable(chip_smoke.main)
 assert not any(k.startswith("jax") and sys.modules[k] is not None
@@ -45,8 +49,9 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         capture_output=True, text=True, timeout=300, cwd=str(ROOT),
     )
     assert proc.returncode == 0, proc.stderr
-    # every submodule imported, the streaming routes' among them
-    assert int(proc.stdout.split()[-1]) >= 18
+    # every submodule imported, the streaming and wavefront routes' among
+    # them
+    assert int(proc.stdout.split()[-1]) >= 21
 
 
 def _sources():
@@ -86,15 +91,20 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     from smallpt_tpu_torch.ops import megakernel as mk
     from smallpt_tpu_torch.utils import nvcc
 
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
     from smallpt_tpu_torch.ops import stream_dda as sd
 
     fn = types.SimpleNamespace(argtypes=None, restype=None)
     sfn = types.SimpleNamespace(argtypes=None, restype=None)
     dfn = types.SimpleNamespace(argtypes=None, restype=None)
+    hfn = types.SimpleNamespace(argtypes=None, restype=None)
+    tfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
                         lambda name, src: types.SimpleNamespace(
                             smallpt_mega_pass=fn, smallpt_stream_step=sfn,
-                            smallpt_stream_dda=dfn))
+                            smallpt_stream_dda=dfn, smallpt_closest_hit=hfn,
+                            smallpt_closest_tri=tfn))
     assert mk._kernel_lib() is fn
     assert fn.argtypes == [ctypes.c_void_p] * 7
     assert fn.restype is ctypes.c_int
@@ -104,6 +114,12 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert sd._dda_lib() is dfn
     assert dfn.argtypes == [ctypes.c_void_p] * 12
     assert dfn.restype is ctypes.c_int
+    assert ip._kernel_lib() is hfn
+    assert hfn.argtypes == [ctypes.c_void_p] * 7
+    assert hfn.restype is ctypes.c_int
+    assert mp._kernel_lib() is tfn
+    assert tfn.argtypes == [ctypes.c_void_p] * 10
+    assert tfn.restype is ctypes.c_int
 
 
 def test_build_key_covers_included_headers(monkeypatch, tmp_path):
@@ -115,8 +131,8 @@ def test_build_key_covers_included_headers(monkeypatch, tmp_path):
     for src in (PORT / "csrc").iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(nvcc, "CSRC_DIR", tmp_path)
-    before = {s: nvcc.source_digest(s) for s in ("megakernel.cu",
-                                                  "stream_dda.cu")}
+    before = {s: nvcc.source_digest(s) for s in (
+        "megakernel.cu", "stream_dda.cu", "closest_hit.cu", "closest_tri.cu")}
     assert b'#include "lane.cuh"' in (tmp_path / "stream_dda.cu").read_bytes()
     with open(tmp_path / "lane.cuh", "a") as f:
         f.write("\n// an edit\n")

@@ -1,8 +1,9 @@
 """The port's entry points end to end on the CPU: render, ProgressiveRenderer
 and the CLI at 48x36 against the stored f64 golden image
 (tests/data/golden_cornell_48x36.npz, made by scripts/gen_goldens.py), and
-the rules of the slice: entry points run on the card unless asked for the
-CPU, and every config outside the slice raises NotImplementedError.
+the rules of the port: entry points run on the card unless asked for the
+CPU, and every config outside the ported routes raises
+NotImplementedError.
 
 Gate (tests/test_golden.py): at most 5% of values with
 |img-golden|/(1+|golden|) > 0.1 and the means within 5%. The golden shares
@@ -186,11 +187,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scheduler=Scheduler.REGEN), dict(scheduler=Scheduler.FLAT),
-    dict(split_budget=2), dict(mode=Mode.NORMAL), dict(mode=Mode.UV),
-    dict(mode=Mode.INST_ID), dict(dtype="float64"),
+    dict(dtype="float64"), dict(dtype="float64", scheduler=Scheduler.REGEN),
+    dict(dtype="float64", scheduler=Scheduler.FLAT),
+    dict(dtype="float64", split_budget=2),
+    dict(dtype="float64", mode=Mode.NORMAL),
+    dict(dtype="float64", mode=Mode.UV),
+    dict(dtype="float64", mode=Mode.INST_ID),
 ])
 def test_unported_configs_raise(kw):
+    """Every scheduler and mode routes since the wavefronts were ported
+    (tests/test_torch_wavefront.py); what still raises on every route is a
+    dtype other than float32."""
     cfg = RenderConfig(width=8, height=8, **kw)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         render(cornell_box_scene(), smallpt_camera(), cfg, rng.base_key(0),
@@ -203,7 +210,7 @@ def test_unported_scenes_and_gradients_raise():
     with pytest.raises(NotImplementedError, match="above 2048 spheres"):
         render(procedural_sphere_scene(n=2049), smallpt_camera(), cfg, key,
                device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="unknown scene type"):
         render(object(), smallpt_camera(), cfg, key, device="cpu")
     with pytest.raises(NotImplementedError, match="differentiable"):
         render(cornell_box_scene(), smallpt_camera(), cfg, key, device="cpu",

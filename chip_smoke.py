@@ -5,11 +5,12 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's four kernel libraries from csrc/ with nvcc, all at
+It builds the port's five kernel libraries from csrc/ with nvcc, all at
 once: megakernel.cu (the per-pass mega_pass and the streaming stream_step,
 with NEE in both), stream_dda.cu (the DDA streaming kernel,
-stream_step_dda), closest_hit.cu (K2, the wavefronts' sphere closest hit)
-and closest_tri.cu (K6, their triangle closest hit). It holds each kernel
+stream_step_dda), closest_hit.cu (K2, the wavefronts' sphere closest hit),
+closest_tri.cu (K6, their triangle closest hit) and closest_tri_culled.cu
+(K7, the grid-culled triangle sweep). It holds each kernel
 against its plain PyTorch version (at small sizes, and on the main paths'
 own rays at full width) and against the stored f64 golden images, drives
 the main paths through the kernels and times them:
@@ -32,7 +33,20 @@ the main paths through the kernels and times them:
   pass's image held to the megakernel's on the same key; FLAT with K6 on
   procedural_mesh_scene(500) at 256x192, held to the plain intersector
   route; FLAT with K2 and split_budget 8 on the Cornell box at 1024x768.
-  The goldens and the AOV modes run through these routes too.
+  The goldens and the AOV modes run through these routes too;
+- the grid-culled sweep (K7): against its plain version on the 60-ball
+  mesh (random, coherent and surface rays, an overflowing list, a ragged
+  tile, all-miss rays) and on procedural_mesh_scene(500)'s camera and
+  first-bounce rays at 256x192, 4 spp, where it is also held to K6 and
+  timed beside it; the FLAT mesh path with the culled route forced
+  (MESH_ACCEL_MIN_TRIS = 1), its pass bit-equal to the K6 pass;
+- mesh streaming (bench.py --mesh-stream's shape): WavefrontStreamingRenderer
+  on procedural_mesh_scene(500) at 256x192, max_depth 12, rounds of
+  step(24 bounces, 8 samples) and a flush, through K6 and with the culled
+  route forced through K7, the two bit-equal, the K6 stream held to the
+  FLAT per-pass image at 8 spp; then the CLI's mesh routes in process
+  (the default route through MeshStreamProgressiveRenderer, and
+  --streaming with --checkpoint and --resume, byte-equal to one run).
 The megakernel's branches that the main paths do not take (thin lens,
 environment light, two NEE lights, row bands and sample slices, 2048
 spheres, the opted-in shared memory at 4096 spheres and the global-memory
@@ -906,6 +920,28 @@ def k6_bound(table, n_rays: int) -> dict:
     return _bound(ops, nbytes, live=live, dead=dead)
 
 
+def k7_bound(args, work) -> dict:
+    """The least time of one K7 launch on the wrapper's arguments (org,
+    dirs, n_rays, table, lists, dlo, stops, ...): OPS_K6_ROW per (ray, live
+    row) of the chunks each tile sweeps on this run's lists (work: the
+    plain version's (chunks, live rows) per tile), a compare per padding row
+    swept, at the float rate; the ray planes, the lists, dlo, stops and the
+    table read once and 16 B a ray written, at the memory rate."""
+    org, _, n_rays, table, lists, dlo, stops = args[:7]
+    chunks, live = (x.cpu().numpy().astype(np.int64) for x in work)
+    tile = np.arange(chunks.shape[0]) * 1024
+    valid = np.clip(n_rays - tile, 0, 1024)
+    pairs = int((valid * live).sum())
+    dead = int((valid * (16 * chunks - live)).sum())
+    ops = OPS_K6_ROW * pairs + OPS_ROW_SKIP * dead
+    nbytes = (2 * org.numel() * 4 + n_rays * 16 + table.numel() * 4
+              + (lists.numel() + dlo.numel() + stops.numel()) * 4)
+    return _bound(ops, nbytes, pairs=pairs, dead=dead,
+                  chunks_per_tile={"mean": float(chunks.mean()),
+                                   "min": int(chunks.min()),
+                                   "max": int(chunks.max())})
+
+
 def _bound(ops, nbytes, **info) -> dict:
     ops_ms, bytes_ms = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return dict(info, ops=ops, bytes=nbytes, bound_ops_ms=ops_ms,
@@ -923,7 +959,7 @@ def zero_counts() -> None:
     from smallpt_tpu_torch.ops import stream_dda as sd
 
     for fn in (mk.mega_pass, mk.stream_step, sd.stream_step_dda,
-               ip.closest_hit, mp.closest_tri):
+               ip.closest_hit, mp.closest_tri, mp.closest_tri_culled):
         fn.launches = 0
 
 
@@ -935,7 +971,7 @@ def counts() -> dict:
 
     return {fn.__name__: fn.launches for fn in (
         mk.mega_pass, mk.stream_step, sd.stream_step_dda, ip.closest_hit,
-        mp.closest_tri)}
+        mp.closest_tri, mp.closest_tri_culled)}
 
 
 def camera_and_bounce_rays(scene, cfg, camera, key, intersect_fn, dev):
@@ -1161,12 +1197,13 @@ def aov_phases(dev) -> dict:
 
 def capture_calls(mod, name: str, fn, which) -> list:
     """Run fn() with mod.name wrapped so that the arguments of its calls
-    numbered in ``which`` (from 0) are kept; returns them."""
+    numbered in ``which`` (from 0) are kept; returns them, one (args,
+    kwargs) a kept call."""
     real, kept, n = getattr(mod, name), [], [0]
 
     def spy(*a, **k):
         if n[0] in which:
-            kept.append(a)
+            kept.append((a, k))
         n[0] += 1
         return real(*a, **k)
 
@@ -1191,22 +1228,54 @@ def compare_images(name, img, rays, ref, ref_rays,
     return st
 
 
+def launches_vs_plain(name, kernel: str, fn, per_run: float) -> dict:
+    """The inputs of the first launch of the closest-hit kernel ``kernel``
+    in a run of fn() and of one in its middle (per_run: the launches a run
+    makes), captured from a further run: on each, the kernel against its
+    plain version (bit-equal), its CUDA-event time, the plain version's
+    host time and the launch's bound ("first", "middle")."""
+    import torch
+
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    mod = ip if kernel == "closest_hit" else mp
+    kept = capture_calls(mod, kernel, fn, {0, int(per_run) // 2})
+    launches = {}
+    for k, (args, kw) in zip(("first", "middle"), kept):
+        n = args[2] if kernel == "closest_tri_culled" else args[0].shape[1]
+        k_ms, got = cuda_ms(lambda: getattr(mod, kernel)(*args, **kw), 5)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kernel == "closest_tri_culled":
+            want, work = mp.closest_tri_culled_plain(*args, **kw,
+                                                     return_work=True)
+        elif kernel == "closest_tri":
+            want = mp.closest_tri_plain(*args, **kw)
+        else:
+            want = ip.closest_hit_plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        bound = (k2_bound(args[2], args[3], args[4], n)
+                 if kernel == "closest_hit" else k6_bound(args[2], n)
+                 if kernel == "closest_tri" else k7_bound(args, work))
+        launches[k] = dict(rays=n, kernel_ms=k_ms, plain_ms=plain_ms,
+                           vs_plain=exact(name, got, want), **bound)
+    return launches
+
+
 def wavefront_path(name, scene, camera, cfg, dev, kernel: str,
                    n_passes: int = 3) -> dict:
     """A wavefront main path at full width: ProgressiveRenderer passes (one
     warm-up, then n_passes timed with CUDA events), the launch counts zeroed
     just before the timed passes and read just after; the image finite.
-    Then the inputs of the first launch of a pass and of one in its middle,
-    captured from a further pass: the kernel on them against its plain
-    version (bit-equal), its CUDA-event time, the plain version's host time
-    and the launch's bound; the device's busy share over one pass
+    Then the first launch of a pass and one in its middle against the plain
+    version (``launches_vs_plain``); the device's busy share over one pass
     (torch.profiler); the host part of a pass (pass time less its launches
     at the kernel's time)."""
     import torch
 
     from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
-    from smallpt_tpu_torch.ops import intersect_pallas as ip
-    from smallpt_tpu_torch.ops import mesh_pallas as mp
 
     torch.cuda.reset_peak_memory_stats()
     t_build = time.perf_counter()
@@ -1219,28 +1288,16 @@ def wavefront_path(name, scene, camera, cfg, dev, kernel: str,
     pass_ms = [cuda_ms(r.step, 1)[0] for _ in range(n_passes)]
     launched = counts()
     rays = (r.stats.rays - rays0) / n_passes
-    if not launched[kernel] or launched["mega_pass"]:
+    others = {"closest_tri": "closest_tri_culled",
+              "closest_tri_culled": "closest_tri"}.get(kernel, "mega_pass")
+    if not launched[kernel] or launched["mega_pass"] or launched[others]:
         raise AssertionError(f"{name}: launches {launched}")
     img = r.image
     if not np.isfinite(img).all() or img.shape != (cfg.height, cfg.width, 3):
         raise AssertionError(f"{name}: image not finite {img.shape}")
     per_pass = launched[kernel] / n_passes
-    mod, plain = ((ip, ip.closest_hit_plain) if kernel == "closest_hit"
-                  else (mp, mp.closest_tri_plain))
-    kept = capture_calls(mod, kernel, r.step, {0, int(per_pass) // 2})
-    launches = {}
-    for k, args in zip(("first", "middle"), kept):
-        n = args[0].shape[1]
-        k_ms, got = cuda_ms(lambda: getattr(mod, kernel)(*args), 5)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        want = plain(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t) * 1e3
-        bound = (k2_bound(args[2], args[3], args[4], n)
-                 if kernel == "closest_hit" else k6_bound(args[2], n))
-        launches[k] = dict(rays=n, kernel_ms=k_ms, plain_ms=plain_ms,
-                           vs_plain=exact(name, got, want), **bound)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the path's own
+    launches = launches_vs_plain(name, kernel, r.step, per_pass)
     ms = float(np.mean(pass_ms))
     kernel_ms = float(np.mean([v["kernel_ms"] for v in launches.values()]))
     return dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
@@ -1251,7 +1308,7 @@ def wavefront_path(name, scene, camera, cfg, dev, kernel: str,
                 ms_per_pass=ms, rays=rays, mrays_per_s=rays / ms / 1e3,
                 kernel=launches, kernel_ms_per_launch=kernel_ms,
                 host_ms=ms - per_pass * kernel_ms,
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_mem_gb=peak_gb,
                 mean=float(img.mean()), profile=profile(r.step))
 
 
@@ -1398,6 +1455,404 @@ def wavefront_main_paths(dev) -> dict:
     return out
 
 
+def k7_vs_plain(name, org, dirs, accel) -> dict:
+    """K7 against closest_tri_culled_plain on (N, 3) rays and a
+    MeshGridAccel on the card, on the tile lists of these rays: t, id, u, v
+    bit-equal. Returns the check with the bound of the launch, the chunks
+    each tile swept, and the wrapper's arguments (key "args", for the
+    caller's timings)."""
+    import torch
+
+    from smallpt_tpu_torch.ops import mesh_accel as ma
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    n = org.shape[0]
+    n_pad = -(-n // ma.RAY_TILE) * ma.RAY_TILE
+    ot, dt = mp._ray_planes(org, dirs, n_pad)
+    valid = torch.arange(n_pad, device=org.device) < n
+    lists, dlo, stops = ma.mesh_tile_lists(ot, dt, valid, accel)
+    args = (ot, dt, n, accel.table, lists, dlo, stops, accel.n_glob_chunks,
+            accel.n_chunks)
+    got = mp.closest_tri_culled(*args)
+    want, work = mp.closest_tri_culled_plain(*args, return_work=True)
+    out = exact(name, got, want)
+    out.update(tiles=int(stops.numel()),
+               overflow_tiles=int((stops < 0).sum()),
+               listed_mean=float(stops.abs().float().mean()),
+               **k7_bound(args, work))
+    return dict(out, args=args, got=got)
+
+
+def k7_vs_k6(name, table, args, got) -> dict:
+    """K7's outputs (got) against K6 on the same rays and K6's table of
+    the mesh: t on every lane, the triangle, u and v on hit lanes, equal."""
+    import torch
+
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    org, dirs, n = args[0], args[1], args[2]
+    want = [x[:n] for x in mp.closest_tri(org, dirs, table)]
+    torch.cuda.synchronize()
+    hit = want[0] < 3e38
+    same = [bool(torch.equal(got[0], want[0]))] + [
+        bool(torch.equal(g[hit], w[hit])) for g, w in zip(got[1:], want[1:])]
+    if not all(same):
+        raise AssertionError(f"{name}: K7 vs K6 (t, tri, u, v) {same}")
+    return {"equal": True, "hit_share": float(hit.float().mean())}
+
+
+def closest_tri_culled_phases(dev):
+    """K7 against its plain version on the card, bit-equal in every output:
+    the 60-ball mesh (3,854 triangles) on 2,048 random, coherent and
+    surface-respawned rays (tests/test_mesh_accel.py's cases), an overflow
+    accel (l_max 16), a ragged last tile (3 x 1,024 + 17 rays) and 77 rays
+    that miss everything; then procedural_mesh_scene(500) (32,014
+    triangles) on the 196,608 camera rays of 256x192 at 4 spp and their
+    first-bounce rays, every tile. On those two batches, K7 against K6 on
+    the same rays (t everywhere, the triangle, u and v on hits, equal), each
+    kernel's CUDA-event time, the tile-list prep's time (mesh_tile_lists,
+    torch) and its peak memory, and the chunks each tile swept. Returns
+    (vs plain, vs K6)."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import camera as cam
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_mesh_scene, scene_to
+    from smallpt_tpu_torch.engine.renderer import make_intersect_fn
+    from smallpt_tpu_torch.ops import mesh_accel as ma
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+    from smallpt_tpu_torch.ops import wavefront as wf
+
+    def rays(kind, n, seed, scene=None):
+        r = np.random.default_rng(seed)
+        if kind == "random":
+            o = r.uniform((5, 5, 25), (95, 75, 145), (n, 3))
+            d = r.normal(size=(n, 3))
+        else:
+            o = np.asarray([50.0, 52.0, 155.0]) + r.uniform(-0.5, 0.5,
+                                                            (n, 3))
+            d = np.asarray([0.0, -0.04, -1.0]) + r.uniform(-0.08, 0.08,
+                                                           (n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o = torch.tensor(o, dtype=torch.float32, device=dev)
+        d = torch.tensor(d, dtype=torch.float32, device=dev)
+        if kind == "surface":
+            h = mp.intersect_mesh_pallas(o, d, scene)
+            o = o + d * torch.where(torch.isfinite(h.t), h.t, 1.0)[:, None] \
+                * 0.999
+            d = torch.tensor(r.normal(size=(n, 3)), dtype=torch.float32,
+                             device=dev)
+            d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+        return o, d
+
+    def strip(st):
+        return {k: v for k, v in st.items() if k not in ("args", "got")}
+
+    m60 = scene_to(procedural_mesh_scene(60, seed=3), dev)
+    acc60 = ma.build_mesh_grid_accel(m60, device=dev)
+    vs_plain = {}
+    for kind in ("random", "coherent", "surface"):
+        vs_plain[f"mesh60_{kind}_2048"] = strip(k7_vs_plain(
+            kind, *rays(kind, 2048, 11, m60), acc60))
+    vs_plain["mesh60_overflow_lmax16"] = strip(k7_vs_plain(
+        "overflow", *rays("random", 2048, 41),
+        ma.build_mesh_grid_accel(m60, l_max=16, device=dev)))
+    if vs_plain["mesh60_overflow_lmax16"]["overflow_tiles"] != 2:
+        raise AssertionError("the l_max 16 accel did not overflow")
+    vs_plain["mesh60_ragged_3089"] = strip(k7_vs_plain(
+        "ragged", *rays("random", 3 * 1024 + 17, 51), acc60))
+    far = torch.tensor([[50.0, 40.0, 1e4]], device=dev).expand(77, 3)
+    away = torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(77, 3)
+    miss = strip(k7_vs_plain("all miss", far.contiguous(), away.contiguous(),
+                             acc60))
+    if miss["hit_share"] != 0.0:
+        raise AssertionError("all-miss rays hit")
+    vs_plain["mesh60_all_miss_77"] = miss
+
+    mesh = scene_to(procedural_mesh_scene(500), dev)
+    cfg = RenderConfig(width=256, height=192, spp_per_cell=1,
+                       camera_model=CameraModel.LEGACY, filter=Filter.TENT)
+    key = rng.fold_in(rng.base_key(0), 1002)
+    sid, _, col, row, cx, cy = cam.sample_indices(cfg, cfg.n_pixels,
+                                                  device=dev)
+    org, dirs = cam.generate_rays(smallpt_camera(),
+                                  rng.camera_uniforms(key, sid), cfg, col,
+                                  row, cx, cy)
+    nxt = wf.bounce_step(wf.initial_state(org, dirs, 1),
+                         make_intersect_fn(mesh, cfg), mesh.material, cfg,
+                         key, sid)
+    t = time.perf_counter()
+    acc = ma.build_mesh_grid_accel(mesh, device=dev)
+    build_s = time.perf_counter() - t
+    table = mp.build_tri_table(mesh, device=dev)
+    vs_k6 = {"accel": dict(build_s=build_s, nb=list(acc.nb),
+                           n_chunks=acc.n_chunks,
+                           n_glob_chunks=acc.n_glob_chunks,
+                           l_max=acc.l_max, n_bins=acc.n_bins,
+                           masks_mb=acc.masks.numel() * 4 / 1e6)}
+    for name, (o, d) in (("mesh500_256x192_camera", (org, dirs)),
+                         ("mesh500_256x192_bounce", (nxt.org, nxt.dir))):
+        st = k7_vs_plain(name, o, d, acc)
+        args, got = st["args"], st["got"]
+        vs_plain[name] = strip(st)
+        cmp = k7_vs_k6(name, table, args, got)
+        ot, dt, n = args[0], args[1], args[2]
+        valid = torch.arange(ot.shape[1], device=dev) < n
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        lists_ms, _ = cuda_ms(lambda: ma.mesh_tile_lists(ot, dt, valid, acc),
+                              5, skip_first=True)
+        lists_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        k7_ms, _ = cuda_ms(lambda: mp.closest_tri_culled(*args), 5)
+        k6_ms, _ = cuda_ms(lambda: mp.closest_tri(ot, dt, table), 5)
+        k6b = k6_bound(table, n)
+        vs_k6[name] = dict(cmp, rays=n, k7_ms=k7_ms, k6_ms=k6_ms,
+                           lists_ms=lists_ms,
+                           lists_peak_gb_above_inputs=lists_peak,
+                           k7_plus_lists_ms=k7_ms + lists_ms,
+                           k7_bound_ms=vs_plain[name]["bound_ms"],
+                           k6_bound_ms=k6b["bound_ms"],
+                           chunks_per_tile=vs_plain[name][
+                               "chunks_per_tile"],
+                           pairs_k7=vs_plain[name]["pairs"],
+                           pairs_k6=n * k6b["live"])
+    return vs_plain, vs_k6
+
+
+def flat_culled_path(dev) -> dict:
+    """bench.py --mesh's culled variant (bench.py:234-283): path 3's
+    configuration (procedural_mesh_scene(500), 256x192, 4 spp, max_depth
+    12, FLAT + PALLAS) with MESH_ACCEL_MIN_TRIS = 1, through K7: a pass on
+    path 3's key bit-equal to the K6 pass (image and rays), then the
+    wavefront main-path measurements (wavefront_path)."""
+    import torch
+
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig, Scheduler,
+    )
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_mesh_scene
+    from smallpt_tpu_torch.engine import renderer
+
+    mesh, cam = procedural_mesh_scene(500), smallpt_camera()
+    cfg = RenderConfig(width=256, height=192, spp_per_cell=1, max_depth=12,
+                       scheduler=Scheduler.FLAT, camera_model=CameraModel
+                       .LEGACY, filter=Filter.TENT,
+                       intersector=Intersector.PALLAS)
+    key = rng.fold_in(rng.base_key(0), 0)
+    name = "flat_culled_mesh500_256x192"
+    zero_counts()
+    img6, rays6 = renderer.render_with_stats(mesh, cam, cfg, key, device=dev)
+    old = renderer.MESH_ACCEL_MIN_TRIS
+    renderer.MESH_ACCEL_MIN_TRIS = 1
+    try:
+        img7, rays7 = renderer.render_with_stats(mesh, cam, cfg, key,
+                                                 device=dev)
+        launched = counts()
+        out = wavefront_path(name, mesh, cam, cfg, dev, "closest_tri_culled")
+    finally:
+        renderer.MESH_ACCEL_MIN_TRIS = old
+    torch.cuda.synchronize()
+    if not (torch.equal(img6, img7) and int(rays6) == int(rays7)
+            and launched["closest_tri"] and launched["closest_tri_culled"]):
+        raise AssertionError(f"{name}: the K7 pass differs from the K6 pass "
+                             f"({int(rays7)} vs {int(rays6)} rays, "
+                             f"launches {launched})")
+    out["vs_k6_pass"] = dict(equal=True, rays=int(rays7))
+    return out
+
+
+def mesh_stream_path(name, dev, kernel: str, n_rounds=3) -> dict:
+    """bench.py --mesh-stream's shape (bench.py:286-333):
+    WavefrontStreamingRenderer on procedural_mesh_scene(500), 256x192,
+    max_depth 12, PALLAS; a round is reset(), step(n_bounces=24,
+    add_samples=8) and flush(); one warm-up round, then n_rounds timed with
+    CUDA events, the launch counts zeroed just before and read just after.
+    Gates: the closest-hit kernel ``kernel`` launched and the other mesh
+    kernel not, every weight exactly 8 after the flush, a finite image;
+    then the first launch of a round and one in its middle (49,152 lanes,
+    dead and flushed lanes with their stale rays included) against the
+    plain version, bit-equal, with their times and bounds
+    (``launches_vs_plain``). Returns the measurements and the last timed
+    round's sums (key "sums")."""
+    import torch
+
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig,
+    )
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_mesh_scene
+    from smallpt_tpu_torch.engine.mesh_stream import (
+        WavefrontStreamingRenderer,
+    )
+
+    cfg = RenderConfig(width=256, height=192, spp_per_cell=1, max_depth=12,
+                       camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+                       intersector=Intersector.PALLAS)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    r = WavefrontStreamingRenderer(procedural_mesh_scene(500),
+                                   smallpt_camera(), cfg, seed=0, device=dev)
+    build_s = time.perf_counter() - t
+
+    def round_():
+        r.reset()
+        r.step(n_bounces=24, add_samples=8)
+        r.flush()
+        return r.stats.rays
+
+    t = time.perf_counter()
+    round_()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    zero_counts()
+    round_ms, round_rays = zip(*(cuda_ms(round_, 1) for _ in range(n_rounds)))
+    launched = counts()
+    other = ("closest_tri" if kernel == "closest_tri_culled"
+             else "closest_tri_culled")
+    if not launched[kernel] or launched[other]:
+        raise AssertionError(f"{name}: launches {launched}")
+    rad, w = r.accumulators()
+    if not bool((w == 8).all()):
+        raise AssertionError(f"{name}: weights {int(w.min())}..{int(w.max())}"
+                             ", want 8")
+    img = r.image
+    if not np.isfinite(img).all() or img.shape != (192, 256, 3):
+        raise AssertionError(f"{name}: image not finite {img.shape}")
+    sums = (rad.cpu().numpy(), w.cpu().numpy(), img)
+    ms = float(np.mean(round_ms))
+    rays = float(np.mean(round_rays))
+    per_round = launched[kernel] / n_rounds
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the path's own
+    launches = launches_vs_plain(name, kernel, round_, per_round)
+    kernel_ms = float(np.mean([v["kernel_ms"] for v in launches.values()]))
+    return dict(width=256, height=192, spp=8, max_depth=12, n_bounces=24,
+                build_s=build_s, first_round_s=warm_s, rounds=n_rounds,
+                round_ms=round_ms, ms_per_round=ms, rays=round_rays,
+                mrays_per_s=rays / ms / 1e3, launches=launched,
+                launches_per_round=per_round, kernel=launches,
+                kernel_ms_per_launch=kernel_ms,
+                host_ms=ms - per_round * kernel_ms,
+                peak_mem_gb=peak_gb,
+                mean=float(img.mean()), profile=profile(round_), sums=sums)
+
+
+def mesh_stream_phases(dev) -> dict:
+    """The mesh stream through K6 (the default route) and with
+    MESH_ACCEL_MIN_TRIS = 1 through K7, bit-equal to each other (image and
+    weights); the K6 stream against the FLAT per-pass image at 8 spp on
+    the card under tests/test_mesh_stream.py's gate (isclose(rtol=0.2,
+    atol=3*12/spp) on more than 90% of values, means within 8%)."""
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig, Scheduler,
+    )
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_mesh_scene
+    from smallpt_tpu_torch.engine import renderer
+
+    out = {}
+    name = "mesh_stream_main_mesh500_256x192"
+    out[name] = main = mesh_stream_path(name, dev, "closest_tri")
+    rad6, w6, img_s = main.pop("sums")
+    spp = 8
+    cfg = RenderConfig(width=256, height=192, spp_per_cell=spp // 4,
+                       max_depth=12, scheduler=Scheduler.FLAT,
+                       camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+                       intersector=Intersector.PALLAS)
+    img_p, _ = renderer.render_with_stats(procedural_mesh_scene(500),
+                                          smallpt_camera(), cfg,
+                                          rng.base_key(1), device=dev)
+    img_p = img_p.cpu().numpy() / spp
+    close = float(np.isclose(img_s, img_p, rtol=0.2,
+                             atol=3 * 12 / spp).mean())
+    mean_rel = float(abs(img_s.mean() - img_p.mean()) / (img_p.mean() + 0.05))
+    main["vs_flat_8spp"] = dict(close_share=close, min_close=0.9,
+                                mean_rel=mean_rel, max_mean=0.08)
+    if not (close > 0.9 and mean_rel < 0.08):
+        raise AssertionError(f"{name}: vs FLAT {main['vs_flat_8spp']}")
+    phase(name, **main)
+
+    name = "mesh_stream_culled_mesh500_256x192"
+    old = renderer.MESH_ACCEL_MIN_TRIS
+    renderer.MESH_ACCEL_MIN_TRIS = 1
+    try:
+        out[name] = culled = mesh_stream_path(name, dev,
+                                              "closest_tri_culled")
+    finally:
+        renderer.MESH_ACCEL_MIN_TRIS = old
+    rad7, w7, _ = culled.pop("sums")
+    if not (np.array_equal(rad6, rad7) and np.array_equal(w6, w7)):
+        raise AssertionError(f"{name}: the K7 stream differs from the K6 "
+                             "stream")
+    culled["vs_k6_stream"] = {"equal": True}
+    phase(name, **culled)
+    return out
+
+
+def cli_mesh_phases(dev) -> dict:
+    """The CLI's mesh routes on the card, in process: the default route
+    (python -m smallpt_tpu_torch 8 --scene mesh --width 256 --height 192
+    --max-depth 12 --stats) through MeshStreamProgressiveRenderer and K6;
+    --streaming --scene mesh with --checkpoint, then --resume, byte-equal to
+    one uninterrupted run of twice the samples."""
+    import contextlib
+    import io
+
+    from smallpt_tpu_torch import cli
+
+    d = tempfile.mkdtemp(prefix="smallpt_torch_cli_")
+    size = ["--width", "256", "--height", "192", "--max-depth", "12"]
+    made = []
+    real = cli.MeshStreamProgressiveRenderer
+
+    def counted(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+
+    err = io.StringIO()
+    zero_counts()
+    cli.MeshStreamProgressiveRenderer = counted
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["8", "--scene", "mesh", *size, "--stats",
+                           "--out", os.path.join(d, "mesh.png")])
+    finally:
+        cli.MeshStreamProgressiveRenderer = real
+    default_s = time.perf_counter() - t
+    launched = counts()
+    stats = [json.loads(ln) for ln in err.getvalue().splitlines()
+             if ln.startswith("{")]
+    if (rc != 0 or made != [1] or not launched["closest_tri"]
+            or not stats):
+        raise AssertionError(f"cli default mesh route: rc {rc}, made {made}, "
+                             f"launches {launched}")
+    out = {"default_route": dict(seconds=default_s, launches=launched,
+                                 last_stats=stats[-1])}
+    base = ["8", "--scene", "mesh", "--streaming", *size, "--quiet"]
+    ck, a, b, whole = (os.path.join(d, n) for n in (
+        "ck.npz", "a.ppm", "b.ppm", "whole.ppm"))
+    t = time.perf_counter()
+    for argv in ([*base, "--out", a, "--checkpoint", ck],
+                 [*base, "--out", b, "--resume", ck],
+                 [*base, "--passes", "2", "--out", whole]):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cli {argv}")
+    with open(b, "rb") as fb, open(whole, "rb") as fw:
+        same = fb.read() == fw.read()
+    if not same:
+        raise AssertionError("cli --streaming --scene mesh: the resumed "
+                             "image differs from the uninterrupted one")
+    out["streaming_checkpoint_resume"] = dict(
+        byte_equal=True, seconds=time.perf_counter() - t)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1432,8 +1887,9 @@ def main() -> int:
     phase("device", kind=kind, count=torch.cuda.device_count(),
           nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- 2. build: the four libraries at once ---------------------------
-    libraries = (mk.LIBRARY, sd.LIBRARY, ip.LIBRARY, mp.LIBRARY)
+    # ---- 2. build: the five libraries at once ---------------------------
+    libraries = (mk.LIBRARY, sd.LIBRARY, ip.LIBRARY, mp.LIBRARY,
+                 mp.LIBRARY_CULLED)
     t_build = time.perf_counter()
     nvcc.build(dict(libraries))
     t_build = time.perf_counter() - t_build
@@ -1442,6 +1898,7 @@ def main() -> int:
     sd._dda_lib()
     ip._kernel_lib()
     mp._kernel_lib()
+    mp._culled_lib()
     builds = {}
     for lib, _ in libraries:
         info = nvcc.builds.get(lib, {"cmd": None, "seconds": 0.0,
@@ -1636,6 +2093,22 @@ def main() -> int:
     # ---- 22-26. the four wavefront main paths -------------------------------
     wf = wavefront_main_paths(dev)
 
+    # ---- 27-28. K7 against its plain version, and against K6 on the same
+    # rays ------------------------------------------------------------------
+    k7_stats, k7_vs_k6_stats = closest_tri_culled_phases(dev)
+    phase("closest_tri_culled_vs_plain", **k7_stats)
+    phase("closest_tri_culled_vs_k6", **k7_vs_k6_stats)
+
+    # ---- 29-31. the culled route of FLAT, and the mesh stream through K6 and
+    # through K7 --------------------------------------------------------------
+    name = "flat_culled_mesh500_256x192"
+    wf[name] = flat_culled_path(dev)
+    phase(name, **wf[name])
+    ms_paths = mesh_stream_phases(dev)
+
+    # ---- 32. the CLI's mesh routes -----------------------------------------
+    phase("cli_mesh_routes", **cli_mesh_phases(dev))
+
     def ptxas_of(lib):
         return [ln.strip() for ln in nvcc.builds.get(lib, {}).get(
             "ptxas", "").splitlines() if "registers" in ln]
@@ -1650,8 +2123,9 @@ def main() -> int:
             "max_abs_err": max(errs), "ms": launch["kernel_ms"],
             "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
             "bound_by": launch["bound_by"], "rays": launch["rays"],
-            "ptxas": ptxas_of(ip.LIBRARY[0] if name == "closest_hit"
-                              else mp.LIBRARY[0]),
+            "ptxas": ptxas_of({"closest_hit": ip.LIBRARY[0],
+                               "closest_tri": mp.LIBRARY[0]}.get(
+                                   name, mp.LIBRARY_CULLED[0])),
             "library_ms": None,
         }
 
@@ -1663,9 +2137,42 @@ def main() -> int:
                   "smallpt_tpu_torch/csrc/closest_tri.cu",
                   "smallpt_tpu/ops/mesh_pallas.py:43", k6_stats),
     ]
+    k7 = wf_kernel("closest_tri_culled", wf["flat_culled_mesh500_256x192"],
+                   "smallpt_tpu_torch/csrc/closest_tri_culled.cu",
+                   "smallpt_tpu/ops/mesh_pallas.py:162", k7_stats)
+    k7["launches_by_path"] = {
+        "flat_culled_mesh500_256x192": k7["launches"],
+        "mesh_stream_culled_mesh500_256x192": ms_paths[
+            "mesh_stream_culled_mesh500_256x192"]["launches"][
+            "closest_tri_culled"]}
+    for k, n in ((wf_kernels[1], "mesh_stream_main_mesh500_256x192"),
+                 (k7, "mesh_stream_culled_mesh500_256x192")):
+        # the stream's middle launch: its 49,152 lanes against the plain
+        # version, its time and its bound
+        launch = ms_paths[n]["kernel"]["middle"]
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            v["vs_plain"]["max_abs_err"]
+            for v in ms_paths[n]["kernel"].values()])
+        k["stream_launch"] = {
+            "path": n, "rays": launch["rays"], "ms": launch["kernel_ms"],
+            "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
+            "bound_by": launch["bound_by"]}
+    k7["same_rays_vs_k6"] = {
+        n: {k: v[k] for k in ("k7_ms", "k6_ms", "lists_ms", "k7_bound_ms",
+                              "k6_bound_ms")}
+        for n, v in k7_vs_k6_stats.items() if n != "accel"}
+    k7["round_ms_k7_stream"] = ms_paths[
+        "mesh_stream_culled_mesh500_256x192"]["ms_per_round"]
+    k7["round_ms_k6_stream"] = ms_paths[
+        "mesh_stream_main_mesh500_256x192"]["ms_per_round"]
+    wf_kernels.append(k7)
     wf_kernels[0]["launches_by_path"] = {
         n: wf[n]["launches"]["closest_hit"] for n in wf
-        if n != "flat_main_mesh500_256x192"}
+        if "mesh500" not in n}
+    wf_kernels[1]["launches_by_path"] = {
+        "flat_main_mesh500_256x192": wf_kernels[1]["launches"],
+        "mesh_stream_main_mesh500_256x192": ms_paths[
+            "mesh_stream_main_mesh500_256x192"]["launches"]["closest_tri"]}
     wf_kernels[0]["ms_procedural10000"] = wf[
         "regen_main_procedural10000_512x384"]["kernel"]["middle"]["kernel_ms"]
     wf_kernels[0]["bound_ms_procedural10000"] = wf[

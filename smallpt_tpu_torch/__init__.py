@@ -23,7 +23,12 @@ Ported so far, with next-event estimation (ROADMAP.md):
   across launches;
 - the DDA streaming route for big sphere scenes: StreamingRenderer (above
   2048 spheres, at most one NEE light) -> stream_step_dda -> one launch of
-  csrc/stream_dda.cu, which walks each ray through a uniform grid.
+  csrc/stream_dda.cu, which walks each ray through a uniform grid;
+- mesh streaming: WavefrontStreamingRenderer.step/flush/image (and
+  MeshStreamProgressiveRenderer per pass) -> one wavefront bounce a launch
+  of the closest-hit kernel, K6, or with the grid accel (meshes of at least
+  MESH_ACCEL_MIN_TRIS triangles, opt-in) csrc/closest_tri_culled.cu (K7)
+  over per-tile chunk lists (ops/mesh_accel.py).
 """
 
 from smallpt_tpu_torch.config import (
@@ -33,7 +38,10 @@ from smallpt_tpu_torch.core.camera import LegacyCamera, MatrixCamera
 from smallpt_tpu_torch.core.scene import (
     DIFF, REFR, SPEC, Material, MeshScene, SphereScene,
 )
-from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
+from smallpt_tpu_torch.engine.mesh_stream import WavefrontStreamingRenderer
+from smallpt_tpu_torch.engine.progressive import (
+    MeshStreamProgressiveRenderer, ProgressiveRenderer,
+)
 from smallpt_tpu_torch.engine.renderer import (
     render, render_image, render_with_stats,
 )
@@ -45,4 +53,5 @@ __all__ = [
     "REFR",
     "LegacyCamera", "MatrixCamera", "render", "render_image",
     "render_with_stats", "ProgressiveRenderer", "StreamingRenderer",
+    "WavefrontStreamingRenderer", "MeshStreamProgressiveRenderer",
 ]

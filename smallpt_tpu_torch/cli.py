@@ -6,8 +6,11 @@ jitter cells (smallpt.cpp:276,846). Here every compile-time constant of the
 reference that those routes read is a flag. Passes run through
 ProgressiveRenderer (the megakernel, or the REGEN and FLAT wavefronts with
 the closest-hit kernels for --intersector pallas), or with ``--streaming``
-through StreamingRenderer, on the card (``--device cuda``, the default) or
-through the plain PyTorch versions (``--device cpu``).
+through StreamingRenderer. Mesh scenes in full transport stream, as in the
+JAX CLI: through MeshStreamProgressiveRenderer per pass without
+--scheduler, through WavefrontStreamingRenderer with ``--streaming``. All
+run on the card (``--device cuda``, the default) or through the plain
+PyTorch versions (``--device cpu``).
 
 Examples:
     python -m smallpt_tpu_torch 16 --width 1024 --height 768 --out c.png
@@ -17,6 +20,9 @@ Examples:
     python -m smallpt_tpu_torch 4 --streaming --scene procedural
     python -m smallpt_tpu_torch 4 --scheduler regen --intersector pallas
     python -m smallpt_tpu_torch 4 --scene mesh --scheduler flat --intersector pallas
+    python -m smallpt_tpu_torch 8 --scene mesh --width 256 --height 192 \
+        --max-depth 12 --stats
+    python -m smallpt_tpu_torch 8 --scene mesh --streaming --checkpoint ck.npz
 """
 
 from __future__ import annotations
@@ -30,7 +36,10 @@ from smallpt_tpu_torch.config import (
 )
 from smallpt_tpu_torch.core import scene as scenes
 from smallpt_tpu_torch.core.camera import default_matrix_camera, smallpt_camera
-from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
+from smallpt_tpu_torch.engine.mesh_stream import WavefrontStreamingRenderer
+from smallpt_tpu_torch.engine.progressive import (
+    MeshStreamProgressiveRenderer, ProgressiveRenderer,
+)
 from smallpt_tpu_torch.engine.streaming import StreamingRenderer
 from smallpt_tpu_torch.ops.megakernel import MEGA_MAX_SPHERES
 from smallpt_tpu_torch.utils import image as img_io
@@ -109,11 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats", action="store_true",
                    help="emit one structured JSON log line per pass")
     p.add_argument("--checkpoint", default=None,
-                   help="with --streaming: save the stream state here after "
-                        "rendering")
+                   help="with --streaming, or a mesh scene's default route: "
+                        "save the stream state here after rendering")
     p.add_argument("--resume", default=None,
-                   help="with --streaming: resume from a stream checkpoint "
-                        "(of either package)")
+                   help="with --streaming, or a mesh scene's default route: "
+                        "resume from a stream checkpoint (of either package)")
     p.add_argument("--quality", type=float, default=None, metavar="REL_ERR",
                    help="with --streaming: equal-quality stopping — render "
                         "until the 95%%-quantile per-pixel relative stderr "
@@ -165,10 +174,6 @@ def main(argv=None) -> int:
     if args.quality is not None and not args.streaming:
         build_parser().error("--quality requires --streaming (equal-quality "
                              "stopping drives the stream's moment planes)")
-    if (args.checkpoint or args.resume) and not args.streaming:
-        raise NotImplementedError(
-            "--checkpoint/--resume: checkpoints of the per-pass route "
-            "(ROADMAP.md, modules item 6) are not yet ported")
     config = RenderConfig(
         width=args.width,
         height=args.height,
@@ -202,18 +207,16 @@ def main(argv=None) -> int:
                   file=sys.stderr)
         if mesh_scene and not bool((scene.tri_inst == li).any()):
             build_parser().error(f"--nee instance {li} has no triangles")
-    if args.streaming and mesh_scene:
+    # an EXPLICIT --scheduler pins the per-pass engine (its keying and
+    # checkpoint format differ from the streaming one)
+    mesh_stream = (not args.streaming and mesh_scene
+                   and config.mode == Mode.FULL and config.split_budget == 1
+                   and args.scheduler is None)
+    if (args.checkpoint or args.resume) and not (args.streaming
+                                                 or mesh_stream):
         raise NotImplementedError(
-            "--streaming on a mesh scene: the mesh streaming wavefront "
-            "(ROADMAP.md, modules item 10) is not yet ported")
-    if (not args.streaming and mesh_scene and config.mode == Mode.FULL
-            and config.split_budget == 1 and args.scheduler is None):
-        # the JAX CLI drives its mesh streaming renderer here; an explicit
-        # --scheduler pins the per-pass engine
-        raise NotImplementedError(
-            "a mesh scene in full transport without --scheduler: the mesh "
-            "streaming renderer (ROADMAP.md, modules item 10) is not yet "
-            "ported; pass --scheduler regen or flat")
+            "--checkpoint/--resume: checkpoints of the per-pass route "
+            "(ROADMAP.md, modules item 6) are not yet ported")
     if (not args.streaming and not mesh_scene
             and scene.n_spheres > MEGA_MAX_SPHERES
             and config.mode == Mode.FULL and config.split_budget == 1):
@@ -227,42 +230,55 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     if args.streaming:
-        sr = StreamingRenderer(scene, camera, config, seed=args.seed,
-                               device=args.device)
+        # triangle scenes stream through the wavefront (engine/
+        # mesh_stream.py); spheres keep the streaming kernels
+        sr = (WavefrontStreamingRenderer if mesh_scene else StreamingRenderer)(
+            scene, camera, config, seed=args.seed, device=args.device)
+        # a mesh stream's step runs 2 x max_depth bounces, as in the JAX
+        # CLI; the sphere stream's runs kernel iterations until it drains
+        per_step = {"n_bounces": 2 * config.max_depth} if mesh_scene else {}
         if args.resume:
             sr.load_checkpoint(args.resume)
         if args.quality is not None:
             # equal-quality stopping: spp x passes becomes the sample pool,
             # allocated adaptively until the target relative stderr
             q = sr.step_to_quality(rel_err=args.quality,
-                                   max_spp=config.spp * n_passes)
+                                   max_spp=config.spp * n_passes, **per_step)
             if not args.quiet:
                 print(f"quality stop: rel_err@95% {q['rel_err_q']:.4f} "
                       f"spp {q['spp_min']}..{q['spp_max']} "
                       f"({q['rounds']} rounds)", file=sys.stderr)
         else:
-            sr.step(n_iters=1_000_000, add_samples=config.spp * n_passes)
+            sr.step(add_samples=config.spp * n_passes,
+                    **(per_step or {"n_iters": 1_000_000}))
             sr.flush()
         if args.stats:
             log_json("stream_done", sr.stats.as_dict())
         img = sr.image * args.exposure
     else:
-        r = ProgressiveRenderer(scene, camera, config, seed=args.seed,
-                                device=args.device)
+        # mesh scenes in full transport drive the persistent streaming
+        # wavefront per pass (accel and tables built once, state carried
+        # across passes)
+        r = (MeshStreamProgressiveRenderer if mesh_stream
+             else ProgressiveRenderer)(scene, camera, config, seed=args.seed,
+                                       device=args.device)
         r.log_stats = args.stats
+        if args.resume:
+            r.load_checkpoint(args.resume)
         for i in range(n_passes):
             r.step()
             if not args.quiet:
                 done = 100.0 * (i + 1) / n_passes
                 print(f"\rRendering ({config.spp * n_passes} spp) "
                       f"{done:5.2f}%", end="", file=sys.stderr)
+        r.finalize()  # the mesh stream drains; a per-pass step is complete
         img = r.image * args.exposure  # the copy to the host synchronizes
     if not args.quiet:
         print(f"\nElapsed time: {(time.time() - t0) * 1000:.0f} ms",
               file=sys.stderr)
     _write(args.out, img)
-    if args.streaming and args.checkpoint:
-        sr.save_checkpoint(args.checkpoint)
+    if args.checkpoint:
+        (sr if args.streaming else r).save_checkpoint(args.checkpoint)
     if not args.quiet:
         print(f"Wrote {args.out}", file=sys.stderr)
     return 0

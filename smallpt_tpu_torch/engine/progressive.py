@@ -9,8 +9,11 @@ the pass count; the display image divides by passes * spp
 (engine/renderer.py::_route), and so are its inputs on the device: on the
 megakernel route the scene table and camera vector, so a step is one
 kernel launch and its accumulation; on the wavefront routes the scene, its
-K2 or K6 table and the mesh NEE tables, so a step builds nothing. The JSON
-command queue and checkpoints are not ported yet (ROADMAP.md).
+K2 or K6 table (or K7 accel) and the mesh NEE tables, so a step builds
+nothing. ``MeshStreamProgressiveRenderer`` drives the mesh streaming engine
+(engine/mesh_stream.py) per pass instead, its wavefront carried across
+passes. The JSON command queue and the per-pass checkpoints are not ported
+yet (ROADMAP.md, modules item 5).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from smallpt_tpu_torch.config import RenderConfig
 from smallpt_tpu_torch.core import rng as prng
+from smallpt_tpu_torch.engine.mesh_stream import WavefrontStreamingRenderer
 from smallpt_tpu_torch.engine.renderer import (
     _route, pass_inputs, wavefront_inputs, wavefront_pass,
 )
@@ -93,8 +97,78 @@ class ProgressiveRenderer:
         self.accum = torch.zeros_like(self.accum)
         self.sample_count = 0
 
+    def finalize(self) -> None:
+        """Nothing to drain: a pass's accumulation is complete when it
+        returns (the streaming drivers flush here)."""
+
     @property
     def image(self) -> np.ndarray:
         """Normalized display image (smallpt.cpp:957): accum / (N * spp)."""
         n = max(self.sample_count, 1)
         return self.accum.cpu().numpy() / (n * self.config.spp)
+
+
+class MeshStreamProgressiveRenderer:
+    """Progressive driver over the mesh streaming engine
+    (engine/mesh_stream.py, ``self._r``): one PERSISTENT wavefront carried
+    across passes (accel, intersect tables and NEE tables built once),
+    stepped per pass (each step adds config.spp samples a pixel and
+    advances n_bounces) or at equal time (target_ms). Its checkpoint is the
+    stream's. The JAX CLI's route for a mesh scene in full transport
+    without --scheduler. The JAX package's JSON request protocol
+    (enqueue/_apply_requests) is not ported for any progressive driver yet
+    (ROADMAP.md, modules item 5)."""
+
+    def __init__(self, scene, camera, config: RenderConfig, seed: int = 0,
+                 n_bounces: int | None = None,
+                 target_ms: float | None = None, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        self._r = WavefrontStreamingRenderer(scene, camera, config,
+                                             seed=seed, device=self.device)
+        self.n_bounces = (2 * config.max_depth if n_bounces is None
+                          else n_bounces)
+        self.target_ms = target_ms
+        self.sample_count = 0  # passes accumulated
+        self.log_stats = False  # emit a JSON log line per step when True
+
+    def step(self, n_passes: int = 1) -> None:
+        for _ in range(n_passes):
+            if self.target_ms is not None:
+                rays = self._r.step_timed(target_ms=self.target_ms,
+                                          add_samples=self.config.spp)
+            else:
+                rays = self._r.step(add_samples=self.config.spp,
+                                    n_bounces=self.n_bounces)
+            self.sample_count += 1
+            if self.log_stats:
+                log_json("render_pass", {
+                    "pass": self.sample_count, "pass_rays": rays,
+                    **self.stats.as_dict(),
+                })
+
+    @property
+    def stats(self) -> RenderStats:
+        """The stream's telemetry (passes are its steps)."""
+        return self._r.stats
+
+    def reset_accumulation(self) -> None:
+        # the accumulation lives in the stream state
+        self.sample_count = 0
+        self._r.reset()
+
+    def finalize(self) -> None:
+        """Drain the wavefront: the image becomes the exact estimate over
+        every budgeted sample."""
+        self._r.flush()
+
+    @property
+    def image(self) -> np.ndarray:
+        return self._r.image
+
+    def save_checkpoint(self, path: str) -> None:
+        self._r.save_checkpoint(path)
+
+    def load_checkpoint(self, path: str) -> None:
+        self._r.load_checkpoint(path)
+        self.sample_count = self._r.stats.passes

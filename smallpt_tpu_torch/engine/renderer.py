@@ -14,13 +14,15 @@ The port routes each per-pass config as the JAX package does (``_route``):
 - FLAT, or split_budget > 1: the flat wavefront.
 The wavefronts intersect through ``make_intersect_fn``: with
 ``Intersector.PALLAS`` the closest-hit kernels K2 (spheres) and K6
-(triangles), with ``Intersector.JAX`` the plain route of ops/intersect.py.
-What the JAX package sends elsewhere raises NotImplementedError naming the
-ROADMAP.md item that ports it: the binned drain for MEGA sphere scenes
-above MEGA_MAX_SPHERES (item 11), the grid-culled mesh sweep (item 10) and
-gradients (item 8). Nothing falls back to another route. Entry points run
-on the card unless given ``device="cpu"``. The streaming route is
-engine/streaming.py.
+(triangles), or K7, the grid-culled triangle sweep, for meshes of at least
+MESH_ACCEL_MIN_TRIS triangles (off by default, as in the JAX package); with
+``Intersector.JAX`` the plain route of ops/intersect.py. What the JAX
+package sends elsewhere raises NotImplementedError naming the ROADMAP.md
+item that ports it: the binned drain for MEGA sphere scenes above
+MEGA_MAX_SPHERES (item 11) and gradients (item 8). Nothing falls back to
+another route. Entry points run on the card unless given ``device="cpu"``.
+The streaming routes are engine/streaming.py (spheres) and
+engine/mesh_stream.py (meshes, and any scene the wavefront shades).
 """
 
 from __future__ import annotations
@@ -48,13 +50,15 @@ from smallpt_tpu_torch.ops.megakernel import (
     render_pass_megakernel,
 )
 from smallpt_tpu_torch.ops.mesh_pallas import (
-    build_tri_table, intersect_mesh_pallas,
+    build_tri_table, intersect_mesh_culled, intersect_mesh_pallas,
 )
 from smallpt_tpu_torch.utils.device import resolve_device
 
-# Triangle count at and above which the JAX package sends mesh scenes with
-# Intersector.PALLAS to its grid-culled sweep (K7); opt-in there through the
-# same variable, off by default (2^31).
+# Triangle count at and above which mesh scenes with Intersector.PALLAS
+# take the grid-culled sweep (K7); read at call time, so setting the module
+# attribute switches the route. Opt-in, off by default (2^31), as in the
+# JAX package, which measured the culled sweep slower than the brute one on
+# its TPU; the H100's A/B is in PERF.md.
 MESH_ACCEL_MIN_TRIS = int(
     os.environ.get("SMALLPT_TPU_MESH_ACCEL_MIN", str(1 << 31)))
 
@@ -93,11 +97,17 @@ def _route(scene, config: RenderConfig, differentiable: bool) -> str:
     return "flat"
 
 
-def make_intersect_fn(scene, config: RenderConfig):
+def make_intersect_fn(scene, config: RenderConfig, mesh_accel=None):
     """The closest-hit backend (the reference's ``using Intersector``
     switch, smallpt.cpp:605) for a scene whose tensors lie on the device to
-    render on. The K2 and K6 tables are built here, once per call, and the
-    returned function (org, dirs) -> Hit reuses them on every bounce.
+    render on. The K2 or K6 table, or the K7 accel, is built here, once per
+    call, and the returned function (org, dirs) -> Hit reuses it on every
+    bounce; a caller that renders many passes calls this once.
+
+    mesh_accel: a MeshGridAccel of the scene on its device, built by the
+    caller; None builds one here for a mesh of at least
+    MESH_ACCEL_MIN_TRIS triangles (``_mesh_accel_for``), as the JAX package
+    does.
 
     The sphere kernel route takes the config's intersect_eps_rel; the JAX
     package's passes only intersect_eps there and so keeps the default 5e-7
@@ -116,12 +126,11 @@ def make_intersect_fn(scene, config: RenderConfig):
             eps_rel=config.intersect_eps_rel, chunk=config.prim_chunk)
     if isinstance(scene, MeshScene):
         if config.intersector == Intersector.PALLAS:
-            if scene.n_triangles >= MESH_ACCEL_MIN_TRIS:
-                raise _not_ported(
-                    f"the grid-culled mesh sweep for meshes of "
-                    f"{MESH_ACCEL_MIN_TRIS} triangles or more "
-                    "(SMALLPT_TPU_MESH_ACCEL_MIN; ROADMAP.md, modules item "
-                    "10: kernel K7)")
+            accel = (mesh_accel if mesh_accel is not None
+                     else _mesh_accel_for(scene))
+            if accel is not None:
+                return lambda o, d: intersect_mesh_culled(o, d, scene, accel,
+                                                          eps=0.0)
             table = build_tri_table(scene, device=scene.positions.device)
             return lambda o, d: intersect_mesh_pallas(o, d, scene, eps=0.0,
                                                       table=table)
@@ -130,10 +139,27 @@ def make_intersect_fn(scene, config: RenderConfig):
     raise TypeError(f"unknown scene type {type(scene)}")
 
 
+def _mesh_accel_for(scene: MeshScene):
+    """The MeshGridAccel of a mesh of at least MESH_ACCEL_MIN_TRIS
+    triangles, on the device of its tensors; None below the threshold or
+    for a mesh the accel cannot index (no local triangles), which takes the
+    brute sweep, as in the JAX package. The JAX package caches the accel in
+    a module-level weakref map to carry it across ``jit``; here the renderer
+    that calls this owns it and builds it once."""
+    if scene.n_triangles < MESH_ACCEL_MIN_TRIS:
+        return None
+    from smallpt_tpu_torch.ops.mesh_accel import build_mesh_grid_accel
+
+    try:
+        return build_mesh_grid_accel(scene, device=scene.positions.device)
+    except ValueError:
+        return None
+
+
 def _nee_scene_for(scene, config: RenderConfig, mesh_nee=None):
     """Light-sampling data for bounce_step's NEE block: the sphere scene
-    itself (cone sampling), or the TriLightData tuple of mesh area
-    lights."""
+    itself (cone sampling), or the TriLightData tuple of mesh area lights
+    (``_mesh_nee_for``)."""
     if not config.nee_lights:
         return None
     if isinstance(scene, SphereScene):
@@ -241,7 +267,9 @@ class WavefrontInputs(NamedTuple):
 
 def wavefront_inputs(scene, config: RenderConfig, route: str,
                      device) -> WavefrontInputs:
-    """Build a wavefront route's inputs on ``device`` once."""
+    """Build a wavefront route's inputs on ``device`` once: the scene, its
+    intersect function with its K2 or K6 table or K7 accel
+    (``make_intersect_fn``), and the mesh NEE tables."""
     dscene = scene_to(scene, device)
     return WavefrontInputs(route, dscene, make_intersect_fn(dscene, config),
                            _mesh_nee_for(scene, config, device))

@@ -46,14 +46,14 @@ from smallpt_tpu_torch.utils.metrics import RenderStats
 
 
 def _check_route(scene, config: RenderConfig) -> None:
-    """Raise for what the port's streaming routes do not run."""
-    todo = None
+    """Raise for what the port's sphere streaming routes do not run."""
     if not isinstance(scene, SphereScene):
-        todo = "streaming mesh scenes (ROADMAP.md, modules item 10)"
-    elif config.dtype != "float32":
-        todo = f"dtype {config.dtype} (the port renders float32 only)"
-    if todo is not None:
-        raise NotImplementedError(f"not ported yet: {todo}")
+        raise NotImplementedError(
+            "StreamingRenderer streams sphere scenes; mesh scenes stream "
+            "through WavefrontStreamingRenderer (engine/mesh_stream.py)")
+    if config.dtype != "float32":
+        raise NotImplementedError(f"not ported yet: dtype {config.dtype} "
+                                  "(the port renders float32 only)")
     if config.split_budget != 1:
         raise ValueError("streaming requires split_budget == 1")
     if config.mode != Mode.FULL:

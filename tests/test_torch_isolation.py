@@ -30,6 +30,9 @@ for name in names:
     importlib.import_module(name)
 assert {{"smallpt_tpu_torch.engine.streaming",
          "smallpt_tpu_torch.engine.quality",
+         "smallpt_tpu_torch.engine.mesh_stream",
+         "smallpt_tpu_torch.ops.accel",
+         "smallpt_tpu_torch.ops.mesh_accel",
          "smallpt_tpu_torch.ops.stream_dda",
          "smallpt_tpu_torch.ops.intersect",
          "smallpt_tpu_torch.ops.intersect_pallas",
@@ -49,9 +52,9 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         capture_output=True, text=True, timeout=300, cwd=str(ROOT),
     )
     assert proc.returncode == 0, proc.stderr
-    # every submodule imported, the streaming and wavefront routes' among
-    # them
-    assert int(proc.stdout.split()[-1]) >= 21
+    # every submodule imported, the streaming, wavefront and mesh streaming
+    # routes' among them
+    assert int(proc.stdout.split()[-1]) >= 24
 
 
 def _sources():
@@ -100,11 +103,13 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     dfn = types.SimpleNamespace(argtypes=None, restype=None)
     hfn = types.SimpleNamespace(argtypes=None, restype=None)
     tfn = types.SimpleNamespace(argtypes=None, restype=None)
+    cfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
                         lambda name, src: types.SimpleNamespace(
                             smallpt_mega_pass=fn, smallpt_stream_step=sfn,
                             smallpt_stream_dda=dfn, smallpt_closest_hit=hfn,
-                            smallpt_closest_tri=tfn))
+                            smallpt_closest_tri=tfn,
+                            smallpt_closest_tri_culled=cfn))
     assert mk._kernel_lib() is fn
     assert fn.argtypes == [ctypes.c_void_p] * 7
     assert fn.restype is ctypes.c_int
@@ -120,19 +125,28 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert mp._kernel_lib() is tfn
     assert tfn.argtypes == [ctypes.c_void_p] * 10
     assert tfn.restype is ctypes.c_int
+    assert mp._culled_lib() is cfn
+    assert cfn.argtypes == [ctypes.c_void_p] * 13
+    assert cfn.restype is ctypes.c_int
 
 
 def test_build_key_covers_included_headers(monkeypatch, tmp_path):
     """The library's name hashes the source and every csrc/ header it
-    includes: an edit to lane.cuh gives both kernels new libraries, an edit
-    to one source only its own."""
+    includes, through the headers' own includes: an edit to lane.cuh gives
+    every kernel a new library, an edit to tri.cuh the two triangle
+    kernels', an edit to one source only its own."""
     from smallpt_tpu_torch.utils import nvcc
 
     for src in (PORT / "csrc").iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(nvcc, "CSRC_DIR", tmp_path)
-    before = {s: nvcc.source_digest(s) for s in (
-        "megakernel.cu", "stream_dda.cu", "closest_hit.cu", "closest_tri.cu")}
+    tri = ("closest_tri.cu", "closest_tri_culled.cu")
+    start = {s: nvcc.source_digest(s) for s in (
+        "megakernel.cu", "stream_dda.cu", "closest_hit.cu", *tri)}
+    with open(tmp_path / "tri.cuh", "a") as f:
+        f.write("\n// an edit\n")
+    before = {s: nvcc.source_digest(s) for s in start}
+    assert all((before[s] != start[s]) == (s in tri) for s in start)
     assert b'#include "lane.cuh"' in (tmp_path / "stream_dda.cu").read_bytes()
     with open(tmp_path / "lane.cuh", "a") as f:
         f.write("\n// an edit\n")

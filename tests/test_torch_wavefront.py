@@ -434,17 +434,13 @@ def test_routing_follows_the_jax_package(case, spies):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("binned", "item 11.*K8"), ("mesh_accel", "item 10.*K7"),
-    ("differentiable", "item 8"), ("float64", "float32 only"),
+    ("binned", "item 11.*K8"), ("differentiable", "item 8"),
+    ("float64", "float32 only"),
 ])
 def test_unported_routes_raise_citing_their_item(case, match, monkeypatch):
     scene, cfg, diff = tscene.cornell_box_scene(), _TINY, False
     if case == "binned":
         scene = tscene.procedural_sphere_scene(2049)
-    elif case == "mesh_accel":
-        monkeypatch.setattr(renderer, "MESH_ACCEL_MIN_TRIS", 64)
-        scene = tscene.procedural_mesh_scene(1, seed=0)
-        cfg = cfg.replace(intersector=PALLAS)
     elif case == "differentiable":
         diff = True
     else:
@@ -458,6 +454,34 @@ def test_unported_routes_raise_citing_their_item(case, match, monkeypatch):
                               differentiable=True)
         else:
             ProgressiveRenderer(scene, smallpt_camera(), cfg, device="cpu")
+
+
+def test_mesh_accel_route_runs(monkeypatch):
+    """The grid-culled mesh sweep (K7; once a refusal citing item 10): with
+    MESH_ACCEL_MIN_TRIS at 64, a 78-triangle mesh through
+    Intersector.PALLAS renders through the culled wrapper, per pass and
+    through a ProgressiveRenderer, and the image equals the brute sweep's
+    (K6) bit for bit."""
+    scene = tscene.procedural_mesh_scene(1, seed=0)
+    cfg = _TINY.replace(intersector=PALLAS)
+    key = rng.base_key(0)
+    brute = renderer.render(scene, smallpt_camera(), cfg, key, device="cpu")
+    brute_pass = ProgressiveRenderer(scene, smallpt_camera(), cfg,
+                                     device="cpu")
+    brute_pass.step()
+    calls = []
+    real = tmp.closest_tri_culled_plain
+    monkeypatch.setattr(tmp, "closest_tri_culled_plain",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(renderer, "MESH_ACCEL_MIN_TRIS", 64)
+    culled = renderer.render(scene, smallpt_camera(), cfg, key, device="cpu")
+    assert calls
+    np.testing.assert_array_equal(culled.numpy(), brute.numpy())
+    r = ProgressiveRenderer(scene, smallpt_camera(), cfg, device="cpu")
+    n = len(calls)
+    r.step()
+    assert len(calls) > n
+    np.testing.assert_array_equal(r.image, brute_pass.image)
 
 
 def test_progressive_builds_the_kernel_table_once(monkeypatch):
@@ -516,10 +540,13 @@ def test_cli_mesh_scenes(tmp_path, monkeypatch):
     assert cli.main(["4", *_CLI, "--scene", "mesh", "--scheduler", "flat",
                      "--out", out]) == 0
     assert calls  # 78 triangles: the kernel route by default
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["4", *_CLI, "--scene", "mesh", "--out", out])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["4", *_CLI, "--scene", "mesh", "--streaming", "--out", out])
+    # full transport without --scheduler, and --streaming: the mesh
+    # streaming routes (once refusals citing item 10), through K6 too
+    n = len(calls)
+    assert cli.main(["4", *_CLI, "--scene", "mesh", "--out", out]) == 0
+    assert cli.main(["4", *_CLI, "--scene", "mesh", "--streaming", "--out",
+                     out]) == 0
+    assert len(calls) > n and img_io.read_ppm(out).max() > 0
     with pytest.raises(SystemExit):
         cli.main(["4", *_CLI, "--scene", "mesh", "--scheduler", "flat",
                   "--nee", "99", "--out", out])

@@ -5,12 +5,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's five kernel libraries from csrc/ with nvcc, all at
+It builds the port's six kernel libraries from csrc/ with nvcc, all at
 once: megakernel.cu (the per-pass mega_pass and the streaming stream_step,
 with NEE in both), stream_dda.cu (the DDA streaming kernel,
 stream_step_dda), closest_hit.cu (K2, the wavefronts' sphere closest hit),
-closest_tri.cu (K6, their triangle closest hit) and closest_tri_culled.cu
-(K7, the grid-culled triangle sweep). It holds each kernel
+closest_tri.cu (K6, their triangle closest hit), closest_tri_culled.cu
+(K7, the grid-culled triangle sweep) and stream_binned.cu (K8, the binned
+scheduler's bounce). It holds each kernel
 against its plain PyTorch version (at small sizes, and on the main paths'
 own rays at full width) and against the stored f64 golden images, drives
 the main paths through the kernels and times them:
@@ -46,7 +47,20 @@ the main paths through the kernels and times them:
   route forced through K7, the two bit-equal, the K6 stream held to the
   FLAT per-pass image at 8 spp; then the CLI's mesh routes in process
   (the default route through MeshStreamProgressiveRenderer, and
-  --streaming with --checkpoint and --resume, byte-equal to one run).
+  --streaming with --checkpoint and --resume, byte-equal to one run);
+- the binned scheduler (bench.py --procedural-binned's shape):
+  procedural_sphere_scene(10000) at 512x384, 4 spp, max_depth 24, four
+  lanes a pixel, without and with NEE, as the per-pass drain
+  (ProgressiveRenderer's "binned" route) and as BinnedStreamingRenderer
+  rounds (step(4, 8), flush); K8 held to its plain version bit for bit on
+  every launch of small drains (the AOV modes, the thin lens and the
+  environment light, two NEE lights, a one-chunk near prefix that makes
+  lanes march, the all-chunks fallback) and on the first and middle launch
+  of each main path, where the culled launch is also held to the
+  all-chunks sweep; the binned image with one lane a pixel against the
+  classic route's; the drain beside REGEN through K2 (ROADMAP.md H4); the
+  CLI's binned routes in process (the default big-scene route, and
+  --binned --nee with --checkpoint and --resume, byte-equal to one run).
 The megakernel's branches that the main paths do not take (thin lens,
 environment light, two NEE lights, row bands and sample slices, 2048
 spheres, the opted-in shared memory at 4096 spheres and the global-memory
@@ -951,27 +965,25 @@ def _bound(ops, nbytes, **info) -> dict:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def zero_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+def _wrappers() -> tuple:
+    """Every kernel wrapper, each counting its launches."""
     from smallpt_tpu_torch.ops import intersect_pallas as ip
     from smallpt_tpu_torch.ops import megakernel as mk
     from smallpt_tpu_torch.ops import mesh_pallas as mp
     from smallpt_tpu_torch.ops import stream_dda as sd
 
-    for fn in (mk.mega_pass, mk.stream_step, sd.stream_step_dda,
-               ip.closest_hit, mp.closest_tri, mp.closest_tri_culled):
+    return (mk.mega_pass, mk.stream_step, sd.stream_step_dda, ip.closest_hit,
+            mp.closest_tri, mp.closest_tri_culled, mk.stream_step_binned)
+
+
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _wrappers():
         fn.launches = 0
 
 
 def counts() -> dict:
-    from smallpt_tpu_torch.ops import intersect_pallas as ip
-    from smallpt_tpu_torch.ops import megakernel as mk
-    from smallpt_tpu_torch.ops import mesh_pallas as mp
-    from smallpt_tpu_torch.ops import stream_dda as sd
-
-    return {fn.__name__: fn.launches for fn in (
-        mk.mega_pass, mk.stream_step, sd.stream_step_dda, ip.closest_hit,
-        mp.closest_tri, mp.closest_tri_culled)}
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 def camera_and_bounce_rays(scene, cfg, camera, key, intersect_fn, dev):
@@ -1853,6 +1865,499 @@ def cli_mesh_phases(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The binned scheduler (K8, csrc/stream_binned.cu)
+# ---------------------------------------------------------------------------
+
+# float ops of a lane's bounce in csrc/stream_binned.cu besides its sweep:
+# the frontier escape (three slabs: a division, two subtractions and
+# multiplications, min and max each; the entry/exit folds and the finality
+# test) ~30, then the hit point, normal, emission, uniforms and shade as the
+# megakernel's OPS_PER_BOUNCE. A pending shadow slot's resolve (t_light, the
+# cone bound and the direct term) ~60. The sweep: OPS_PER_SPHERE a (ray,
+# row) pair, for an alive lane's ray and for each pending shadow.
+OPS_K8_LANE = 30 + OPS_PER_BOUNCE
+OPS_K8_RESOLVE = 60
+# the binned main path: bench.py --procedural-binned's shape
+# (bench.py:144-188): procedural_sphere_scene(10000), 512x384, 4 spp,
+# max_depth 24, the renderer seeded 1000
+BINNED_SEED = 1000
+
+
+def k8_bound(before, args, kw) -> dict:
+    """The least time of one K8 launch on its inputs (the state before it
+    and the wrapper's arguments): OPS_PER_SPHERE per (ray, row) pair over
+    the rows of the chunks its tile sweeps on this launch's stops, the rays
+    being each alive lane's own and each pending shadow (a slot whose
+    pending bit a lane holds: no other slot's fold is read), OPS_K8_LANE
+    per alive lane and OPS_K8_RESOLVE per pending shadow, at the float
+    rate; the state read once and written once, the table, lists, stops and
+    dcut read once, at the memory rate."""
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    f, i = before
+    table, lists, stops = args[0], args[5], args[6]
+    n_glob, n_chunks = kw["n_glob_chunks"], kw["n_chunks"]
+    n_slots = len(kw.get("nee_rows", ()))
+    t = lists.shape[0]
+    tiled = i.view(-1, 8, t, mk._LANE_B)
+    alive = tiled[mk._I_ALIVE] != 0
+    # the rays each tile sweeps: its alive lanes, then its pending shadows
+    rays_t = alive.sum(dim=(0, 2))
+    if n_slots:
+        neep = tiled[mk._I_NEEP]
+        for s in range(n_slots):
+            rays_t = rays_t + ((neep >> s) & 1).sum(dim=(0, 2))
+    rays_t = rays_t.cpu().numpy().astype(np.int64)
+    st = stops.cpu().numpy().astype(np.int64)
+    rows = 8 * (n_glob + np.where(st < 0, n_chunks, st))
+    pairs = int((rays_t * rows).sum())
+    n_alive = int(alive.sum())
+    pend_shadows = int(rays_t.sum()) - n_alive
+    ops = (OPS_PER_SPHERE * pairs + OPS_K8_LANE * n_alive
+           + OPS_K8_RESOLVE * pend_shadows)
+    nbytes = (2 * (f.numel() + i.numel()) * 4 + table.numel() * 4
+              + (lists.numel() + stops.numel() + args[7].numel()) * 4)
+    return _bound(ops, nbytes, pairs=pairs, alive=n_alive,
+                  pending_shadows=pend_shadows,
+                  rows_per_tile={"mean": float(rows.mean()),
+                                 "min": int(rows.min()),
+                                 "max": int(rows.max())})
+
+
+def capture_binned(fn, which) -> list:
+    """Run fn() with ops/megakernel.py's stream_step_binned wrapped so that
+    each of its calls numbered in ``which`` (from 0; None: every call)
+    keeps a copy of the state before and after, the rays and the
+    arguments: [(before, (f, i, rays), args, kwargs)]. The binned engine
+    updates its state in place, so the copies are taken at the call."""
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    real, kept, n = mk.stream_step_binned, [], [0]
+
+    def spy(*a, **k):
+        keep = which is None or n[0] in which
+        n[0] += 1
+        before = (a[3].clone(), a[4].clone()) if keep else None
+        out = real(*a, **k)
+        if keep:
+            kept.append((before, (a[3].clone(), a[4].clone(), out[2]),
+                         a, k))
+        return out
+
+    spy.launches = real.launches
+    mk.stream_step_binned = spy
+    try:
+        fn()
+    finally:
+        mk.stream_step_binned = real
+        real.launches = spy.launches
+    return kept
+
+
+def _bits_differ(a, b) -> int:
+    """Values whose bits differ (float planes compared as int32, so -0 and
+    NaN count)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def _max_abs(a, b) -> float:
+    import torch
+
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b).abs()[ok].max()) if bool(ok.any()) else 0.0
+
+
+def k8_vs_plain(name, cap, time_it: bool = False) -> dict:
+    """One captured K8 launch against the plain version run on a copy of
+    its input state: every plane of f and i bit-equal, and the rays equal.
+    With time_it also the kernel's CUDA-event time (mean of 5 runs from
+    the same input, after one warm-up), the plain version's host time and
+    the launch's bound."""
+    import torch
+
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    (f0, i0), (fk, ik, rk), args, kw = cap
+    table, config, key, _, _, lists, stops, dcut = args[:8]
+    fp, ip = f0.clone(), i0.clone()
+    k0, k1 = rng.key_words(key)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, _, rp = mk.stream_step_binned_plain(table, config, k0, k1, fp, ip,
+                                           lists, stops, dcut, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    nf, ni = f0.shape[0] // 8, i0.shape[0] // 8
+    f_diff = {k: _bits_differ(fk[8 * k:8 * k + 8], fp[8 * k:8 * k + 8])
+              for k in range(nf)}
+    i_diff = {k: _bits_differ(ik[8 * k:8 * k + 8], ip[8 * k:8 * k + 8])
+              for k in range(ni)}
+    out = dict(lanes=f0.shape[1] * 8, rays=int(rk), plain_rays=int(rp),
+               f_planes_differ={k: v for k, v in f_diff.items() if v},
+               i_planes_differ={k: v for k, v in i_diff.items() if v},
+               max_abs_err=_max_abs(fk, fp), plain_ms=plain_ms,
+               pending_after=int((ik[8 * mk._I_PEND:8 * mk._I_PEND + 8]
+                                  != 0).sum()),
+               full_sweep_tiles=int((stops < 0).sum()),
+               finite_dcut_tiles=int(torch.isfinite(dcut).sum()))
+    if out["f_planes_differ"] or out["i_planes_differ"] or int(rk) != int(rp):
+        raise AssertionError(f"{name}: K8 differs from its plain version: "
+                             f"{out}")
+    if time_it:
+        f, i = f0.clone(), i0.clone()
+        a = list(args)
+        a[3], a[4] = f, i
+        k_ms, _ = cuda_ms(lambda: mk.stream_step_binned(*a, **kw)[2], 6,
+                          setup=lambda: (f.copy_(f0), i.copy_(i0)),
+                          skip_first=True)
+        out.update(kernel_ms=k_ms, **k8_bound((f0, i0), args, kw))
+    return out
+
+
+def k8_full_sweep(name, cap) -> dict:
+    """The captured launch again with every tile forced to the all-chunks
+    sweep (stops -1, dcut +inf): every lane the culled launch did not
+    leave pending has the same bits in every plane (a culled sweep never
+    drops a hit, and the winner does not depend on the order)."""
+    import torch
+
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    (f0, i0), (fk, ik, _), args, kw = cap
+    a = list(args)
+    a[3], a[4] = f0.clone(), i0.clone()
+    a[6] = torch.full_like(args[6], -1)
+    a[7] = torch.full_like(args[7], float("inf"))
+    mk.stream_step_binned(*a, **kw)
+    torch.cuda.synchronize()
+    keep = ik[8 * mk._I_PEND:8 * mk._I_PEND + 8] == 0
+    n_f, n_i = f0.shape[0] // 8, i0.shape[0] // 8
+    bad = 0
+    for buf_k, buf_s, n in ((fk, a[3], n_f), (ik, a[4], n_i)):
+        for k in range(n):
+            x, y = buf_k[8 * k:8 * k + 8], buf_s[8 * k:8 * k + 8]
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            bad += int(((x != y) & keep).sum())
+    out = dict(lanes_compared=int(keep.sum()),
+               lanes_pending_in_culled=int((~keep).sum()), values_differ=bad)
+    if bad:
+        raise AssertionError(f"{name}: culled launch != full sweep: {out}")
+    return out
+
+
+def k8_small_case(name, scene, cfg, dev, spp: int, **kw) -> dict:
+    """A drain (step(spp, 4), flush) of a BinnedStreamingRenderer on the
+    card with every K8 launch captured: each against its plain version
+    (bit-equal), the first against the all-chunks sweep; the weights
+    exactly spp. Returns the counts and the accumulators."""
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
+
+    r = BinnedStreamingRenderer(scene, smallpt_camera(), cfg, seed=0,
+                                device=dev, **kw)
+
+    def drain():
+        r.step(add_samples=spp, n_bounces=4)
+        r.flush()
+
+    caps = capture_binned(drain, None)
+    rad, w = r.accumulators()
+    if not bool((w == spp).all()):
+        raise AssertionError(f"{name}: weights {float(w.min())}.."
+                             f"{float(w.max())}, want {spp}")
+    checks = [k8_vs_plain(f"{name}/launch {n}", c)
+              for n, c in enumerate(caps)]
+    out = dict(launches=len(caps), rays=sum(c["rays"] for c in checks),
+               max_abs_err=max(c["max_abs_err"] for c in checks),
+               pending_lanes=sum(c["pending_after"] for c in checks),
+               full_sweep_tiles=sum(c["full_sweep_tiles"] for c in checks),
+               finite_dcut_tiles=sum(c["finite_dcut_tiles"] for c in checks),
+               first_vs_full_sweep=k8_full_sweep(name, caps[0]))
+    return out, rad.cpu(), w.cpu()
+
+
+def k8_small_phases(dev) -> dict:
+    """K8 against its plain version on every launch of small drains
+    (tests/test_binned.py's scene and config): pinhole, the AOV modes,
+    the thin lens with the environment light, NEE on two and three lights
+    (the kernel's two NEE instances), a list
+    capacity of 2 (every tile on the all-chunks fallback: the image
+    bit-equal to the culled one, as tests/test_binned.py:69 pins), and a
+    near prefix of one chunk with four lanes a pixel on 600 spheres (lanes
+    pend and march)."""
+    import dataclasses
+
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Mode, RenderConfig,
+    )
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_sphere_scene
+    from smallpt_tpu_torch.engine.binned import build_accel_for_camera
+
+    scene = procedural_sphere_scene(80, seed=3)
+    cfg = RenderConfig(width=24, height=16, spp_per_cell=1, max_depth=10,
+                       camera_model=CameraModel.LEGACY, filter=Filter.TENT)
+    cases = {
+        "proc80_24x16": (scene, cfg, 2, {}),
+        "proc80_uv": (scene, cfg.replace(mode=Mode.UV), 2, {}),
+        "proc80_inst_id": (scene, cfg.replace(mode=Mode.INST_ID), 2, {}),
+        "proc80_normal": (scene, cfg.replace(mode=Mode.NORMAL), 2, {}),
+        "proc80_emission": (scene, cfg.replace(mode=Mode.EMISSION), 2, {}),
+        "proc80_lens_env": (scene, cfg.replace(
+            aperture=3.0, focal_distance=112.0,
+            env_emission=(0.2, 0.3, 0.4)), 3, {}),
+        "proc80_nee_8_3": (scene, cfg.replace(nee_lights=(8, 3)), 3, {}),
+        # three lights: the kernel's instance with the slots in local
+        # memory (the one above holds two in registers)
+        "proc80_nee_8_3_6": (scene, cfg.replace(nee_lights=(8, 3, 6)), 2,
+                             {}),
+        "proc600_48x32_knear1_inflight4": (
+            procedural_sphere_scene(600, seed=7),
+            cfg.replace(width=48, height=32, nee_lights=(8,)), 4,
+            {"k_near": 1, "inflight": 4}),
+    }
+    out, imgs = {}, {}
+    for name, (sc, c, spp, kw) in cases.items():
+        out[name], imgs[name], _ = k8_small_case(
+            name, sc, c, dev, spp, **{"inflight": 1, **kw})
+    # the all-chunks fallback: a 2-chunk list overflows on every tile
+    for name in ("proc80_24x16", "proc80_nee_8_3", "proc80_uv"):
+        sc, c, spp, _ = cases[name]
+        # the renderer's own grid and chunks, a list capacity of 2
+        accel = dataclasses.replace(
+            build_accel_for_camera(sc, smallpt_camera(), c, device=dev),
+            l_max=2)
+        st, img, _ = k8_small_case(name + "_lmax2", sc, c, dev, spp,
+                                   accel=accel, inflight=1)
+        if not bool((img == imgs[name]).all()):
+            raise AssertionError(f"{name}: the all-chunks sweep's image "
+                                 "differs from the culled one")
+        st["image_equals_culled"] = True
+        out[name + "_lmax2"] = st
+    return out
+
+
+def binned_path(name, scene, cfg, dev, drain: bool,
+                n_rounds: int = 3) -> dict:
+    """A binned main path at full width (procedural_sphere_scene(10000)):
+    the per-pass drain (ProgressiveRenderer, route "binned", a pass =
+    reset, budget spp, 8 bounces, flush) or the stream round
+    (BinnedStreamingRenderer: reset, step(spp, 8), flush, as
+    bench.py::bench_binned), one warm-up, then n_rounds timed with CUDA
+    events, the launch counts zeroed just before and read just after; the
+    weights exactly spp; the first launch of a pass and one in its middle
+    against the plain version (bit-equal), timed, with their bounds; the
+    first against the all-chunks sweep; the device's busy share (profiler);
+    the host part; the peak memory; the tile lists alone (time, peak
+    memory above their inputs)."""
+    import torch
+
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
+    from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
+    from smallpt_tpu_torch.ops import accel as acc
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    if drain:
+        r = ProgressiveRenderer(scene, smallpt_camera(), cfg,
+                                seed=BINNED_SEED, device=dev)
+        if r.route != "binned":
+            raise AssertionError(f"{name}: route {r.route}, not binned")
+        br = r._binned
+
+        def round_():
+            r.step()
+    else:
+        r = br = BinnedStreamingRenderer(scene, smallpt_camera(), cfg,
+                                         seed=BINNED_SEED, device=dev)
+
+        def round_():
+            r.reset()
+            r.step(add_samples=cfg.spp, n_bounces=8)
+            r.flush()
+    round_()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_build
+    zero_counts()
+    rays = []
+    round_ms = []
+    for _ in range(n_rounds):
+        ms_, _ = cuda_ms(round_, 1)
+        round_ms.append(ms_)
+        rays.append(br.stats.rays)
+    launched = counts()
+    k8_n = launched["stream_step_binned"]
+    if not k8_n or any(v for k, v in launched.items()
+                       if k != "stream_step_binned"):
+        raise AssertionError(f"{name}: launches {launched}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, w = br.accumulators()
+    if not bool((w == cfg.spp).all()):
+        raise AssertionError(f"{name}: weights {float(w.min())}.."
+                             f"{float(w.max())}, want {cfg.spp}")
+    img = (r.image if drain else br.image)
+    if not np.isfinite(img).all() or img.shape != (cfg.height, cfg.width, 3):
+        raise AssertionError(f"{name}: image not finite {img.shape}")
+    per_round = k8_n / n_rounds
+    caps = capture_binned(round_, {0, int(per_round) // 2})
+    kernel = {k: k8_vs_plain(f"{name}/{k}", c, time_it=True)
+              for k, c in zip(("first", "middle"), caps)}
+    full = k8_full_sweep(name, caps[0])
+    # the tile lists of the first launch alone: time and peak memory above
+    # their inputs
+    (f0, i0), _, args, kw = caps[0]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lists_ms, _ = cuda_ms(lambda: acc.tile_work_lists_bucketed(
+        f0, i0, cfg, br.accel, k_near=br.k_near), 3)
+    lists_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ms = float(np.mean(round_ms))
+    kernel_ms = float(np.mean([v["kernel_ms"] for v in kernel.values()]))
+    ray_mean = float(np.mean(rays))
+    return dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
+                max_depth=cfg.max_depth, nee=list(cfg.nee_lights),
+                inflight=br.inflight, tiles=int(f0.shape[1] // mk._LANE_B),
+                chunks=br.accel.n_chunks, grid=list(br.accel.nb),
+                first_round_s=warm_s, rounds=n_rounds, launches=launched,
+                launches_per_round=per_round, round_ms=round_ms,
+                ms_per_round=ms, rays=rays, mrays_per_s=ray_mean / ms / 1e3,
+                kernel=kernel, kernel_ms_per_launch=kernel_ms,
+                host_ms=ms - per_round * kernel_ms,
+                first_vs_full_sweep=full, lists_ms=lists_ms,
+                lists_peak_gb=lists_peak_gb, peak_mem_gb=peak_gb,
+                mean=float(img.mean()), profile=profile(round_))
+
+
+def binned_vs_classic(scene, cfg, dev) -> dict:
+    """With one lane a pixel the binned stream and the classic streaming
+    route (K1c's global-sweep instance) draw the same samples (streaming
+    keying v2, ip = s_idx): on the main path's scene and config (4 spp),
+    without and with NEE, the binned image against the classic one under
+    the JAX suite's gate for this scene class (MAX_FRAC_PROCEDURAL), with
+    weights exactly 4 in both."""
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
+    from smallpt_tpu_torch.engine.streaming import StreamingRenderer
+
+    out = {}
+    for name, c in (("procedural10000_512x384", cfg),
+                    ("procedural10000_512x384_nee",
+                     cfg.replace(nee_lights=(8,)))):
+        b = BinnedStreamingRenderer(scene, smallpt_camera(), c,
+                                    seed=BINNED_SEED, inflight=1, device=dev)
+        b.step(add_samples=4, n_bounces=8)
+        b.flush()
+        rad_b, w_b = (x.cpu().numpy() for x in b.accumulators())
+        k = StreamingRenderer(scene, smallpt_camera(), c, seed=BINNED_SEED,
+                              dda=False, device=dev)
+        k.step(n_iters=10_000_000, add_samples=4)
+        k.flush()
+        rad_c, w_c = (x.cpu().numpy() for x in k.accumulators())
+        if not ((w_b == 4).all() and (w_c == 4).all()):
+            raise AssertionError(f"{name}: weights not exactly 4")
+        st = gate(rad_b / 4, rad_c / 4, MAX_FRAC_PROCEDURAL)
+        st.update(values_bit_equal=float((rad_b == rad_c).mean()),
+                  rays_binned=b.stats.rays, rays_classic=k.stats.rays)
+        out[name] = st
+    return out
+
+
+def h4_ab(scene, cfg, dev) -> dict:
+    """ROADMAP.md hazard H4: the binned drain (the port's route for a MEGA
+    sphere scene above MEGA_MAX_SPHERES, as the JAX package's) beside REGEN
+    through K2 on the same scene, config and pass keys: passes in the
+    order binned, REGEN, REGEN, binned after one warm-up each (CUDA
+    events), rays and Mrays/s, the images' means."""
+    import torch
+
+    from smallpt_tpu_torch.config import Intersector, Scheduler
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
+
+    rs = {"binned": ProgressiveRenderer(scene, smallpt_camera(), cfg,
+                                        device=dev),
+          "regen_k2": ProgressiveRenderer(
+              scene, smallpt_camera(), cfg.replace(
+                  scheduler=Scheduler.REGEN,
+                  intersector=Intersector.PALLAS), device=dev)}
+    if rs["binned"].route != "binned" or rs["regen_k2"].route != "regen":
+        raise AssertionError("H4: unexpected routes")
+    for r in rs.values():
+        r.step()
+    torch.cuda.synchronize()
+    ms = {k: [] for k in rs}
+    rays = {k: [] for k in rs}
+    for k in ("binned", "regen_k2", "regen_k2", "binned"):
+        r0 = rs[k].stats.rays
+        ms[k].append(cuda_ms(rs[k].step, 1)[0])
+        rays[k].append(rs[k].stats.rays - r0)
+    out = {}
+    for k in rs:
+        m = float(np.mean(ms[k]))
+        out[k] = dict(pass_ms=ms[k], ms_per_pass=m, rays=rays[k],
+                      mrays_per_s=float(np.mean(rays[k])) / m / 1e3,
+                      mean=float(rs[k].image.mean()))
+    out["binned_over_regen_time"] = (out["binned"]["ms_per_pass"]
+                                     / out["regen_k2"]["ms_per_pass"])
+    out["faster"] = ("binned" if out["binned_over_regen_time"] < 1
+                     else "regen_k2")
+    return out
+
+
+def cli_binned_phases(dev) -> dict:
+    """The CLI's binned routes in process, through K8: the default route
+    of a sphere scene above 2048 spheres (BinnedProgressiveRenderer) at
+    bench.py's shape, and --binned with NEE: 4 spp with --checkpoint, then
+    4 more with --resume, byte-equal to one run of 8."""
+    import torch
+
+    from smallpt_tpu_torch import cli
+
+    tmp = tempfile.mkdtemp(prefix="smallpt_torch_cli_binned_")
+    out = {}
+    zero_counts()
+    t = time.perf_counter()
+    png = os.path.join(tmp, "procedural.ppm")
+    cli.main(["4", "--scene", "procedural", "--width", "512", "--height",
+              "384", "--max-depth", "24", "--out", png, "--quiet"])
+    torch.cuda.synchronize()
+    launched = counts()
+    if not launched["stream_step_binned"] or any(
+            v for k, v in launched.items() if k != "stream_step_binned"):
+        raise AssertionError(f"CLI default big-scene route: {launched}")
+    out["default_route"] = dict(seconds=time.perf_counter() - t,
+                                launches=launched,
+                                bytes=os.path.getsize(png))
+    common = ["4", "--scene", "procedural", "--binned", "--nee", "8",
+              "--width", "256", "--height", "192", "--max-depth", "12",
+              "--quiet"]
+    ck = os.path.join(tmp, "ck.npz")
+    one, a, b = (os.path.join(tmp, n) for n in ("one.ppm", "a.ppm",
+                                                "b.ppm"))
+    zero_counts()
+    cli.main(common + ["--out", a, "--checkpoint", ck])
+    cli.main(common + ["--out", b, "--resume", ck])
+    cli.main(common + ["--out", one, "--passes", "2"])
+    launched = counts()
+    with open(b, "rb") as fb, open(one, "rb") as fo:
+        same = fb.read() == fo.read()
+    if not same or not launched["stream_step_binned"]:
+        raise AssertionError(f"--binned resume not byte-equal to one run "
+                             f"({launched})")
+    out["binned_checkpoint_resume"] = dict(byte_equal=True,
+                                           launches=launched)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1887,9 +2392,9 @@ def main() -> int:
     phase("device", kind=kind, count=torch.cuda.device_count(),
           nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- 2. build: the five libraries at once ---------------------------
+    # ---- 2. build: the six libraries at once ----------------------------
     libraries = (mk.LIBRARY, sd.LIBRARY, ip.LIBRARY, mp.LIBRARY,
-                 mp.LIBRARY_CULLED)
+                 mp.LIBRARY_CULLED, mk.LIBRARY_BINNED)
     t_build = time.perf_counter()
     nvcc.build(dict(libraries))
     t_build = time.perf_counter() - t_build
@@ -1899,6 +2404,7 @@ def main() -> int:
     ip._kernel_lib()
     mp._kernel_lib()
     mp._culled_lib()
+    mk._binned_lib()
     builds = {}
     for lib, _ in libraries:
         info = nvcc.builds.get(lib, {"cmd": None, "seconds": 0.0,
@@ -2109,6 +2615,28 @@ def main() -> int:
     # ---- 32. the CLI's mesh routes -----------------------------------------
     phase("cli_mesh_routes", **cli_mesh_phases(dev))
 
+    # ---- 33-41. the binned scheduler: K8 against its plain version on small
+    # drains, its four main paths at bench.py's --procedural-binned shape, the
+    # image against the classic route, the H4 A/B and the CLI's routes -------
+    k8_small = k8_small_phases(dev)
+    phase("binned_vs_plain_small", **k8_small)
+    from smallpt_tpu_torch.core.scene import procedural_sphere_scene
+
+    big = procedural_sphere_scene(10_000)
+    binned = {}
+    for name, cfg_, drain in (
+            ("binned_drain_procedural10000_512x384", pcfg, True),
+            ("binned_drain_procedural10000_512x384_nee",
+             pcfg.replace(nee_lights=(8,)), True),
+            ("binned_stream_procedural10000_512x384", pcfg, False),
+            ("binned_stream_procedural10000_512x384_nee",
+             pcfg.replace(nee_lights=(8,)), False)):
+        binned[name] = binned_path(name, big, cfg_, dev, drain)
+        phase(name, **binned[name])
+    phase("binned_vs_classic", **binned_vs_classic(big, pcfg, dev))
+    phase("h4_binned_vs_regen_k2", **h4_ab(big, pcfg, dev))
+    phase("cli_binned_routes", **cli_binned_phases(dev))
+
     def ptxas_of(lib):
         return [ln.strip() for ln in nvcc.builds.get(lib, {}).get(
             "ptxas", "").splitlines() if "registers" in ln]
@@ -2173,6 +2701,33 @@ def main() -> int:
         "flat_main_mesh500_256x192": wf_kernels[1]["launches"],
         "mesh_stream_main_mesh500_256x192": ms_paths[
             "mesh_stream_main_mesh500_256x192"]["launches"]["closest_tri"]}
+    b_main = binned["binned_drain_procedural10000_512x384"]
+    b_mid = b_main["kernel"]["middle"]
+    k8_errs = [v["max_abs_err"] for v in k8_small.values()]
+    k8_errs += [v["max_abs_err"] for b in binned.values()
+                for v in b["kernel"].values()]
+    k8 = {
+        "name": "stream_step_binned", "route": "cuda",
+        "source": "smallpt_tpu_torch/csrc/stream_binned.cu",
+        "replaces": "smallpt_tpu/ops/megakernel.py:1414",
+        "launches": b_main["launches"]["stream_step_binned"],
+        "launches_by_path": {n: b["launches"]["stream_step_binned"]
+                             for n, b in binned.items()},
+        "max_abs_err": max(k8_errs), "ms": b_mid["kernel_ms"],
+        "plain_ms": b_mid["plain_ms"], "bound_ms": b_mid["bound_ms"],
+        "bound_by": b_mid["bound_by"], "lanes": b_mid["lanes"],
+        "launch_ms_by_path": {
+            n: {k: v["kernel_ms"] for k, v in b["kernel"].items()}
+            for n, b in binned.items()},
+        "bound_ms_by_path": {
+            n: {k: v["bound_ms"] for k, v in b["kernel"].items()}
+            for n, b in binned.items()},
+        "round_ms_by_path": {n: b["ms_per_round"]
+                             for n, b in binned.items()},
+        "ptxas": ptxas_of(mk.LIBRARY_BINNED[0]),
+        "library_ms": None,
+    }
+    wf_kernels.append(k8)
     wf_kernels[0]["ms_procedural10000"] = wf[
         "regen_main_procedural10000_512x384"]["kernel"]["middle"]["kernel_ms"]
     wf_kernels[0]["bound_ms_procedural10000"] = wf[

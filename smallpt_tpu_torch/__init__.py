@@ -28,7 +28,12 @@ Ported so far, with next-event estimation (ROADMAP.md):
   MeshStreamProgressiveRenderer per pass) -> one wavefront bounce a launch
   of the closest-hit kernel, K6, or with the grid accel (meshes of at least
   MESH_ACCEL_MIN_TRIS triangles, opt-in) csrc/closest_tri_culled.cu (K7)
-  over per-tile chunk lists (ops/mesh_accel.py).
+  over per-tile chunk lists (ops/mesh_accel.py);
+- the binned scheduler for big sphere scenes: BinnedStreamingRenderer
+  (and BinnedProgressiveRenderer, and render/ProgressiveRenderer's drain
+  under MEGA above 2048 spheres) -> per bounce the tile work lists of the
+  grid accel (ops/accel.py) and one launch of csrc/stream_binned.cu (K8),
+  the culled frontier-marching bounce.
 """
 
 from smallpt_tpu_torch.config import (
@@ -38,9 +43,11 @@ from smallpt_tpu_torch.core.camera import LegacyCamera, MatrixCamera
 from smallpt_tpu_torch.core.scene import (
     DIFF, REFR, SPEC, Material, MeshScene, SphereScene,
 )
+from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
 from smallpt_tpu_torch.engine.mesh_stream import WavefrontStreamingRenderer
 from smallpt_tpu_torch.engine.progressive import (
-    MeshStreamProgressiveRenderer, ProgressiveRenderer,
+    BinnedProgressiveRenderer, MeshStreamProgressiveRenderer,
+    ProgressiveRenderer,
 )
 from smallpt_tpu_torch.engine.renderer import (
     render, render_image, render_with_stats,
@@ -54,4 +61,5 @@ __all__ = [
     "LegacyCamera", "MatrixCamera", "render", "render_image",
     "render_with_stats", "ProgressiveRenderer", "StreamingRenderer",
     "WavefrontStreamingRenderer", "MeshStreamProgressiveRenderer",
+    "BinnedStreamingRenderer", "BinnedProgressiveRenderer",
 ]

@@ -1,5 +1,5 @@
-"""Command-line entry point of the PyTorch port (the per-pass and streaming
-routes of smallpt_tpu/cli.py).
+"""Command-line entry point of the PyTorch port (the per-pass, streaming and
+binned routes of smallpt_tpu/cli.py).
 
 The reference's CLI is one positional arg — total spp, divided by the 4
 jitter cells (smallpt.cpp:276,846). Here every compile-time constant of the
@@ -8,9 +8,13 @@ ProgressiveRenderer (the megakernel, or the REGEN and FLAT wavefronts with
 the closest-hit kernels for --intersector pallas), or with ``--streaming``
 through StreamingRenderer. Mesh scenes in full transport stream, as in the
 JAX CLI: through MeshStreamProgressiveRenderer per pass without
---scheduler, through WavefrontStreamingRenderer with ``--streaming``. All
-run on the card (``--device cuda``, the default) or through the plain
-PyTorch versions (``--device cpu``).
+--scheduler, through WavefrontStreamingRenderer with ``--streaming``.
+Sphere scenes above MEGA_MAX_SPHERES in full transport take
+BinnedProgressiveRenderer per pass, whatever the scheduler, and
+``--binned`` renders any sphere scene through BinnedStreamingRenderer in
+one stream (both through kernel K8). All run on the card (``--device
+cuda``, the default) or through the plain PyTorch versions (``--device
+cpu``).
 
 Examples:
     python -m smallpt_tpu_torch 16 --width 1024 --height 768 --out c.png
@@ -23,6 +27,10 @@ Examples:
     python -m smallpt_tpu_torch 8 --scene mesh --width 256 --height 192 \
         --max-depth 12 --stats
     python -m smallpt_tpu_torch 8 --scene mesh --streaming --checkpoint ck.npz
+    python -m smallpt_tpu_torch 4 --scene procedural --width 512 --height 384 \
+        --max-depth 24
+    python -m smallpt_tpu_torch 8 --scene procedural --binned --nee 8 \
+        --checkpoint ck.npz
 """
 
 from __future__ import annotations
@@ -36,9 +44,11 @@ from smallpt_tpu_torch.config import (
 )
 from smallpt_tpu_torch.core import scene as scenes
 from smallpt_tpu_torch.core.camera import default_matrix_camera, smallpt_camera
+from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
 from smallpt_tpu_torch.engine.mesh_stream import WavefrontStreamingRenderer
 from smallpt_tpu_torch.engine.progressive import (
-    MeshStreamProgressiveRenderer, ProgressiveRenderer,
+    BinnedProgressiveRenderer, MeshStreamProgressiveRenderer,
+    ProgressiveRenderer,
 )
 from smallpt_tpu_torch.engine.streaming import StreamingRenderer
 from smallpt_tpu_torch.ops.megakernel import MEGA_MAX_SPHERES
@@ -52,7 +62,7 @@ SCENES = {
     "two_sphere": scenes.two_sphere_scene,
     "triangle": scenes.single_triangle_scene,
     # 10,000 spheres: --streaming renders it through the DDA route (kernel
-    # K3); per pass it needs the binned drain, not ported yet
+    # K3), per pass and --binned through the binned scheduler (kernel K8)
     "procedural": scenes.procedural_sphere_scene,
     # 32,014 triangles: quad-walled Cornell with tessellated balls
     "mesh": scenes.procedural_mesh_scene,
@@ -61,7 +71,6 @@ _MESH_SCENES = ("triangle", "mesh")
 
 # flags of the JAX package's CLI whose routes are not ported yet
 _NOT_PORTED = {
-    "binned": "the binned scheduler (ROADMAP.md, modules item 11)",
     "interactive": "the interactive session (ROADMAP.md, modules item 13)",
     "frames": "the per-pass frame writer (ROADMAP.md, modules item 7)",
 }
@@ -118,15 +127,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats", action="store_true",
                    help="emit one structured JSON log line per pass")
     p.add_argument("--checkpoint", default=None,
-                   help="with --streaming, or a mesh scene's default route: "
-                        "save the stream state here after rendering")
+                   help="with --streaming or --binned, or a mesh or big "
+                        "sphere scene's default route: save the stream "
+                        "state here after rendering")
     p.add_argument("--resume", default=None,
-                   help="with --streaming, or a mesh scene's default route: "
-                        "resume from a stream checkpoint (of either package)")
+                   help="with --streaming or --binned, or a mesh or big "
+                        "sphere scene's default route: resume from a "
+                        "stream checkpoint (of either package)")
     p.add_argument("--quality", type=float, default=None, metavar="REL_ERR",
-                   help="with --streaming: equal-quality stopping — render "
-                        "until the 95%%-quantile per-pixel relative stderr "
-                        "is below REL_ERR (spp x passes is the sample pool)")
+                   help="with --streaming or --binned: equal-quality "
+                        "stopping — render until the 95%%-quantile "
+                        "per-pixel relative stderr is below REL_ERR "
+                        "(spp x passes is the sample pool)")
     p.add_argument("--streaming", action="store_true",
                    help="continuous-wavefront streaming renderer: renders "
                         "spp x passes samples per pixel in one stream")
@@ -137,7 +149,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "light)")
     p.add_argument("--frames", default=None, metavar="PATTERN",
                    help="not ported yet")
-    p.add_argument("--binned", action="store_true", help="not ported yet")
+    p.add_argument("--binned", action="store_true",
+                   help="grid-binned streaming renderer for sphere scenes "
+                        "(kernel K8): spp x passes samples per pixel in one "
+                        "stream")
     p.add_argument("--interactive", action="store_true",
                    help="not ported yet")
     return p
@@ -171,9 +186,10 @@ def main(argv=None) -> int:
     intersector = Intersector(args.intersector) if args.intersector else (
         Intersector.PALLAS if mesh_scene and scene.n_triangles >= 64
         else Intersector.JAX)
-    if args.quality is not None and not args.streaming:
-        build_parser().error("--quality requires --streaming (equal-quality "
-                             "stopping drives the stream's moment planes)")
+    if args.quality is not None and not (args.streaming or args.binned):
+        build_parser().error("--quality requires --streaming or --binned "
+                             "(equal-quality stopping drives those "
+                             "renderers' moment planes)")
     config = RenderConfig(
         width=args.width,
         height=args.height,
@@ -209,27 +225,44 @@ def main(argv=None) -> int:
             build_parser().error(f"--nee instance {li} has no triangles")
     # an EXPLICIT --scheduler pins the per-pass engine (its keying and
     # checkpoint format differ from the streaming one)
-    mesh_stream = (not args.streaming and mesh_scene
-                   and config.mode == Mode.FULL and config.split_budget == 1
+    full = config.mode == Mode.FULL and config.split_budget == 1
+    mesh_stream = (not args.streaming and mesh_scene and full
                    and args.scheduler is None)
-    if (args.checkpoint or args.resume) and not (args.streaming
-                                                 or mesh_stream):
+    # the JAX CLI sends big sphere scenes to its binned renderer, whatever
+    # the scheduler
+    big_binned = (not args.streaming and not mesh_scene and full
+                  and scene.n_spheres > MEGA_MAX_SPHERES)
+    if (args.checkpoint or args.resume) and not (
+            args.streaming or args.binned or mesh_stream or big_binned):
         raise NotImplementedError(
             "--checkpoint/--resume: checkpoints of the per-pass route "
             "(ROADMAP.md, modules item 6) are not yet ported")
-    if (not args.streaming and not mesh_scene
-            and scene.n_spheres > MEGA_MAX_SPHERES
-            and config.mode == Mode.FULL and config.split_budget == 1):
-        # the JAX CLI sends big sphere scenes to its binned renderer,
-        # whatever the scheduler
-        raise NotImplementedError(
-            f"per-pass scenes above {MEGA_MAX_SPHERES} spheres: the binned "
-            "renderer (ROADMAP.md, modules item 11, kernel K8) is not yet "
-            "ported; --streaming renders them through the DDA route")
     n_passes = args.passes if args.passes is not None else 1
 
     t0 = time.time()
-    if args.streaming:
+    if args.binned:
+        # one binned stream (as the JAX CLI, --binned before --streaming);
+        # a step runs 2 x max_depth bounces
+        br = BinnedStreamingRenderer(scene, camera, config, seed=args.seed,
+                                     device=args.device)
+        if args.resume:
+            br.load_checkpoint(args.resume)
+        if args.quality is not None:
+            q = br.step_to_quality(rel_err=args.quality,
+                                   max_spp=config.spp * n_passes,
+                                   n_bounces=2 * config.max_depth)
+            if not args.quiet:
+                print(f"quality stop: rel_err@95% {q['rel_err_q']:.4f} "
+                      f"spp {q['spp_min']}..{q['spp_max']} "
+                      f"({q['rounds']} rounds)", file=sys.stderr)
+        else:
+            br.step(add_samples=config.spp * n_passes,
+                    n_bounces=2 * config.max_depth)
+            br.flush()
+        if args.stats:
+            log_json("binned_done", br.stats.as_dict())
+        img = br.image * args.exposure
+    elif args.streaming:
         # triangle scenes stream through the wavefront (engine/
         # mesh_stream.py); spheres keep the streaming kernels
         sr = (WavefrontStreamingRenderer if mesh_scene else StreamingRenderer)(
@@ -256,10 +289,11 @@ def main(argv=None) -> int:
             log_json("stream_done", sr.stats.as_dict())
         img = sr.image * args.exposure
     else:
-        # mesh scenes in full transport drive the persistent streaming
-        # wavefront per pass (accel and tables built once, state carried
-        # across passes)
+        # mesh scenes and big sphere scenes in full transport drive a
+        # persistent streaming wavefront per pass (accel and tables built
+        # once, state carried across passes)
         r = (MeshStreamProgressiveRenderer if mesh_stream
+             else BinnedProgressiveRenderer if big_binned
              else ProgressiveRenderer)(scene, camera, config, seed=args.seed,
                                        device=args.device)
         r.log_stats = args.stats
@@ -271,14 +305,15 @@ def main(argv=None) -> int:
                 done = 100.0 * (i + 1) / n_passes
                 print(f"\rRendering ({config.spp * n_passes} spp) "
                       f"{done:5.2f}%", end="", file=sys.stderr)
-        r.finalize()  # the mesh stream drains; a per-pass step is complete
+        r.finalize()  # the streams drain; a per-pass step is complete
         img = r.image * args.exposure  # the copy to the host synchronizes
     if not args.quiet:
         print(f"\nElapsed time: {(time.time() - t0) * 1000:.0f} ms",
               file=sys.stderr)
     _write(args.out, img)
     if args.checkpoint:
-        (sr if args.streaming else r).save_checkpoint(args.checkpoint)
+        (br if args.binned else sr if args.streaming else r
+         ).save_checkpoint(args.checkpoint)
     if not args.quiet:
         print(f"Wrote {args.out}", file=sys.stderr)
     return 0

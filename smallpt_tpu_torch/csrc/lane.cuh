@@ -1,10 +1,11 @@
-// Per-lane device code shared by the megakernel (megakernel.cu, K1) and the
-// streaming DDA kernel (stream_dda.cu, K3): the launch arguments, PCG4D and
-// its uniforms, the sphere test, camera regeneration, the BSDF and Russian
-// roulette shade, and the NEE cone sample. One copy of each formula serves
-// both kernels, as the JAX package's stream_dda.py mirrors _mega_kernel line
-// for line. Every function keeps the JAX kernels' op order; the kernels are
-// built with --fmad=false so each op rounds as there.
+// Per-lane device code shared by the megakernel (megakernel.cu, K1), the
+// streaming DDA kernel (stream_dda.cu, K3) and the binned bounce
+// (stream_binned.cu, K8): the launch arguments, PCG4D and its uniforms, the
+// sphere test, camera regeneration, the BSDF and Russian roulette shade, the
+// NEE cone sample and the UV AOV's polynomial trig. One copy of each formula
+// serves every kernel, as the JAX package's stream_dda.py mirrors
+// _mega_kernel line for line. Every function keeps the JAX kernels' op
+// order; the kernels are built with --fmad=false so each op rounds as there.
 
 #pragma once
 
@@ -110,6 +111,34 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   x = x * inv;
   y = y * inv;
   z = z * inv;
+}
+
+// atan2(y, x) from abs/min/max/div/select and a degree-9 odd minimax
+// polynomial, op for op the JAX package's _atan2_poly
+// (ops/megakernel.py:93) and ops/megakernel.py::_atan2_poly here: the UV
+// AOV's longitude in the binned kernel (K8), not the library atan2f.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x);
+  const float ay = fabsf(y);
+  const float hi = fmaxf(ax, ay);
+  const float z = fminf(ax, ay) / fmaxf(hi, 1e-30f);
+  const float z2 = z * z;
+  float p = 0.0208351f * z2;
+  p = p - 0.0851330f;
+  p = p * z2 + 0.1801410f;
+  p = p * z2 - 0.3302995f;
+  p = p * z2 + 0.9998660f;
+  float a = p * z;
+  if (ay > ax) a = 1.5707963267948966f - a;
+  if (x < 0.0f) a = 3.141592653589793f - a;
+  return y < 0.0f ? -a : a;
+}
+
+// asin(y) on [-1, 1] as atan2(y, sqrt(1 - y^2)) (_asin_poly,
+// ops/megakernel.py:120): exact at the poles.
+__device__ __forceinline__ float asin_poly(float y) {
+  const float c = fminf(fmaxf(y, -1.0f), 1.0f);
+  return atan2_poly(c, sqrtf(fmaxf(1.0f - c * c, 0.0f)));
 }
 
 // An orthonormal (u, v) around the unit vector n (smallpt.cpp:209):

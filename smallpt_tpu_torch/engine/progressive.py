@@ -8,12 +8,15 @@ the pass count; the display image divides by passes * spp
 (smallpt.cpp:957). The route is picked once, when the renderer is made
 (engine/renderer.py::_route), and so are its inputs on the device: on the
 megakernel route the scene table and camera vector, so a step is one
-kernel launch and its accumulation; on the wavefront routes the scene, its
-K2 or K6 table (or K7 accel) and the mesh NEE tables, so a step builds
-nothing. ``MeshStreamProgressiveRenderer`` drives the mesh streaming engine
-(engine/mesh_stream.py) per pass instead, its wavefront carried across
-passes. The JSON command queue and the per-pass checkpoints are not ported
-yet (ROADMAP.md, modules item 5).
+kernel launch and its accumulation; on the binned route (MEGA sphere
+scenes above MEGA_MAX_SPHERES) one BinnedStreamingRenderer whose grid
+accel and tables are built once, each step one drain of it (kernel K8); on
+the wavefront routes the scene, its K2 or K6 table (or K7 accel) and the
+mesh NEE tables, so a step builds nothing. ``MeshStreamProgressiveRenderer``
+and ``BinnedProgressiveRenderer`` drive a streaming engine per pass
+instead (engine/mesh_stream.py, engine/binned.py), its wavefront carried
+across passes. The JSON command queue and the per-pass checkpoints are not
+ported yet (ROADMAP.md, modules item 5).
 """
 
 from __future__ import annotations
@@ -25,9 +28,11 @@ import torch
 
 from smallpt_tpu_torch.config import RenderConfig
 from smallpt_tpu_torch.core import rng as prng
+from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
 from smallpt_tpu_torch.engine.mesh_stream import WavefrontStreamingRenderer
 from smallpt_tpu_torch.engine.renderer import (
-    _route, pass_inputs, wavefront_inputs, wavefront_pass,
+    _route, binned_pass, binned_route, pass_inputs, wavefront_inputs,
+    wavefront_pass,
 )
 from smallpt_tpu_torch.ops.megakernel import mega_pass
 from smallpt_tpu_torch.utils.device import resolve_device
@@ -42,11 +47,13 @@ class ProgressiveRenderer:
         self.config = config
         self.seed = seed
         self.device = resolve_device(device)
-        self.route = _route(scene, config, False)
+        # the binned drain's renderer is owned here for every pass
+        self.route, self._binned = binned_route(
+            scene, camera, config, _route(scene, config, False), self.device)
         if self.route == "mega":
             self._table, self._cam = pass_inputs(scene, camera, config,
                                                  self.device)
-        else:
+        elif self.route != "binned":
             self._inputs = wavefront_inputs(scene, config, self.route,
                                             self.device)
         self._base = prng.base_key(seed)
@@ -70,6 +77,8 @@ class ProgressiveRenderer:
                 rad, rays = mega_pass(self._table, self._cam, self.config,
                                       key, n_spheres=self.scene.n_spheres)
                 rays = rays.sum(dtype=torch.int64)
+            elif self.route == "binned":
+                rad, rays = binned_pass(self._binned, self.config, key)
             else:
                 rad, rays = wavefront_pass(self._inputs, self.camera,
                                            self.config, key)
@@ -108,24 +117,18 @@ class ProgressiveRenderer:
         return self.accum.cpu().numpy() / (n * self.config.spp)
 
 
-class MeshStreamProgressiveRenderer:
-    """Progressive driver over the mesh streaming engine
-    (engine/mesh_stream.py, ``self._r``): one PERSISTENT wavefront carried
-    across passes (accel, intersect tables and NEE tables built once),
-    stepped per pass (each step adds config.spp samples a pixel and
-    advances n_bounces) or at equal time (target_ms). Its checkpoint is the
-    stream's. The JAX CLI's route for a mesh scene in full transport
-    without --scheduler. The JAX package's JSON request protocol
-    (enqueue/_apply_requests) is not ported for any progressive driver yet
-    (ROADMAP.md, modules item 5)."""
+class _StreamBackedProgressive:
+    """The progressive surface over a persistent streaming engine
+    (``self._r``): stepped per pass (each step adds config.spp samples a
+    pixel and advances n_bounces) or at equal time (target_ms); the image,
+    the drain and the checkpoint are the stream's. The JAX package's JSON
+    request protocol (enqueue/_apply_requests) is not ported for any
+    progressive renderer yet (ROADMAP.md, modules item 5)."""
 
-    def __init__(self, scene, camera, config: RenderConfig, seed: int = 0,
-                 n_bounces: int | None = None,
-                 target_ms: float | None = None, device=None):
+    def __init__(self, r, config: RenderConfig, n_bounces: int | None,
+                 target_ms: float | None):
+        self._r = r
         self.config = config
-        self.device = resolve_device(device)
-        self._r = WavefrontStreamingRenderer(scene, camera, config,
-                                             seed=seed, device=self.device)
         self.n_bounces = (2 * config.max_depth if n_bounces is None
                           else n_bounces)
         self.target_ms = target_ms
@@ -149,7 +152,7 @@ class MeshStreamProgressiveRenderer:
 
     @property
     def stats(self) -> RenderStats:
-        """The stream's telemetry (passes are its steps)."""
+        """The stream's telemetry."""
         return self._r.stats
 
     def reset_accumulation(self) -> None:
@@ -172,3 +175,40 @@ class MeshStreamProgressiveRenderer:
     def load_checkpoint(self, path: str) -> None:
         self._r.load_checkpoint(path)
         self.sample_count = self._r.stats.passes
+
+
+class MeshStreamProgressiveRenderer(_StreamBackedProgressive):
+    """Progressive renderer over the mesh streaming engine
+    (engine/mesh_stream.py): one PERSISTENT wavefront carried across
+    passes (accel, intersect tables and NEE tables built once). The JAX
+    CLI's route for a mesh scene in full transport without --scheduler."""
+
+    def __init__(self, scene, camera, config: RenderConfig, seed: int = 0,
+                 n_bounces: int | None = None,
+                 target_ms: float | None = None, device=None):
+        self.device = resolve_device(device)
+        super().__init__(
+            WavefrontStreamingRenderer(scene, camera, config, seed=seed,
+                                       device=self.device),
+            config, n_bounces, target_ms)
+
+
+class BinnedProgressiveRenderer(_StreamBackedProgressive):
+    """Progressive renderer over the binned big-scene scheduler
+    (engine/binned.py): one PERSISTENT BinnedStreamingRenderer (grid accel
+    built once, the wavefront carried across passes, each pass adding
+    config.spp samples a pixel), so a frame shown mid-wavefront is a
+    consistent weighted estimate and ``finalize()`` drains for the exact
+    image. The JAX CLI's route for a sphere scene above MEGA_MAX_SPHERES in
+    full transport. binned_kwargs go to the renderer (accel, k_near,
+    n_streams, inflight)."""
+
+    def __init__(self, scene, camera, config: RenderConfig, seed: int = 0,
+                 n_bounces: int | None = None,
+                 target_ms: float | None = None, device=None,
+                 **binned_kwargs):
+        self.device = resolve_device(device)
+        super().__init__(
+            BinnedStreamingRenderer(scene, camera, config, seed=seed,
+                                    device=self.device, **binned_kwargs),
+            config, n_bounces, target_ms)

@@ -9,6 +9,11 @@ The port routes each per-pass config as the JAX package does (``_route``):
 - MEGA, Mode.FULL, split_budget 1, f32 sphere scenes of at most
   MEGA_MAX_SPHERES spheres: one megakernel launch per pass (K1a,
   ops/megakernel.py);
+- MEGA, split_budget 1, sphere scenes above MEGA_MAX_SPHERES (any mode,
+  but not NEE with an AOV mode): the binned drain (``binned_pass``: a
+  BinnedStreamingRenderer's budget of spp drained, kernel K8); a scene the
+  grid accel cannot index (AccelUnsupported) takes REGEN instead, as in the
+  JAX package;
 - MEGA or REGEN otherwise with split_budget 1 (the AOV modes, REGEN named,
   mesh scenes): the regenerative wavefront (ops/wavefront.py);
 - FLAT, or split_budget > 1: the flat wavefront.
@@ -18,9 +23,8 @@ The wavefronts intersect through ``make_intersect_fn``: with
 MESH_ACCEL_MIN_TRIS triangles (off by default, as in the JAX package); with
 ``Intersector.JAX`` the plain route of ops/intersect.py. What the JAX
 package sends elsewhere raises NotImplementedError naming the ROADMAP.md
-item that ports it: the binned drain for MEGA sphere scenes above
-MEGA_MAX_SPHERES (item 11) and gradients (item 8). Nothing falls back to
-another route. Entry points run on the card unless given ``device="cpu"``.
+item that ports it: gradients (item 8). Nothing falls back to another
+route. Entry points run on the card unless given ``device="cpu"``.
 The streaming routes are engine/streaming.py (spheres) and
 engine/mesh_stream.py (meshes, and any scene the wavefront shades).
 """
@@ -69,8 +73,11 @@ def _not_ported(what: str):
 
 def _route(scene, config: RenderConfig, differentiable: bool) -> str:
     """The scheduler of a per-pass config, as the JAX package picks it
-    (_use_mega, _use_binned, _use_regen): "mega", "regen" or "flat".
-    Raises NotImplementedError for the routes not ported."""
+    (_use_mega, _use_binned, _use_regen): "mega", "binned", "regen" or
+    "flat". Raises NotImplementedError for the routes not ported. The JAX
+    package's BINNED_AUTO flag is read nowhere there, so every MEGA sphere
+    scene above MEGA_MAX_SPHERES takes the binned drain, here too
+    (ROADMAP.md hazard H4; PERF.md has the H100 A/B against REGEN)."""
     if differentiable:
         raise _not_ported("differentiable rendering (ROADMAP.md, modules "
                           "item 8: gradients, kernel K1b)")
@@ -86,11 +93,7 @@ def _route(scene, config: RenderConfig, differentiable: bool) -> str:
             if config.mode == Mode.FULL:
                 return "mega"
         elif not (config.nee_lights and config.mode != Mode.FULL):
-            raise _not_ported(
-                f"per-pass scenes above {MEGA_MAX_SPHERES} spheres under the "
-                "MEGA scheduler (ROADMAP.md, modules item 11: the binned "
-                "drain, kernel K8; --scheduler regen renders them through "
-                "K2, --streaming through the DDA route)")
+            return "binned"
     if (config.scheduler in (Scheduler.REGEN, Scheduler.MEGA)
             and config.split_budget == 1):
         return "regen"
@@ -311,6 +314,41 @@ def pass_inputs(scene, camera, config: RenderConfig, device=None):
             build_camera_vec(camera, config, dev))
 
 
+def binned_route(scene, camera, config: RenderConfig, route: str, device):
+    """(route, renderer) for the caller that renders a route's passes. On
+    the binned route, the BinnedStreamingRenderer that drains them, built
+    once on ``device``; a scene the grid accel cannot index
+    (AccelUnsupported) takes ("regen", None) instead, as the JAX package's
+    render falls through to REGEN there. Any other route comes back with
+    None. The JAX package keeps such renderers in a module-level weakref
+    cache only to keep its jitted closures alive across calls; here the
+    caller owns it."""
+    from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
+    from smallpt_tpu_torch.ops.accel import AccelUnsupported
+
+    if route != "binned":
+        return route, None
+    try:
+        return route, BinnedStreamingRenderer(scene, camera, config,
+                                              device=device)
+    except AccelUnsupported:
+        return "regen", None
+
+
+def binned_pass(r, config: RenderConfig, key):
+    """One per-pass render through the binned drain (the JAX package's
+    _render_binned_drain): reset the renderer, key it with the pass key,
+    budget spp samples a pixel, 8 bounces, then flush. Returns ((H, W, 3)
+    summed radiance, rays traced as a 0-d int64 tensor)."""
+    r.reset()
+    r.key = np.asarray(key, np.uint32).reshape(-1)[:2]
+    r.step(add_samples=config.spp, n_bounces=8)
+    r.flush()
+    rad, _ = r.accumulators()
+    return rad, torch.tensor(r.stats.rays, dtype=torch.int64,
+                             device=rad.device)
+
+
 def render_with_stats(scene, camera, config: RenderConfig, key, device=None):
     """One full-frame pass: ((H, W, 3) summed radiance over config.spp
     samples per pixel, rays traced as a 0-d int64 tensor), on ``device``
@@ -319,6 +357,9 @@ def render_with_stats(scene, camera, config: RenderConfig, key, device=None):
     route = _route(scene, config, False)
     if route == "mega":
         return render_pass_megakernel(scene, camera, config, key, device=dev)
+    route, binned = binned_route(scene, camera, config, route, dev)
+    if binned is not None:
+        return binned_pass(binned, config, key)
     return wavefront_pass(wavefront_inputs(scene, config, route, dev), camera,
                           config, key)
 
@@ -341,11 +382,15 @@ def render_image(scene, camera, config: RenderConfig, seed: int = 0,
     base = prng.base_key(seed)
     acc = torch.zeros((config.height, config.width, 3), dtype=torch.float32,
                       device=dev)
+    route, binned = binned_route(scene, camera, config, route, dev)
     if route == "mega":
         table, camv = pass_inputs(scene, camera, config, dev)
         for p in range(n_passes):
             acc += mega_pass(table, camv, config, prng.fold_in(base, p),
                              n_spheres=scene.n_spheres)[0].view(acc.shape)
+    elif binned is not None:
+        for p in range(n_passes):
+            acc += binned_pass(binned, config, prng.fold_in(base, p))[0]
     else:
         inputs = wavefront_inputs(scene, config, route, dev)
         for p in range(n_passes):

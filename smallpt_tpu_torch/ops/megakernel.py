@@ -36,6 +36,7 @@ is checked against.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -190,11 +191,12 @@ def _check_inputs(table, cam, config: RenderConfig, n_spheres) -> int:
 
 
 def _launch_args(config: RenderConfig, n_lanes, n_spheres, k0, k1,
-                 ip_offset, row_offset, k_samples, max_it=None):
+                 ip_offset, row_offset, k_samples, max_it=None, lights=None):
     """(int32 array: the _IP_NAMES values then MAX_NEE_LIGHTS light slots,
     float32 array of the _FP_NAMES values). max_it defaults to the
-    per-pass cap k_samples * max_depth."""
-    lights = config.nee_lights
+    per-pass cap k_samples * max_depth; lights (table rows) to
+    config.nee_lights."""
+    lights = config.nee_lights if lights is None else tuple(lights)
     vals = dict(
         n_lanes=n_lanes, n_spheres=n_spheres, width=config.width,
         height=config.height, row_offset=row_offset, ip_offset=ip_offset,
@@ -414,15 +416,26 @@ def stream_variance(f: torch.Tensor, i: torch.Tensor, config: RenderConfig,
     return mean.reshape(shape), var.reshape(shape), n.reshape(shape)
 
 
+def _is_state_layout(nf, ni) -> bool:
+    """Whether (nf, ni) plane counts are a streaming state's: classic, DDA,
+    or binned (17 and 8 planes; with NEE 3 + 3 a light more f32 planes and
+    one more i32 plane)."""
+    if (nf, ni) in _STATE_PLANES or (nf, ni) == (_NF_B, _NI_B):
+        return True
+    extra = nf - _NF_B - 3
+    return ni == _NI_B + 1 and extra > 0 and extra % 3 == 0
+
+
 def state_from_jax(f, i, device=None):
     """The JAX package's streaming state (numpy or jax arrays of shapes
-    (8*14, n_cols) f32 and (8*6, n_cols) i32, or the DDA route's (8*19 or
-    8*26, n_cols) and (8*9, n_cols)) as the port's tensors on ``device``
-    (None means CUDA). The layouts are the same, so this is a copy."""
+    (8*14, n_cols) f32 and (8*6, n_cols) i32, the DDA route's (8*19 or
+    8*26, n_cols) and (8*9, n_cols), or the binned route's (8*nf_b, n_cols)
+    and (8*ni_b, n_cols)) as the port's tensors on ``device`` (None means
+    CUDA). The layouts are the same, so this is a copy."""
     f = np.asarray(f, np.float32)
     i = np.asarray(i, np.int32)
     if f.ndim != 2 or i.ndim != 2 or f.shape[1] != i.shape[1] or \
-            (f.shape[0] / _SUB, i.shape[0] / _SUB) not in _STATE_PLANES:
+            not _is_state_layout(f.shape[0] / _SUB, i.shape[0] / _SUB):
         raise ValueError(f"not a streaming state: f{f.shape} i{i.shape}")
     dev = resolve_device(device)
     return (torch.tensor(f, device=dev), torch.tensor(i, device=dev))
@@ -1000,3 +1013,694 @@ def render_pass_megakernel(scene: SphereScene, camera, config: RenderConfig,
                           n_rows, k_samples, n_spheres=scene.n_spheres)
     return (rad.reshape(n_rows, config.width, 3),
             rays.sum(dtype=torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# The binned scheduler's state and bounce (the JAX package's
+# ops/megakernel.py:1351-2409): the state of engine/binned.py, its lane
+# regeneration between launches (``regen_binned``, XLA there, plain torch
+# here) and the culled, frontier-marching bounce ``stream_step_binned``,
+# kernel K8 (csrc/stream_binned.cu).
+#
+# The state is the JAX package's: (8 * nf_b, n_cols) f32 and (8 * ni_b,
+# n_cols) i32, plane p in rows 8p..8p+7; a tile is a block of _LANE_B
+# columns (8 * _LANE_B lanes), and the lane at (row r, column c) carries the
+# lane id q = 8c + r in its pixel plane, q = pixel * inflight + sub.
+# ---------------------------------------------------------------------------
+
+# lanes per binned tile column block: the culling granularity (ops/accel.py
+# reads it, so the two agree)
+_LANE_B = int(os.environ.get("SMALLPT_TPU_BINNED_LANE", "1024"))
+_I_DEPTH, _I_SUP = 0, 5
+_F_RX, _F_M1, _F_M2 = 9, 12, 13
+_I_PIXEL = 6        # lane id q = pixel * inflight + sub
+_I_PEND = 7         # bounce in progress: the swept prefix did not bound the
+                    # lane's hit
+_NI_B = _NI + 2
+_F_BT = _NF         # best candidate t so far (_BIG when none)
+_F_BID = _NF + 1    # its table row (float), -1 when none
+_F_TS = _NF + 2     # resolved-frontier distance: every hit with t < ts is
+                    # folded into (bt, bi); a pending lane marches it
+_NF_B = _NF + 3
+# NEE planes (only with config.nee_lights): the vertex's shading normal and
+# one shadow direction per light slot, drawn between launches
+# (ops/accel.py::nee_shadow_prep); per-slot pending-shadow bits
+_F_NLX, _F_NLY, _F_NLZ = _NF_B, _NF_B + 1, _NF_B + 2
+_F_LD0 = _NF_B + 3
+_I_NEEP = _NI_B
+# chunks a tile sweeps in its near prefix (ops/accel.py's lists)
+K_NEAR = int(os.environ.get("SMALLPT_TPU_BINNED_KNEAR", "64"))
+# sample-index stride between a pixel's in-flight sub-lanes: sub-lane s draws
+# samples ip = ip_offset + s * stride + s_idx
+_BINNED_SUB_STRIDE = 1 << 20
+# the AOV mode codes of csrc/stream_binned.cu
+_MODE_CODE = {Mode.FULL: 0, Mode.NORMAL: 1, Mode.EMISSION: 2,
+              Mode.INST_ID: 3, Mode.UV: 4}
+_PI = float(np.float32(np.pi))
+_HALF_PI = float(np.float32(np.pi / 2))
+_OPEN_LO = (-3e38, -3e38, -3e38)
+_OPEN_HI = (3e38, 3e38, 3e38)
+
+
+def _nf_b(config: RenderConfig) -> int:
+    n = _NF_B
+    if config.nee_lights:
+        n += 3 + 3 * len(config.nee_lights)
+    return n
+
+
+def _ni_b(config: RenderConfig) -> int:
+    return _NI_B + (1 if config.nee_lights else 0)
+
+
+def _f32(x) -> float:
+    """A Python number rounded to float32, so torch's scalar operand is the
+    float32 value the JAX package and the kernel use."""
+    return float(np.float32(x))
+
+
+def _atan2_poly(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """atan2(y, x) from abs/min/max/div/select and a degree-9 odd minimax
+    polynomial, op for op the JAX package's ``_atan2_poly`` (max error
+    ~1.1e-5 rad; y = -0.0 with x < 0 gives +pi): the UV AOV's longitude.
+    csrc/lane.cuh::atan2_poly is the kernel's copy."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    z = torch.minimum(ax, ay) / torch.clamp(hi, min=_f32(1e-30))
+    z2 = z * z
+    p = _f32(0.0208351) * z2
+    p = p - _f32(0.0851330)
+    p = p * z2 + _f32(0.1801410)
+    p = p * z2 - _f32(0.3302995)
+    p = p * z2 + _f32(0.9998660)
+    a = p * z
+    a = torch.where(ay > ax, _HALF_PI - a, a)
+    a = torch.where(x < 0.0, _PI - a, a)
+    return torch.where(y < 0.0, -a, a)
+
+
+def _asin_poly(y: torch.Tensor) -> torch.Tensor:
+    """asin(y) on [-1, 1] as atan2(y, sqrt(1 - y^2)), the JAX package's
+    ``_asin_poly``: exact at the poles."""
+    c = torch.clamp(y, -1.0, 1.0)
+    return _atan2_poly(c, torch.sqrt(torch.clamp(1.0 - c * c, min=0.0)))
+
+
+def _binned_geometry(config: RenderConfig, inflight: int = 1):
+    """(lanes G * inflight, n_tiles, n_cols) of the whole image's state."""
+    g = config.n_pixels * inflight
+    n_tiles = -(-g // (_SUB * _LANE_B))
+    return g, n_tiles, n_tiles * _LANE_B
+
+
+def _plane(buf: torch.Tensor, idx: int) -> torch.Tensor:
+    """Plane idx of a state buffer, an (8, n_cols) view."""
+    return buf[_SUB * idx:_SUB * (idx + 1)]
+
+
+def _shift_of(inflight: int) -> int:
+    if inflight < 1 or inflight & (inflight - 1):
+        raise ValueError("inflight must be a power of two")
+    return inflight.bit_length() - 1
+
+
+def init_binned_state(config: RenderConfig, inflight: int = 1, device=None):
+    """Fresh binned state on ``device`` (None means CUDA): every lane dead
+    with s_idx -1 and budget 0, the carried candidate (3e38, -1) and
+    frontier 0, and the lane-id plane q = 8c + r column-major, so tile t
+    holds the contiguous ids [8192 t, 8192 (t + 1)) (a compact image block,
+    a pixel's sub-lanes in one tile). inflight must be a power of two. The
+    JAX package's sharded row bands (pixel_lo, n_pix) belong to item 12 and
+    are not ported."""
+    _shift_of(inflight)
+    dev = resolve_device(device)
+    _, _, n_cols = _binned_geometry(config, inflight)
+    f = torch.zeros((_SUB * _nf_b(config), n_cols), dtype=torch.float32,
+                    device=dev)
+    _plane(f, _F_BT).fill_(_BIG)
+    _plane(f, _F_BID).fill_(-1.0)
+    i = torch.zeros((_SUB * _ni_b(config), n_cols), dtype=torch.int32,
+                    device=dev)
+    _plane(i, _I_SIDX).fill_(-1)
+    _plane(i, _I_PIXEL).copy_(
+        torch.arange(_SUB, dtype=torch.int32, device=dev)[:, None]
+        + torch.arange(n_cols, dtype=torch.int32, device=dev)[None, :] * _SUB)
+    return f, i
+
+
+def set_binned_budget(i: torch.Tensor, budget, config: RenderConfig,
+                      inflight: int = 1) -> torch.Tensor:
+    """Raise the per-PIXEL sample budget in place and return ``i``.
+    budget: a scalar or (G,) ints (adaptive sampling), gathered through the
+    lane-id plane; a pixel's budget b splits over its ``inflight`` sub-lanes
+    as ceil/floor shares summing to b. Lanes past the image stay at 0."""
+    g = config.n_pixels
+    shift = _shift_of(inflight)
+    q = _plane(i, _I_PIXEL)
+    old = _plane(i, _I_BUDGET)
+    pix = q >> shift
+    if isinstance(budget, torch.Tensor) or np.ndim(budget):
+        b = torch.as_tensor(np.asarray(budget, np.int32) if not isinstance(
+            budget, torch.Tensor) else budget, device=i.device).to(
+                torch.int32).reshape(-1)
+        new = b[pix.clamp(0, g - 1).long()]
+    else:
+        new = torch.full_like(q, int(budget))
+    if shift:
+        sub = q - (pix << shift)
+        new = torch.div(new + (inflight - 1) - sub, inflight,
+                        rounding_mode="floor")
+    old.copy_(torch.where(pix < g, torch.maximum(new, old), old))
+    return i
+
+
+def _by_lane_id(v: torch.Tensor, q: torch.Tensor, g: int, inflight: int):
+    """Values of the (8, n_cols) plane v placed by lane id q, the first g *
+    inflight ids folded per pixel: (g,), the sub-lanes summed in order."""
+    out = torch.zeros(q.numel(), dtype=v.dtype, device=v.device)
+    out[q.reshape(-1).long()] = v.reshape(-1)
+    return out[:g * inflight].reshape(g, inflight).sum(dim=1)
+
+
+def binned_image(f: torch.Tensor, i: torch.Tensor, config: RenderConfig,
+                 inflight: int = 1):
+    """(radiance (H, W, 3), completed-sample weights (H, W)) of a binned
+    state: lanes keyed back to their ids (the JAX package sorts by the id
+    plane, a permutation of the state's ids; here the ids place the values
+    directly), a pixel's sub-lanes summed (disjoint samples, an exact
+    union)."""
+    g = config.n_pixels
+    q = _plane(i, _I_PIXEL)
+    done = (_plane(i, _I_SIDX) + 1 - _plane(i, _I_ALIVE)).to(torch.float32)
+    rad = torch.stack([_by_lane_id(_plane(f, _F_RX + k), q, g, inflight)
+                       for k in range(3)], dim=-1)
+    rows = g // config.width
+    return (rad.reshape(rows, config.width, 3),
+            _by_lane_id(done, q, g, inflight).reshape(rows, config.width))
+
+
+def binned_variance(f: torch.Tensor, i: torch.Tensor, config: RenderConfig,
+                    inflight: int = 1):
+    """Per-pixel (mean, variance, n) of completed-sample luminances, each
+    (H, W), sub-lane moments added; an idle lane's last sample is folded
+    here (the stream_variance analog)."""
+    g = config.n_pixels
+    m1, m2 = _plane(f, _F_M1), _plane(f, _F_M2)
+    lum = (_plane(f, _F_RX) + _plane(f, _F_RX + 1)
+           + _plane(f, _F_RX + 2)) * _THIRD
+    alive = _plane(i, _I_ALIVE) != 0
+    s_idx = _plane(i, _I_SIDX)
+    idle = ~alive & (s_idx >= 0)
+    delta = lum - m1
+    m2 = torch.where(idle, m2 + delta * delta, m2)
+    m1 = torch.where(idle, lum, m1)
+    n = (s_idx + 1 - alive.to(torch.int32)).to(torch.float32)
+    q = _plane(i, _I_PIXEL)
+    m1t, m2t, nt = (_by_lane_id(v, q, g, inflight) for v in (m1, m2, n))
+    n_safe = torch.clamp(nt, min=1.0)
+    mean = m1t / n_safe
+    var = torch.clamp(m2t / n_safe - mean * mean, min=0.0)
+    shape = (g // config.width, config.width)
+    return mean.reshape(shape), var.reshape(shape), nt.reshape(shape)
+
+
+def binned_pending(i: torch.Tensor, has_nee: bool) -> torch.Tensor:
+    """(2,) int64 on the device: lanes alive (with NEE, or holding
+    unresolved shadow bits), and dead lanes that may still start a
+    sample."""
+    live = _plane(i, _I_ALIVE) != 0
+    if has_nee:
+        live = live | (_plane(i, _I_NEEP) != 0)
+    can = ~live & (_plane(i, _I_SIDX) < _plane(i, _I_BUDGET) - 1)
+    return torch.stack([live.sum(dtype=torch.int64),
+                        can.sum(dtype=torch.int64)])
+
+
+def binned_marching(i: torch.Tensor) -> torch.Tensor:
+    """0-d int64 on the device: the lanes whose bounce is pending (their
+    frontier marches next launch)."""
+    return (_plane(i, _I_PEND) != 0).sum(dtype=torch.int64)
+
+
+def _lane_sample(pixel: torch.Tensor, s_idx: torch.Tensor, ip_offset: int,
+                 inflight: int):
+    """(pix, ip) of each lane's current sample, int64: the pixel plane
+    carries q = pix * inflight + sub, and sub-lane samples sit at ip =
+    ip_offset + sub * 2^20 + s_idx (the JAX package's int32 arithmetic,
+    which stays below 2^31)."""
+    shift = _shift_of(inflight)
+    q = pixel.long()
+    pix = q >> shift
+    ip = ip_offset + s_idx.long()
+    if shift:
+        ip = ip + (q - (pix << shift)) * _BINNED_SUB_STRIDE
+    return pix, ip
+
+
+def regen_binned(f: torch.Tensor, i: torch.Tensor, cam_vec,
+                 config: RenderConfig, key, ip_offset: int = 0,
+                 inflight: int = 1):
+    """Lane regeneration before a binned launch, in place on the state's
+    device (the JAX package's XLA ``regen_binned``): dead lanes with budget
+    left (and, with NEE, no unresolved shadow) take their pixel's next
+    sample (streaming keying v2; the thin lens), unit throughput, depth 0,
+    the fresh candidate (3e38, -1) and frontier 0; the finished sample's
+    luminance folds into m1/m2. So the tile lists see every ray of the
+    launch. cam_vec: build_camera_vec's (1, 16) tensor or its 16 values.
+    Returns (f, i)."""
+    camv = (list(cam_vec) if isinstance(cam_vec, (list, tuple))
+            else cam_vec.detach().cpu().reshape(-1).tolist())
+    k0, k1 = prng.key_words(key)
+    fp, ip_ = _planes(f, i)
+    s_idx, alive = ip_[_I_SIDX], ip_[_I_ALIVE] != 0
+    need = ~alive & (s_idx < ip_[_I_BUDGET] - 1)
+    if config.nee_lights:
+        # a lane that died at a diffuse vertex still owes its deferred
+        # shadow: it regenerates after the next launch resolves it
+        need = need & (ip_[_I_NEEP] == 0)
+    rx, ry, rz, m1, m2 = (fp[k] for k in (9, 10, 11, 12, 13))
+    cur_lum = (rx + ry + rz) * _THIRD
+    delta = cur_lum - m1
+    fp[_F_M2] = torch.where(need, m2 + delta * delta, m2)
+    fp[_F_M1] = torch.where(need, cur_lum, m1)
+    s_new = torch.where(need, s_idx + 1, s_idx)
+    pix, ip = _lane_sample(ip_[_I_PIXEL], s_new, ip_offset, inflight)
+    wa, wb = prng.stream_key_words((k0, k1), pix, ip)
+    kk_t = torch.full_like(wa, (k0 + k1) & _MASK)
+    o, d = _camera_rays(config, camv, pix % config.width,
+                        torch.div(pix, config.width, rounding_mode="floor"),
+                        ip, wa, wb, kk_t)
+    for k, v in enumerate((*o, *d)):
+        fp[k] = torch.where(need, v, fp[k])
+    for k, v in ((6, 1.0), (7, 1.0), (8, 1.0), (_F_BT, _BIG),
+                 (_F_BID, -1.0), (_F_TS, 0.0)):
+        fp[k] = torch.where(need, v, fp[k])
+    ip_[_I_SIDX] = s_new
+    ip_[_I_ALIVE] = (alive | need).to(torch.int32)
+    for k in (_I_DEPTH, _I_PEND) + ((_I_SUP,) if config.nee_lights else ()):
+        # a fresh camera ray inherits no suppression bits
+        ip_[k] = torch.where(need, 0, ip_[k])
+    return f, i
+
+
+# (library name, csrc/ source) of K8, and the tile width it is built for
+# (csrc/stream_binned.cu kLaneB)
+LIBRARY_BINNED = ("smallpt_stream_binned", "stream_binned.cu")
+_KERNEL_LANE_B = 1024
+
+
+def _binned_lib():
+    """The entry point of csrc/stream_binned.cu (built at first use)."""
+    from smallpt_tpu_torch.utils.nvcc import load_library
+
+    fn = load_library(*LIBRARY_BINNED).smallpt_stream_binned
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 12
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_binned(table, config: RenderConfig, f, i, lists, stops, dcut,
+                  n_glob_chunks: int, n_chunks: int, nee_rows) -> int:
+    """Validate a binned launch's tensors; returns the tile count."""
+    if not isinstance(table, torch.Tensor) or table.dtype != torch.float32 \
+            or table.dim() != 2 or table.shape[1] != 16 \
+            or not table.is_contiguous():
+        raise ValueError("table must be a contiguous (S_pad, 16) float32 "
+                         "tensor")
+    if table.shape[0] < 8 * (n_glob_chunks + n_chunks):
+        raise ValueError(f"a {table.shape[0]}-row table for "
+                         f"{n_glob_chunks} + {n_chunks} chunks of 8 rows")
+    if config.split_budget != 1:
+        raise ValueError("the binned bounce requires split_budget == 1")
+    if config.nee_lights and config.mode != Mode.FULL:
+        raise ValueError("binned NEE requires Mode.FULL")
+    if len(nee_rows) != len(config.nee_lights):
+        raise ValueError("one table row per NEE light")
+    if len(nee_rows) > MAX_NEE_LIGHTS or not all(
+            0 <= r < table.shape[0] for r in nee_rows):
+        raise ValueError(f"NEE rows {nee_rows} for a {table.shape[0]}-row "
+                         "table")
+    nf, ni = _nf_b(config), _ni_b(config)
+    n_cols = f.shape[1] if f.dim() == 2 else -1
+    for name, t, n, dt in (("f", f, nf, torch.float32),
+                           ("i", i, ni, torch.int32)):
+        if not isinstance(t, torch.Tensor) or t.dtype != dt \
+                or t.dim() != 2 or t.shape != (_SUB * n, n_cols) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({_SUB * n}, "
+                             f"n_cols) {dt} tensor")
+    if n_cols % _LANE_B:
+        raise ValueError(f"n_cols={n_cols} is not a multiple of {_LANE_B}")
+    n_tiles = n_cols // _LANE_B
+    if stops.dtype != torch.int32 or tuple(stops.shape) != (n_tiles,) \
+            or dcut.dtype != torch.float32 \
+            or tuple(dcut.shape) != (n_tiles,) \
+            or lists.dtype != torch.int32 or lists.dim() != 2 \
+            or lists.shape[0] != n_tiles or lists.shape[1] < 1:
+        raise ValueError(f"lists {tuple(lists.shape)}, stops "
+                         f"{tuple(stops.shape)}, dcut {tuple(dcut.shape)} "
+                         f"for {n_tiles} tiles")
+    for name, t in (("f", f), ("i", i), ("lists", lists), ("stops", stops),
+                    ("dcut", dcut)):
+        if t.device != table.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {table.device}")
+    return n_tiles
+
+
+def stream_step_binned(table: torch.Tensor, config: RenderConfig, key,
+                       f: torch.Tensor, i: torch.Tensor, lists: torch.Tensor,
+                       stops: torch.Tensor, dcut: torch.Tensor,
+                       ip_offset: int = 0, n_glob_chunks: int = 2,
+                       n_chunks: int = 0, inflight: int = 1,
+                       geo_lo: tuple = _OPEN_LO, geo_hi: tuple = _OPEN_HI,
+                       nee_rows: tuple = ()):
+    """ONE culled, frontier-marching bounce over the whole binned state.
+
+    table: the accel-ordered (S_pad, 16) scene table (n_glob_chunks global
+    chunks of 8 rows, then n_chunks local ones, column 12 the original
+    sphere id); f, i: the state (``init_binned_state``), updated in place,
+    as the JAX kernel aliases them; lists (T, l_max) i32, stops (T,) i32
+    and dcut (T,) f32: ops/accel.py::tile_work_lists_bucketed of this
+    state; geo_lo/geo_hi: the local geometry's AABB (frontier escape; the
+    open default disables it); nee_rows: each NEE light's table row.
+    Returns (f, i, rays), rays the 0-d int64 count of lanes that finalized
+    a bounce.
+
+    A CUDA tensor launches csrc/stream_binned.cu (and counts the launch in
+    ``stream_step_binned.launches``) or raises; a CPU tensor runs
+    ``stream_step_binned_plain``."""
+    nee_rows = tuple(int(r) for r in nee_rows)
+    n_tiles = _check_binned(table, config, f, i, lists, stops, dcut,
+                            n_glob_chunks, n_chunks, nee_rows)
+    shift = _shift_of(inflight)
+    k0, k1 = prng.key_words(key)
+    if table.device.type == "cpu":
+        return stream_step_binned_plain(
+            table, config, k0, k1, f, i, lists, stops, dcut, ip_offset,
+            n_glob_chunks, n_chunks, inflight, geo_lo, geo_hi, nee_rows)
+    if _LANE_B != _KERNEL_LANE_B:
+        raise ValueError(f"SMALLPT_TPU_BINNED_LANE={_LANE_B}: K8 "
+                         f"(csrc/stream_binned.cu) is built for tiles of "
+                         f"{_KERNEL_LANE_B} columns; only the plain version "
+                         "on the CPU takes another width")
+    fn = _binned_lib()
+    rays = torch.zeros((), dtype=torch.int64, device=table.device)
+    ints, floats = _launch_args(config, _SUB * f.shape[1], table.shape[0],
+                                k0, k1, ip_offset, 0, 0, max_it=0,
+                                lights=nee_rows)
+    bints = np.array([f.shape[1], n_glob_chunks, n_chunks, lists.shape[1],
+                      shift, _MODE_CODE[config.mode], n_tiles], np.int32)
+    bfloats = np.array([*geo_lo, *geo_hi], np.float32)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table.data_ptr(), f.data_ptr(), i.data_ptr(),
+                 stops.data_ptr(), lists.data_ptr(), dcut.data_ptr(),
+                 rays.data_ptr(), ints.ctypes.data, floats.ctypes.data,
+                 bints.ctypes.data, bfloats.ctypes.data, stream)
+    if err != 0:
+        raise RuntimeError(f"stream_step_binned launch failed: CUDA error "
+                           f"{err}")
+    stream_step_binned.launches += 1
+    return f, i, rays
+
+
+stream_step_binned.launches = 0
+
+
+def _tiled(plane: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """(8, n_cols) plane -> (T, 8 * _LANE_B) lanes grouped by tile."""
+    return plane.reshape(_SUB, n_tiles, _LANE_B).permute(1, 0, 2).reshape(
+        n_tiles, -1)
+
+
+def _untiled(x: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """The inverse of ``_tiled``."""
+    return x.reshape(n_tiles, _SUB, _LANE_B).permute(1, 0, 2).reshape(
+        _SUB, -1)
+
+
+def _binned_sweep(table, lanes, lds, bt, bi, work, n_glob_chunks: int,
+                  n_chunks: int, lists, stops):
+    """The culled sweep of every lane with work (the kernel skips the
+    others): the global chunks, then its tile's swept list (every local
+    chunk where stops < 0), 8 rows a chunk in table order, folding the
+    strict-< least (bt, bi) (the first row attaining the least t wins, the
+    carried candidate wins ties) and each NEE slot's least shadow candidate
+    along its direction. lanes: (ox, oy, oz, dx, dy, dz), each (T, L); lds:
+    per slot (ldx, ldy, ldz); work: (T, L) bool. Returns (bt, bi, sbts),
+    sbts 3e38 where a lane has no work. The working lanes are compacted
+    into one flat batch, each step folding the next chunk of every lane
+    whose tile has one left."""
+    n_tiles, n_lanes = bt.shape
+    chunks = table.reshape(-1, 8, 16)[:, :, :5]
+    idx = torch.nonzero(work.reshape(-1))[:, 0]
+    tile = idx // n_lanes
+    flat = [[x.reshape(-1)[idx] for x in v] for v in (lanes, *lds)]
+    b_t, b_i = bt.reshape(-1)[idx], bi.reshape(-1)[idx]
+    sb = [torch.full_like(b_t, _BIG) for _ in lds]
+    stops_l = stops.long()
+    full_t = stops_l < 0
+    n_seq_t = n_glob_chunks + torch.where(full_t, n_chunks, stops_l)
+    lists_l = lists.long()
+    l_max = lists.shape[1]
+    pos = torch.arange(idx.numel(), device=idx.device)  # into b_t, b_i, sb
+    ends = sorted(set(n_seq_t.cpu().tolist())) if n_tiles else []
+    j = 0
+    for end in ends:
+        keep = n_seq_t[tile] > j
+        if not bool(keep.all()):
+            pos, tile = pos[keep], tile[keep]
+            flat = [[x[keep] for x in v] for v in flat]
+        if pos.numel() == 0:
+            break
+        full = full_t[tile]
+        for j in range(j, end):
+            local = j - n_glob_chunks
+            if local < 0:
+                cid = torch.full_like(tile, j)
+            else:
+                listed = lists_l[tile, min(local, l_max - 1)]
+                cid = n_glob_chunks + torch.where(full, local, listed)
+            c = chunks[cid]
+            cols = [c[:, :, k] for k in range(5)]  # (N, 8)
+            o = [x[:, None] for x in flat[0]]
+            tt = _sphere_tt(*o, *cols)
+            m = tt.amin(dim=1)
+            first = (tt == m[:, None]).to(torch.int8).argmax(dim=1)
+            better = m < b_t[pos]
+            b_t[pos] = torch.where(better, m, b_t[pos])
+            b_i[pos] = torch.where(better, (cid * 8 + first).to(
+                torch.float32), b_i[pos])
+            for s, ld in enumerate(flat[1:]):
+                st = _sphere_tt(*o[:3], *(x[:, None] for x in ld),
+                                *cols).amin(dim=1)
+                sb[s][pos] = torch.minimum(sb[s][pos], st)
+        j = end
+    bt = bt.clone().reshape(-1)
+    bi = bi.clone().reshape(-1)
+    bt[idx], bi[idx] = b_t, b_i
+    sbts = []
+    for v in sb:
+        out = torch.full_like(bt, _BIG)
+        out[idx] = v
+        sbts.append(out.reshape(n_tiles, n_lanes))
+    return bt.reshape(n_tiles, n_lanes), bi.reshape(n_tiles, n_lanes), sbts
+
+
+def stream_step_binned_plain(table: torch.Tensor, config: RenderConfig,
+                             k0: int, k1: int, f: torch.Tensor,
+                             i: torch.Tensor, lists: torch.Tensor,
+                             stops: torch.Tensor, dcut: torch.Tensor,
+                             ip_offset: int = 0, n_glob_chunks: int = 2,
+                             n_chunks: int = 0, inflight: int = 1,
+                             geo_lo: tuple = _OPEN_LO,
+                             geo_hi: tuple = _OPEN_HI, nee_rows: tuple = ()):
+    """The plain PyTorch version of K8: the JAX ``_binned_kernel`` body on
+    lanes grouped by tile, with one deviation that keeps the bits: the
+    winner's row is gathered directly where the JAX kernel walks the swept
+    chunks a second time to select it (the TPU cannot gather a row); it is
+    the same row. Updates f and i in place; returns (f, i, rays)."""
+    n_tiles = f.shape[1] // _LANE_B
+    nf, ni = _nf_b(config), _ni_b(config)
+    fl = [_tiled(_plane(f, k), n_tiles) for k in range(nf)]
+    il = [_tiled(_plane(i, k), n_tiles).long() for k in range(ni)]
+    ox, oy, oz, dx, dy, dz, wx, wy, wz, rx, ry, rz = fl[:12]
+    ts = fl[_F_TS]
+    depth, s_idx = il[_I_DEPTH], il[_I_SIDX]
+    alive = il[_I_ALIVE] != 0
+    nrays, pixel, sup = il[_I_RAYS], il[_I_PIXEL], il[_I_SUP]
+    lds = [tuple(fl[_F_LD0 + 3 * s + k] for k in range(3))
+           for s in range(len(nee_rows))]
+    one = torch.ones_like(ox)
+    zero = torch.zeros_like(ox)
+
+    pix, ip = _lane_sample(pixel, s_idx, ip_offset, inflight)
+    wa, wb = prng.stream_key_words((k0, k1), pix, ip)
+    kk_t = torch.full_like(wa, (k0 + k1) & _MASK)
+
+    neep = il[_I_NEEP] if nee_rows else None
+    work = alive | (neep != 0) if nee_rows else alive
+    bt, bi, sbts = _binned_sweep(table, (ox, oy, oz, dx, dy, dz), lds,
+                                 fl[_F_BT], fl[_F_BID], work, n_glob_chunks,
+                                 n_chunks, lists, stops)
+
+    rows = {r: table[r].tolist() for r in nee_rows}
+    if nee_rows:
+        # deferred shadow resolution: the bits were set at the previous
+        # vertex, whose throughput the weight planes still hold; the
+        # resolve is independent of alive
+        vnl = [fl[_F_NLX + k] for k in range(3)]
+        for slot, row in enumerate(nee_rows):
+            lcx, lcy, lcz, lrr, leps, lex, ley, lez = rows[row][:8]
+            ldx, ldy, ldz = lds[slot]
+            pendb = ((neep >> slot) & 1) == 1
+            t_light = _sphere_tt(ox, oy, oz, ldx, ldy, ldz, lcx, lcy, lcz,
+                                 lrr, leps)
+            swx = lcx - ox
+            swy = lcy - oy
+            swz = lcz - oz
+            d2 = swx * swx + swy * swy + swz * swz
+            lrr2 = _f32(np.float32(lrr) * np.float32(lrr))
+            cos_a_max = torch.sqrt(torch.clamp(
+                1.0 - _fdiv(lrr2, torch.clamp(d2, min=1e-12)), min=0.0))
+            omega = _TWO_PI * (1.0 - cos_a_max)
+            cosine = torch.clamp(ldx * vnl[0] + ldy * vnl[1] + ldz * vnl[2],
+                                 min=0.0)
+            active = pendb & (t_light < _BIG) & (sbts[slot] >= t_light)
+            scale = cosine * omega * _INV_PI
+            rx = rx + torch.where(active, wx * lex * scale, zero)
+            ry = ry + torch.where(active, wy * ley * scale, zero)
+            rz = rz + torch.where(active, wz * lez * scale, zero)
+
+    d_cut = dcut[:, None]
+
+    def slab(o, d, lo, hi):
+        inv = _fdiv(1.0, torch.where(torch.abs(d) < _f32(1e-20),
+                                     _f32(1e-20), d))
+        t1 = (_f32(lo) - o) * inv
+        t2 = (_f32(hi) - o) * inv
+        return torch.minimum(t1, t2), torch.maximum(t1, t2)
+
+    e1, x1 = slab(ox, dx, geo_lo[0], geo_hi[0])
+    e2, x2 = slab(oy, dy, geo_lo[1], geo_hi[1])
+    e3, x3 = slab(oz, dz, geo_lo[2], geo_hi[2])
+    t_enter = torch.maximum(e1, torch.maximum(e2, e3))
+    t_exit = torch.minimum(x1, torch.minimum(x2, x3))
+    escaped = (ts >= t_exit) | (t_enter > t_exit)
+    final = alive & ((bt < ts + d_cut) | escaped)
+    pend_out = alive & ~final
+    rays = final.sum(dtype=torch.int64)
+    nrays = nrays + final.long()
+
+    # the winner's row, gathered directly (see the docstring)
+    hit = bt < _BIG
+    win = table[bi.clamp(min=0).long()]
+    live_hit = final & hit
+
+    if config.has_env and config.mode == Mode.FULL:
+        miss_final = final & ~hit
+        ex, ey, ez = (_f32(c) for c in config.env_emission)
+        rx = rx + torch.where(miss_final, wx * ex, zero)
+        ry = ry + torch.where(miss_final, wy * ey, zero)
+        rz = rz + torch.where(miss_final, wz * ez, zero)
+
+    hx = ox + bt * dx
+    hy = oy + bt * dy
+    hz = oz + bt * dz
+    n, nl = _normals(config, hit, (hx, hy, hz), win[..., 0:3].unbind(-1),
+                     (dx, dy, dz), one, zero)
+    em = win[..., 5:8].unbind(-1)
+
+    if config.mode == Mode.FULL:
+        # emission whose light the previous vertex sampled is suppressed
+        em_keep = live_hit
+        for slot, row in enumerate(nee_rows):
+            em_keep = em_keep & ~((bi == float(row))
+                                  & (((sup >> slot) & 1) == 1))
+        rx = rx + torch.where(em_keep, wx * em[0], zero)
+        ry = ry + torch.where(em_keep, wy * em[1], zero)
+        rz = rz + torch.where(em_keep, wz * em[2], zero)
+    else:
+        # the AOV modes record at the lane's first final vertex and end it
+        av = _aov_values(config.mode, n, nl, (wx, wy, wz), em, win[..., 12],
+                         zero)
+        rx = rx + torch.where(live_hit, av[0], zero)
+        ry = ry + torch.where(live_hit, av[1], zero)
+        rz = rz + torch.where(live_hit, av[2], zero)
+
+    sh = _shade(config, wa, wb, kk_t, depth, (dx, dy, dz), n, nl,
+                win[..., 8:11].unbind(-1), win[..., 11], one, zero)
+    nox, noy, noz = (h + sh["eps_off"] * c for h, c in
+                     zip((hx, hy, hz), nl))
+    parent = live_hit & sh["survive"]
+
+    new_sup = torch.zeros_like(sup)
+    for slot, row in enumerate(nee_rows):
+        # a surviving diffuse vertex outside the light's shell marks its
+        # slot; the shadow is drawn and traced at the next launch
+        lcx, lcy, lcz, lrr = rows[row][:4]
+        vswx = lcx - nox
+        vswy = lcy - noy
+        vswz = lcz - noz
+        vd2 = vswx * vswx + vswy * vswy + vswz * vswz
+        inside = vd2 <= _f32(np.float32(lrr) * np.float32(lrr))
+        sampled = parent & sh["is_diff"] & ~inside
+        new_sup = new_sup | torch.where(sampled, 1 << slot, 0)
+
+    if config.mode != Mode.FULL:
+        parent = torch.zeros_like(parent)
+    ox = torch.where(parent, nox, ox)
+    oy = torch.where(parent, noy, oy)
+    oz = torch.where(parent, noz, oz)
+    dx, dy, dz = (torch.where(parent, nd, d) for nd, d in
+                  zip(sh["d"], (dx, dy, dz)))
+    wx, wy, wz = (torch.where(parent, w * (f_ * sh["wf"]), w) for w, f_
+                  in zip((wx, wy, wz), sh["f"]))
+    depth = torch.where(final, depth + 1, depth)
+    alive = pend_out | (parent & (depth < config.max_depth))
+
+    out_f = {0: ox, 1: oy, 2: oz, 3: dx, 4: dy, 5: dz, 6: wx, 7: wy, 8: wz,
+             9: rx, 10: ry, 11: rz,
+             _F_BT: torch.where(pend_out, bt, _BIG),
+             _F_BID: torch.where(pend_out, bi, -1.0),
+             _F_TS: torch.where(pend_out, ts + d_cut, 0.0)}
+    out_i = {_I_DEPTH: depth, _I_ALIVE: alive, _I_RAYS: nrays,
+             _I_PEND: pend_out}
+    if nee_rows:
+        out_i[_I_SUP] = torch.where(final, new_sup, sup)
+        out_i[_I_NEEP] = torch.where(final, new_sup, 0)
+        for k in range(3):
+            out_f[_F_NLX + k] = torch.where(final, nl[k], vnl[k])
+    for k, v in out_f.items():
+        _plane(f, k).copy_(_untiled(v, n_tiles))
+    for k, v in out_i.items():
+        _plane(i, k).copy_(_untiled(v.to(torch.int32), n_tiles))
+    return f, i, rays
+
+
+def _aov_values(mode: Mode, n, nl, w, em, inst, zero):
+    """The AOV value of each lane's first final vertex
+    (smallpt.cpp:179-183; the JAX binned kernel's in-kernel AOVs): the
+    oriented normal, the emission times throughput, the instance colour
+    fract(sin((id + 1) * v) * 43758.5453) truncated toward zero, or the
+    outward normal's lat/long (u, v, 0) through the polynomial atan2."""
+    if mode == Mode.NORMAL:
+        return nl
+    if mode == Mode.EMISSION:
+        return tuple(wk * ek for wk, ek in zip(w, em))
+    if mode == Mode.INST_ID:
+        oid1 = inst + 1.0
+
+        def fract_sin(mult):
+            x = torch.sin(oid1 * _f32(mult)) * _f32(43758.5453)
+            return x - x.to(torch.int32).to(torch.float32)
+
+        return fract_sin(12.9898), fract_sin(78.233), fract_sin(56.128)
+    if mode == Mode.UV:
+        phi = _atan2_poly(n[0], n[2])
+        u = _fdiv(torch.where(phi < 0.0, phi + _TWO_PI, phi), _TWO_PI)
+        v = _asin_poly(n[1]) * _INV_PI + 0.5
+        return u, v, zero
+    raise ValueError(mode)

@@ -31,6 +31,7 @@ for name in names:
 assert {{"smallpt_tpu_torch.engine.streaming",
          "smallpt_tpu_torch.engine.quality",
          "smallpt_tpu_torch.engine.mesh_stream",
+         "smallpt_tpu_torch.engine.binned",
          "smallpt_tpu_torch.ops.accel",
          "smallpt_tpu_torch.ops.mesh_accel",
          "smallpt_tpu_torch.ops.stream_dda",
@@ -38,6 +39,10 @@ assert {{"smallpt_tpu_torch.engine.streaming",
          "smallpt_tpu_torch.ops.intersect_pallas",
          "smallpt_tpu_torch.ops.mesh_pallas",
          "smallpt_tpu_torch.ops.wavefront"}} <= set(names)
+from smallpt_tpu_torch.utils import nvcc
+# importing every module (K8's wrapper and stream_binned.cu's library
+# among them) builds and loads no kernel
+assert not nvcc.builds and not nvcc._loaded
 import chip_smoke
 assert callable(chip_smoke.main)
 assert not any(k.startswith("jax") and sys.modules[k] is not None
@@ -52,9 +57,9 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         capture_output=True, text=True, timeout=300, cwd=str(ROOT),
     )
     assert proc.returncode == 0, proc.stderr
-    # every submodule imported, the streaming, wavefront and mesh streaming
-    # routes' among them
-    assert int(proc.stdout.split()[-1]) >= 24
+    # every submodule imported, the streaming, wavefront, mesh streaming
+    # and binned routes' among them
+    assert int(proc.stdout.split()[-1]) >= 25
 
 
 def _sources():
@@ -104,12 +109,14 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     hfn = types.SimpleNamespace(argtypes=None, restype=None)
     tfn = types.SimpleNamespace(argtypes=None, restype=None)
     cfn = types.SimpleNamespace(argtypes=None, restype=None)
+    bfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
                         lambda name, src: types.SimpleNamespace(
                             smallpt_mega_pass=fn, smallpt_stream_step=sfn,
                             smallpt_stream_dda=dfn, smallpt_closest_hit=hfn,
                             smallpt_closest_tri=tfn,
-                            smallpt_closest_tri_culled=cfn))
+                            smallpt_closest_tri_culled=cfn,
+                            smallpt_stream_binned=bfn))
     assert mk._kernel_lib() is fn
     assert fn.argtypes == [ctypes.c_void_p] * 7
     assert fn.restype is ctypes.c_int
@@ -128,6 +135,9 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert mp._culled_lib() is cfn
     assert cfn.argtypes == [ctypes.c_void_p] * 13
     assert cfn.restype is ctypes.c_int
+    assert mk._binned_lib() is bfn
+    assert bfn.argtypes == [ctypes.c_void_p] * 12
+    assert bfn.restype is ctypes.c_int
 
 
 def test_build_key_covers_included_headers(monkeypatch, tmp_path):
@@ -142,7 +152,8 @@ def test_build_key_covers_included_headers(monkeypatch, tmp_path):
     monkeypatch.setattr(nvcc, "CSRC_DIR", tmp_path)
     tri = ("closest_tri.cu", "closest_tri_culled.cu")
     start = {s: nvcc.source_digest(s) for s in (
-        "megakernel.cu", "stream_dda.cu", "closest_hit.cu", *tri)}
+        "megakernel.cu", "stream_dda.cu", "closest_hit.cu",
+        "stream_binned.cu", *tri)}
     with open(tmp_path / "tri.cuh", "a") as f:
         f.write("\n// an edit\n")
     before = {s: nvcc.source_digest(s) for s in start}

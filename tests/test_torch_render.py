@@ -205,11 +205,14 @@ def test_unported_configs_raise(kw):
 
 
 def test_unported_scenes_and_gradients_raise():
+    """What still raises: an unknown scene type and gradients (item 8).
+    Sphere scenes above 2048 spheres once raised here; they take the binned
+    drain now (tests/test_torch_binned.py)."""
+    from smallpt_tpu_torch.engine.renderer import _route
+
     cfg = RenderConfig(width=8, height=8)
     key = rng.base_key(0)
-    with pytest.raises(NotImplementedError, match="above 2048 spheres"):
-        render(procedural_sphere_scene(n=2049), smallpt_camera(), cfg, key,
-               device="cpu")
+    assert _route(procedural_sphere_scene(n=2049), cfg, False) == "binned"
     with pytest.raises(TypeError, match="unknown scene type"):
         render(object(), smallpt_camera(), cfg, key, device="cpu")
     with pytest.raises(NotImplementedError, match="differentiable"):
@@ -217,7 +220,7 @@ def test_unported_scenes_and_gradients_raise():
                differentiable=True)
 
 
-@pytest.mark.parametrize("flag", [["--frames", "f_%04d.ppm"], ["--binned"],
+@pytest.mark.parametrize("flag", [["--frames", "f_%04d.ppm"],
                                   ["--interactive"],
                                   ["--checkpoint", "ck.npz"]])
 def test_cli_unported_flags_raise(flag, tmp_path):

@@ -434,14 +434,11 @@ def test_routing_follows_the_jax_package(case, spies):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("binned", "item 11.*K8"), ("differentiable", "item 8"),
-    ("float64", "float32 only"),
+    ("differentiable", "item 8"), ("float64", "float32 only"),
 ])
 def test_unported_routes_raise_citing_their_item(case, match, monkeypatch):
     scene, cfg, diff = tscene.cornell_box_scene(), _TINY, False
-    if case == "binned":
-        scene = tscene.procedural_sphere_scene(2049)
-    elif case == "differentiable":
+    if case == "differentiable":
         diff = True
     else:
         cfg = cfg.replace(dtype="float64")
@@ -554,11 +551,21 @@ def test_cli_mesh_scenes(tmp_path, monkeypatch):
 
 def test_cli_big_sphere_scenes_take_the_binned_route(tmp_path, monkeypatch):
     """The JAX CLI sends big sphere scenes in full transport to its binned
-    renderer whatever the scheduler: the port raises, citing item 11."""
+    renderer whatever the scheduler, and so does the port's
+    (BinnedProgressiveRenderer, run in tests/test_torch_binned.py); an AOV
+    mode stays per pass."""
     monkeypatch.setitem(cli.SCENES, "procedural",
                         lambda: tscene.procedural_sphere_scene(2049))
+
+    class Routed(Exception):
+        pass
+
+    def binned(*a, **k):
+        raise Routed
+
+    monkeypatch.setattr(cli, "BinnedProgressiveRenderer", binned)
     for sched in ("mega", "regen"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(Routed):
             cli.main(["4", *_CLI, "--scene", "procedural", "--scheduler",
                       sched, "--out", str(tmp_path / "p.ppm")])
     assert cli.main(["4", *_CLI, "--scene", "procedural", "--mode", "normal",

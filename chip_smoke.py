@@ -6,8 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's six kernel libraries from csrc/ with nvcc, all at
-once: megakernel.cu (the per-pass mega_pass and the streaming stream_step,
-with NEE in both), stream_dda.cu (the DDA streaming kernel,
+once: megakernel.cu (the per-pass mega_pass, the recording mega_record and
+the streaming stream_step, with NEE in all three), stream_dda.cu (the DDA streaming kernel,
 stream_step_dda), closest_hit.cu (K2, the wavefronts' sphere closest hit),
 closest_tri.cu (K6, their triangle closest hit), closest_tri_culled.cu
 (K7, the grid-culled triangle sweep) and stream_binned.cu (K8, the binned
@@ -60,7 +60,21 @@ the main paths through the kernels and times them:
   all-chunks sweep; the binned image with one lane a pixel against the
   classic route's; the drain beside REGEN through K2 (ROADMAP.md H4); the
   CLI's binned routes in process (the default big-scene route, and
-  --binned --nee with --checkpoint and --resume, byte-equal to one run).
+  --binned --nee with --checkpoint and --resume, byte-equal to one run);
+  a BinnedStreamingRenderer round with the bin sort every bounce and one
+  with the three-program bounce, each bit-equal to the fused, unsorted
+  round, the three-program round's K8 launches held to the plain version;
+- scene gradients (bench.py --diff, BASELINE config 4): sgd_train_step on
+  the Cornell box at 512x512, 4 spp, max_depth 16 through the replay
+  differentiator, whose record is the recording megakernel K1b (one
+  launch per in-pixel sample), with diff_remat on and off, its parts and
+  peak memory; one step of the scan differentiator through K2 beside it,
+  and the record above MEGA_MAX_SPHERES (the flat wavefront over K2),
+  each with its first and middle K2 launch held to the plain version;
+  K1b held to its plain version bit for bit (Cornell, the thin lens and
+  the environment light, 2,048 spheres, one config-4 launch), the record's
+  image to K1a's pass, and the gradients on the card at 12x12 to the
+  CPU's, with the finite-difference gates of tests/test_torch_grad*.py.
 The megakernel's branches that the main paths do not take (thin lens,
 environment light, two NEE lights, row bands and sample slices, 2048
 spheres, the opted-in shared memory at 4096 spheres and the global-memory
@@ -973,7 +987,8 @@ def _wrappers() -> tuple:
     from smallpt_tpu_torch.ops import stream_dda as sd
 
     return (mk.mega_pass, mk.stream_step, sd.stream_step_dda, ip.closest_hit,
-            mp.closest_tri, mp.closest_tri_culled, mk.stream_step_binned)
+            mp.closest_tri, mp.closest_tri_culled, mk.stream_step_binned,
+            mk.mega_record)
 
 
 def zero_counts() -> None:
@@ -2358,6 +2373,564 @@ def cli_binned_phases(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The gradient path (grad/): the recording megakernel K1b, the replay
+# differentiator over it, and the scan differentiator over K2
+# ---------------------------------------------------------------------------
+
+# BASELINE config 4 (bench.py --diff, :335-399): Cornell, 512x512, 4 spp,
+# max_depth 16, the replay differentiator; nothing cut.
+GRAD_W = GRAD_H = 512
+GRAD_DEPTH = 16
+
+
+def grad_config(**kw):
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig,
+    )
+
+    base = dict(width=GRAD_W, height=GRAD_H, spp_per_cell=1,
+                max_depth=GRAD_DEPTH, camera_model=CameraModel.LEGACY,
+                filter=Filter.TENT, intersector=Intersector.PALLAS)
+    base.update(kw)
+    return RenderConfig(**base)
+
+
+def record_bound(n_rays: int, n_spheres: int, g: int, depth: int) -> dict:
+    """The least time of one K1b launch: K1a's operations for the same
+    rays (OPS_PER_SPHERE a sphere of the sweep, OPS_PER_BOUNCE the rest of
+    a bounce) at the float rate; the sphere table and camera read once, 16
+    B a lane (radiance, rays) and the D x G winner plane written once, at
+    the memory rate."""
+    ops = n_rays * (OPS_PER_SPHERE * n_spheres + OPS_PER_BOUNCE)
+    nbytes = n_spheres * 64 + 64 + g * 16 + depth * g * 4
+    return _bound(ops, nbytes)
+
+
+def ptxas_entry(lib: str, symbol: str = "") -> list:
+    """ptxas's register lines, from this process's build of library lib,
+    of the entries whose mangled name holds symbol (the shared-memory
+    instance of K1b, say; every entry by default)."""
+    from smallpt_tpu_torch.utils import nvcc
+
+    out, inside = [], not symbol
+    for ln in nvcc.builds.get(lib, {}).get("ptxas", "").splitlines():
+        if "Compiling entry" in ln:
+            inside = symbol in ln
+        elif inside and "registers" in ln:
+            out.append(ln.strip())
+    return out
+
+
+def record_exact(name, got, want) -> dict:
+    """One K1b launch against its plain version: radiance, rays and the
+    winner plane bit-equal."""
+    import torch
+
+    torch.cuda.synchronize()
+    for what, a, b in zip(("radiance", "rays", "winners"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {what} differs on "
+                                 f"{int((a != b).sum())} of {a.numel()}")
+    rec = got[2]
+    return dict(lanes=rec.shape[1], rays=int(got[1].sum()),
+                hit_entries=int((rec >= 0).sum()), equal=True,
+                max_abs_err=0.0)
+
+
+def record_vs_plain_small(dev) -> dict:
+    """K1b against its plain version, in-pixel samples 0 and 1 of Cornell
+    32x24 at depth 6, Cornell with the thin lens and the environment light,
+    and procedural_sphere_scene(2048) (K1b's largest route)."""
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, procedural_sphere_scene,
+    )
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    leg = dict(camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+               spp_per_cell=1, width=32, height=24)
+    cases = {
+        "cornell_32x24_depth6": (cornell_box_scene(),
+                                 RenderConfig(max_depth=6, **leg)),
+        "cornell_lens_env_32x24": (cornell_box_scene(), RenderConfig(
+            max_depth=8, aperture=4.0, focal_distance=120.0,
+            env_emission=(0.2, 0.3, 0.4), **leg)),
+        "procedural2048_32x24": (procedural_sphere_scene(2048),
+                                 RenderConfig(max_depth=6, **leg)),
+    }
+    out = {}
+    for name, (scene, cfg) in cases.items():
+        table = mk.build_scene_table(scene, cfg, dev)
+        camv = mk.build_camera_vec(smallpt_camera(), cfg, dev)
+        key = rng.base_key(3)
+        for s in range(2):
+            got = mk.mega_record(table, camv, cfg, key, s,
+                                 n_spheres=scene.n_spheres)
+            want = mk.record_pass_plain(table, camv, cfg,
+                                        *rng.key_words(key), s,
+                                        n_spheres=scene.n_spheres)
+            out[f"{name}/s{s}"] = record_exact(f"{name}/s{s}", got, want)
+    return out
+
+
+def record_vs_mega(dev) -> dict:
+    """At config 4: the record's image (render_record_megakernel, 4 K1b
+    launches) against K1a's pass on the same key under
+    tests/test_megakernel.py::_compare's gate (rays within max(64, 0.1%));
+    one K1b launch (sample 0) alone against its plain version, bit-equal,
+    its CUDA-event time (mean of 5), the plain version's host time and the
+    launch's bound."""
+    import torch
+
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    scene, cam, cfg = cornell_box_scene(), smallpt_camera(), grad_config()
+    key = rng.base_key(5)
+    img_r, winners, rays_r = mk.render_record_megakernel(scene, cam, cfg, key,
+                                                         device=dev)
+    img_m, rays_m = mk.render_pass_megakernel(scene, cam, cfg, key,
+                                              device=dev)
+    rays_close("record_vs_mega", int(rays_r), int(rays_m))
+    st = gate(img_r.cpu().numpy() / cfg.spp, img_m.cpu().numpy() / cfg.spp,
+              MAX_FRAC)
+    if tuple(winners.shape) != (cfg.max_depth, cfg.n_pixels * cfg.spp):
+        raise AssertionError(f"winners {tuple(winners.shape)}")
+    table = mk.build_scene_table(scene, cfg, dev)
+    camv = mk.build_camera_vec(cam, cfg, dev)
+    ns = scene.n_spheres
+    k_ms, got = cuda_ms(lambda: mk.mega_record(table, camv, cfg, key, 0,
+                                               n_spheres=ns), 5)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = mk.record_pass_plain(table, camv, cfg, *rng.key_words(key), 0,
+                                n_spheres=ns)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    launch = record_exact("record_launch_512x512", got, want)
+    launch.update(kernel_ms=k_ms, plain_ms=plain_ms,
+                  **record_bound(launch["rays"], ns, cfg.n_pixels,
+                                 cfg.max_depth))
+    return dict(image_vs_k1a=st, rays_record=int(rays_r),
+                rays_k1a=int(rays_m),
+                hit_share=float((winners >= 0).float().mean()),
+                launch=launch)
+
+
+def _cos(a, b) -> float:
+    a, b = a.flatten().double(), b.flatten().double()
+    return float(a @ b / (a.norm() * b.norm() + 1e-300))
+
+
+def _grads_close(name, got, want, rtol: float) -> dict:
+    """Gradients (SceneParams) against reference ones: allclose at rtol and
+    atol rtol * max|g| per leaf, and finite."""
+    import torch
+
+    out = {}
+    for field, a, b in zip(want._fields, want, got):
+        a, b = a.cpu(), b.cpu()
+        ok = (bool(torch.isfinite(b).all())
+              and torch.allclose(b, a, rtol=rtol,
+                                 atol=rtol * float(a.abs().max())))
+        out[field] = dict(max_abs_diff=float((a - b).abs().max()),
+                          max_abs=float(a.abs().max()))
+        if not ok:
+            raise AssertionError(f"{name}/{field}: {out[field]}")
+    return out
+
+
+def grad_small(dev) -> dict:
+    """At tests/test_grad_replay.py's shape (Cornell 12x12, 4 spp,
+    max_depth 4), on the card: the replay, the scan through K2 and NEE
+    (the flat path) against the port's CPU gradients on the same inputs
+    (rtol 1e-4, atol 1e-4 max|g|: index_add adds in no fixed order on the
+    card); then tests/test_torch_grad*.py's finite-difference gates
+    (albedo, emission, the glass center), diff_remat on and off, the
+    recorder above MEGA_MAX_SPHERES (patched to 4) against the scan, mesh
+    materials through K6, and SGD and Adam lowering the loss."""
+    import torch
+
+    from smallpt_tpu_torch.config import Intersector, Scheduler
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, procedural_mesh_scene,
+    )
+    from smallpt_tpu_torch.engine import renderer
+    from smallpt_tpu_torch.grad import diff, replay
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    scene, cam = cornell_box_scene(), smallpt_camera()
+    cfg = grad_config(width=12, height=12, max_depth=4)
+    key = rng.base_key(0)
+    target = diff.render_mean(scene, cam, cfg, rng.base_key(99),
+                              device="cpu")
+    out = {}
+    for name, c in (("replay", cfg), ("scan_k2", cfg.replace(
+            diff_replay=False)), ("nee", cfg.replace(nee_lights=(8,)))):
+        lk, ik, gk = diff.image_loss_and_grads(scene, cam, c, key, target,
+                                               device=dev)
+        lc, ic, gc = diff.image_loss_and_grads(scene, cam, c, key, target,
+                                               device="cpu")
+        if abs(float(lk) - float(lc)) > 1e-4 * float(lc):
+            raise AssertionError(f"grad_small/{name}: loss {float(lk)} vs "
+                                 f"{float(lc)}")
+        out[name] = dict(loss=float(lk), loss_cpu=float(lc),
+                         image_max_abs_diff=float((ik.cpu() - ic).abs().max()),
+                         grads=_grads_close(name, gk, gc, 1e-4))
+
+    def fd(fn, field, idx, h):
+        params, refl = diff.split_scene(scene)
+
+        def at(delta):
+            leaf = getattr(params, field).clone()
+            leaf[idx] += delta
+            return fn(diff.merge_scene(params._replace(**{field: leaf}),
+                                       refl))
+        return (at(h) - at(-h)) / (2 * h)
+
+    tgt = target.to(dev)
+
+    def record_loss(s):
+        img, _, _ = replay.record_forward(s, cam, cfg, key, device=dev)
+        return float(torch.mean((img - tgt) ** 2))
+
+    _, _, g = diff.image_loss_and_grads(scene, cam, cfg, key, target,
+                                        device=dev)
+    fds = {}
+    for field, idx, tol in (("albedo", (0, 0), 1e-4),
+                            ("albedo", (2, 1), 1e-4),
+                            ("emission", (8, 0), 1e-5)):
+        f_ = fd(record_loss, field, idx, 1e-3)
+        an = float(getattr(g, field)[idx])
+        fds[f"{field}{list(idx)}"] = dict(analytic=an, fd=f_)
+        if not abs(an - f_) < 5e-3 * max(1.0, abs(f_)) + tol:
+            raise AssertionError(f"grad_small FD {field}{idx}: {an} vs {f_}")
+    # the glass ball's center (tests/test_grad.py's specular gate)
+    gcfg = grad_config(width=24, height=24, max_depth=6,
+                       intersector=Intersector.JAX)
+    gtarget = diff.render_mean(scene, cam, gcfg, key, device=dev)
+    params, refl = diff.split_scene(scene)
+    center = params.center.clone()
+    center[7] += torch.tensor([1.5, 1.0, -1.5])
+    moved = diff.merge_scene(params._replace(center=center), refl)
+    _, _, gg = diff.image_loss_and_grads(moved, cam, gcfg, key, gtarget,
+                                         device=dev)
+
+    def glass_loss(s, delta):
+        c = s.center.clone()
+        c[7, 0] += delta
+        img = diff.render_mean(s._replace(center=c), cam, gcfg, key,
+                               device=dev)
+        return float(torch.mean((img - gtarget) ** 2))
+
+    f_ = (glass_loss(moved, 1e-2) - glass_loss(moved, -1e-2)) / 2e-2
+    an = float(gg.center[7, 0])
+    fds["glass_center_x"] = dict(analytic=an, fd=f_)
+    if an == 0.0 or not abs(an - f_) < 0.05 * max(1e-4, abs(f_)):
+        raise AssertionError(f"grad_small glass FD: {an} vs {f_}")
+    out["fd"] = fds
+    # diff_remat off: the same gradients
+    _, _, gn = diff.image_loss_and_grads(scene, cam, cfg.replace(
+        diff_remat=False), key, target, device=dev)
+    out["no_remat"] = _grads_close("no_remat", gn, g, 1e-4)
+    # the recorder above MEGA_MAX_SPHERES: the flat wavefront over K2
+    real = mk.MEGA_MAX_SPHERES
+    mk.MEGA_MAX_SPHERES = 4
+    try:
+        fcfg = cfg.replace(width=14, height=10)
+        ftarget = diff.render_mean(scene, cam, fcfg, rng.base_key(99),
+                                   device=dev)
+        lr_, ir, gr = diff.image_loss_and_grads(scene, cam, fcfg, key,
+                                                ftarget, device=dev)
+    finally:
+        mk.MEGA_MAX_SPHERES = real
+    ls, is_, gs = diff.image_loss_and_grads(scene, cam, fcfg.replace(
+        diff_replay=False), key, ftarget, device=dev)
+    if not (abs(float(lr_) - float(ls)) <= 1e-3 * float(ls)
+            and torch.allclose(ir, is_, rtol=5e-3, atol=5e-3)):
+        raise AssertionError(f"fallback recorder: loss {float(lr_)} vs "
+                             f"{float(ls)}")
+    for field, a, b in zip(gs._fields, gs, gr):
+        if not torch.allclose(b, a, rtol=0.05,
+                              atol=1e-5 + 0.02 * float(a.abs().max())):
+            raise AssertionError(f"fallback recorder: {field}")
+    out["fallback_recorder"] = dict(loss=float(lr_), loss_scan=float(ls))
+    # mesh materials through the flat wavefront and K6
+    mcfg = grad_config(width=10, height=8, max_depth=5,
+                       scheduler=Scheduler.FLAT)
+    mesh = procedural_mesh_scene(n_balls=2, subdiv_longitude=3, seed=1)
+
+    def mesh_loss(albedo):
+        s = mesh._replace(material=mesh.material._replace(albedo=albedo))
+        img = renderer.render(s, cam, mcfg, key, differentiable=True,
+                              device=dev)
+        return torch.mean(img ** 2)
+
+    a0 = mesh.material.albedo.to(dev).requires_grad_(True)
+    (ga,) = torch.autograd.grad(mesh_loss(a0), (a0,))
+    bump = torch.zeros_like(a0)
+    bump[4, 0] = 1e-3
+    with torch.no_grad():
+        f_ = float((mesh_loss(a0 + bump) - mesh_loss(a0 - bump)) / 2e-3)
+    an = float(ga[4, 0])
+    out["mesh_albedo_fd"] = dict(analytic=an, fd=f_)
+    if not abs(an - f_) < 5e-3 * max(abs(f_), 1e-4):
+        raise AssertionError(f"mesh FD: {an} vs {f_}")
+    # SGD and Adam recover a perturbed albedo (8x8)
+    tcfg = cfg.replace(width=8, height=8)
+    ttarget = diff.render_mean(scene, cam, tcfg, key, device=dev)
+    albedo = params.albedo.clone()
+    albedo[0] = torch.tensor([0.3, 0.6, 0.6])
+    start = diff.merge_scene(params._replace(albedo=albedo), refl)
+    s, sgd = start, []
+    for _ in range(8):
+        s, loss, _ = diff.sgd_train_step(s, cam, tcfg, key, ttarget, lr=1.0,
+                                         device=dev)
+        sgd.append(float(loss))
+    step, state = diff.adam_optimizer(start, lr=0.01, device=dev)
+    s, adam = start, []
+    for _ in range(8):
+        s, state, loss, _ = step(s, cam, tcfg, key, ttarget, state)
+        adam.append(float(loss))
+    out["sgd_losses"], out["adam_losses"] = sgd, adam
+    if not (min(sgd) < 0.5 * sgd[0] and adam[-1] < 0.6 * adam[0]):
+        raise AssertionError(f"training: sgd {sgd}, adam {adam}")
+    return out
+
+
+def _top(prof: dict, n: int = 8) -> dict:
+    by = prof.get("device_ms_by_kernel")
+    if isinstance(by, dict):
+        prof = dict(prof, device_ms_by_kernel=dict(
+            sorted(by.items(), key=lambda kv: -kv[1])[:n]))
+    return prof
+
+
+def grad_main(dev, n_steps: int = 3) -> dict:
+    """The gradient main path at config 4 (bench.py --diff): sgd_train_step
+    through the replay differentiator, one warm-up step, then n_steps timed
+    with CUDA events (step s keyed fold_in(base_key(0), s)), the launch
+    counts zeroed just before the timed steps and read just after (K1b
+    only). Then its parts (the record, the replay's forward and backward),
+    forward rays and Mrays/s as bench.py counts them, the device's busy
+    share and the peak memory with diff_remat on and off; one step of the
+    scan differentiator through K2 for comparison, with its counts, and
+    the record above MEGA_MAX_SPHERES (the flat wavefront over K2) with
+    its counts, each with its first and middle K2 launch on the step's own
+    rays against the plain version (``launches_vs_plain``); the
+    gradients' cosines per leaf, each at least 0.99: the replay recorded
+    by K1b against the scan, and the replay recorded by the flat wavefront
+    over K2 (the recorder above MEGA_MAX_SPHERES) against the scan; every
+    gradient finite."""
+    import torch
+
+    from smallpt_tpu_torch.core import camera as cam_mod
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene, scene_to
+    from smallpt_tpu_torch.engine import renderer
+    from smallpt_tpu_torch.grad import diff, replay
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    scene, cam, cfg = cornell_box_scene(), smallpt_camera(), grad_config()
+    base = rng.base_key(0)
+    target = diff.render_mean(scene, cam, cfg, rng.base_key(99), device=dev)
+    # forward rays as bench.py counts them: the differentiable flat pass's
+    sid, _, col, row, cx, cy = cam_mod.sample_indices(cfg, cfg.n_pixels,
+                                                      device=dev)
+    with torch.no_grad():
+        _, rays_fwd = renderer.render_samples(
+            scene_to(scene, dev), cam, cfg, base, sid, col, row, cx, cy,
+            differentiable=True, return_stats=True)
+    rays_fwd = int(rays_fwd)
+    out = dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
+               max_depth=cfg.max_depth, forward_rays=rays_fwd)
+    for remat in (True, False):
+        c = cfg.replace(diff_remat=remat)
+        s = scene
+        s, _, _ = diff.sgd_train_step(s, cam, c, base, target, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if remat:
+            zero_counts()
+        step_ms, losses = [], []
+        for k in range(n_steps):
+            key = rng.fold_in(base, k)
+            ms_, (s, loss, img) = cuda_ms(
+                lambda: diff.sgd_train_step(s, cam, c, key, target,
+                                            device=dev), 1)
+            step_ms.append(ms_)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tag = "remat" if remat else "no_remat"
+        if remat:
+            launched = counts()
+            if (launched["mega_record"] != n_steps * cfg.spp
+                    or any(v for k_, v in launched.items()
+                           if k_ != "mega_record")):
+                raise AssertionError(f"grad main path: launches {launched}")
+            out["launches"] = launched
+        if not (np.isfinite(losses).all() and bool(torch.isfinite(
+                img).all()) and all(bool(torch.isfinite(x).all())
+                                    for x in diff.split_scene(s)[0])):
+            raise AssertionError(f"grad main path ({tag}): not finite")
+        ms = float(np.mean(step_ms))
+        out[tag] = dict(step_ms=step_ms, ms_per_step=ms, losses=losses,
+                        peak_mem_gb=peak,
+                        fwd_mrays_per_s=rays_fwd / ms / 1e3)
+    # the parts of a step (remat on), on the host's clock with the card
+    # synchronized at each boundary (the path is host-bound): the record,
+    # the replay's forward with its loss, its backward; and a whole step,
+    # in the same loop; 3 runs
+    key = base
+    params, refl = diff.split_scene(scene)
+    parts = []
+    for _ in range(3):
+        t = [0.0] * 5
+        torch.cuda.synchronize()
+        t[0] = time.perf_counter()
+        img, winners, rays = replay.record_forward(scene, cam, cfg, key,
+                                                   device=dev)
+        torch.cuda.synchronize()
+        t[1] = time.perf_counter()
+        leaves = [p.to(dev).requires_grad_(True) for p in params]
+        dscene = diff.merge_scene(diff.SceneParams(*leaves), refl.to(dev))
+        loss = torch.mean((replay.replay_mean(dscene, cam, cfg, key, winners,
+                                              device=dev) - target) ** 2)
+        torch.cuda.synchronize()
+        t[2] = time.perf_counter()
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        t[3] = time.perf_counter()
+        del loss, leaves, dscene
+        diff.sgd_train_step(scene, cam, cfg, key, target, device=dev)
+        torch.cuda.synchronize()
+        t[4] = time.perf_counter()
+        parts.append([(t[k + 1] - t[k]) * 1e3 for k in range(4)])
+    rec_ms, fwd_ms, bwd_ms, step = (float(x) for x in np.mean(parts, axis=0))
+    out["parts"] = dict(
+        host_clock_step_ms=step, record_ms=rec_ms, record_rays=int(rays),
+        k1b_launches_per_step=cfg.spp, replay_forward_ms=fwd_ms,
+        replay_backward_ms=bwd_ms,
+        rest_ms=step - rec_ms - fwd_ms - bwd_ms)
+    out["profile"] = _top(profile(lambda: diff.sgd_train_step(
+        scene, cam, cfg, key, target, device=dev)))
+    # the scan differentiator through K2, one step
+    scfg = cfg.replace(diff_replay=False)
+    diff.image_loss_and_grads(scene, cam, scfg, key, target, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    scan_ms, (ls, _, gs) = cuda_ms(lambda: diff.image_loss_and_grads(
+        scene, cam, scfg, key, target, device=dev), 1)
+    launched = counts()
+    if not launched["closest_hit"] or any(
+            v for k_, v in launched.items() if k_ != "closest_hit"):
+        raise AssertionError(f"grad scan path: launches {launched}")
+    out["scan"] = dict(ms=scan_ms, launches=launched, loss=float(ls),
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # its first K2 launch (forward, bounce 0) and its middle one (the
+    # recompute of the last bounce), each on the step's own 1,048,576
+    # detached rays, dead lanes included, against the plain version
+    out["scan"]["kernel"] = launches_vs_plain(
+        "grad_scan_cornell_512x512", "closest_hit",
+        lambda: diff.image_loss_and_grads(scene, cam, scfg, key, target,
+                                          device=dev),
+        launched["closest_hit"])
+    lr_, _, gr = diff.image_loss_and_grads(scene, cam, cfg, key, target,
+                                           device=dev)
+    real = mk.MEGA_MAX_SPHERES
+    mk.MEGA_MAX_SPHERES = 0
+    try:
+        # the recorder above MEGA_MAX_SPHERES: the flat wavefront over K2,
+        # its launches counted alone, its first and middle launch against
+        # the plain version
+        zero_counts()
+        replay.record_forward(scene, cam, cfg, key, device=dev)
+        launched = counts()
+        if not launched["closest_hit"] or any(
+                v for k_, v in launched.items() if k_ != "closest_hit"):
+            raise AssertionError(f"grad flat recorder: launches {launched}")
+        out["record_flat"] = dict(launches=launched, kernel=launches_vs_plain(
+            "grad_record_flat_cornell_512x512", "closest_hit",
+            lambda: replay.record_forward(scene, cam, cfg, key, device=dev),
+            launched["closest_hit"]))
+        lf, _, gf = diff.image_loss_and_grads(scene, cam, cfg, key, target,
+                                              device=dev)
+    finally:
+        mk.MEGA_MAX_SPHERES = real
+    cos_k1b = {f: _cos(a, b) for f, a, b in zip(gs._fields, gr, gs)}
+    cos_flat = {f: _cos(a, b) for f, a, b in zip(gs._fields, gf, gs)}
+    out["cosine_replay_k1b_vs_scan"] = cos_k1b
+    out["cosine_replay_flat_recorder_vs_scan"] = cos_flat
+    out["loss_replay_k1b"], out["loss_replay_flat"] = float(lr_), float(lf)
+    if not all(bool(torch.isfinite(x).all()) for x in (*gr, *gs, *gf)):
+        raise AssertionError("grad main path: gradients not finite")
+    if min(cos_k1b.values()) < 0.99 or min(cos_flat.values()) < 0.99:
+        raise AssertionError(f"grad cosines: {cos_k1b} {cos_flat}")
+    return out
+
+
+def binned_options(scene, cfg, dev) -> dict:
+    """ROADMAP.md item 11b on the binned main path's shape: one
+    BinnedStreamingRenderer round (reset, step(spp, 8), flush) fused and
+    unsorted, with the bin sort every bounce (sort_every=1) and with the
+    three-program bounce (fused=False), each after a warm-up round, timed
+    (CUDA events), its launch counts zeroed just before and read just after
+    (K8 only); the accumulators of the sorted and the three-program round
+    bit-equal to the fused, unsorted round's; the three-program round's
+    first and middle K8 launch against the plain version (bit-equal,
+    timed, bounded)."""
+    import torch
+
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
+
+    out, ref = {}, None
+    for name, kw in (("fused", {}), ("sort_every_1", dict(sort_every=1)),
+                     ("three_program", dict(fused=False))):
+        r = BinnedStreamingRenderer(scene, smallpt_camera(), cfg,
+                                    seed=BINNED_SEED, device=dev, **kw)
+
+        def round_():
+            r.reset()
+            r.step(add_samples=cfg.spp, n_bounces=8)
+            r.flush()
+
+        round_()
+        torch.cuda.synchronize()
+        zero_counts()
+        ms, _ = cuda_ms(round_, 1)
+        launched = counts()
+        if not launched["stream_step_binned"] or any(
+                v for k, v in launched.items() if k != "stream_step_binned"):
+            raise AssertionError(f"binned {name}: launches {launched}")
+        rad, w = r.accumulators()
+        if ref is None:
+            ref = (rad.clone(), w.clone(), r.stats.rays)
+        elif not (torch.equal(rad, ref[0]) and torch.equal(w, ref[1])):
+            raise AssertionError(
+                f"binned {name}: accumulators differ from the fused, "
+                f"unsorted round on {int((rad != ref[0]).sum())} values")
+        out[name] = dict(round_ms=ms, launches=launched,
+                         bit_equal_to_fused=True,
+                         weights_exact=bool((w == cfg.spp).all()))
+        if name == "three_program":
+            per_round = launched["stream_step_binned"]
+            caps = capture_binned(round_, {0, per_round // 2})
+            out[name]["kernel"] = {
+                k: k8_vs_plain(f"binned {name}/{k}", c, time_it=True)
+                for k, c in zip(("first", "middle"), caps)}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2584,8 +3157,7 @@ def main() -> int:
     k3_errs += [k3[n]["kernel"]["vs_plain"]["max_abs_err"] for n in k3]
     k3_errs += [st["max_abs_err"] for key_, st in hd["vs_plain"].items()
                 if key_.startswith("launch")]
-    ptxas = [ln.strip() for ln in nvcc.builds.get(sd.LIBRARY[0], {}).get(
-        "ptxas", "").splitlines() if "registers" in ln]
+    ptxas = ptxas_entry(sd.LIBRARY[0])
 
     # ---- 18-21. the closest-hit kernels against their plain versions, the
     # goldens and the AOV modes through the wavefront routes -----------------
@@ -2636,10 +3208,19 @@ def main() -> int:
     phase("binned_vs_classic", **binned_vs_classic(big, pcfg, dev))
     phase("h4_binned_vs_regen_k2", **h4_ab(big, pcfg, dev))
     phase("cli_binned_routes", **cli_binned_phases(dev))
+    opts = binned_options(big, pcfg, dev)
+    phase("binned_sort_and_three_program_procedural10000_512x384", **opts)
 
-    def ptxas_of(lib):
-        return [ln.strip() for ln in nvcc.builds.get(lib, {}).get(
-            "ptxas", "").splitlines() if "registers" in ln]
+    # ---- 42-45. the gradient path: K1b against its plain version, the
+    # record against K1a, the gradients on the card at 12x12 against the
+    # CPU's and the FD gates, then config 4 (bench.py --diff) -----------------
+    rec_small = record_vs_plain_small(dev)
+    phase("record_vs_plain_small", **rec_small)
+    rec_mega = record_vs_mega(dev)
+    phase("record_vs_mega", **rec_mega)
+    phase("grad_small", **grad_small(dev))
+    gmain = grad_main(dev)
+    phase("grad_main_cornell_512x512", **gmain)
 
     def wf_kernel(name, path, entry, replaces, cmp_stats):
         launch = path["kernel"]["middle"]
@@ -2651,7 +3232,7 @@ def main() -> int:
             "max_abs_err": max(errs), "ms": launch["kernel_ms"],
             "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
             "bound_by": launch["bound_by"], "rays": launch["rays"],
-            "ptxas": ptxas_of({"closest_hit": ip.LIBRARY[0],
+            "ptxas": ptxas_entry({"closest_hit": ip.LIBRARY[0],
                                "closest_tri": mp.LIBRARY[0]}.get(
                                    name, mp.LIBRARY_CULLED[0])),
             "library_ms": None,
@@ -2724,10 +3305,43 @@ def main() -> int:
             for n, b in binned.items()},
         "round_ms_by_path": {n: b["ms_per_round"]
                              for n, b in binned.items()},
-        "ptxas": ptxas_of(mk.LIBRARY_BINNED[0]),
+        "ptxas": ptxas_entry(mk.LIBRARY_BINNED[0]),
         "library_ms": None,
     }
+    k8["launches_by_path"]["binned_three_program"] = opts["three_program"][
+        "launches"]["stream_step_binned"]
+    k8["launch_ms_three_program"] = {
+        k: v["kernel_ms"] for k, v in opts["three_program"]["kernel"].items()}
+    k8["max_abs_err"] = max([k8["max_abs_err"]] + [
+        v["max_abs_err"] for v in opts["three_program"]["kernel"].values()])
     wf_kernels.append(k8)
+    launch = rec_mega["launch"]
+    wf_kernels.append({
+        "name": "mega_record", "route": "cuda",
+        "source": "smallpt_tpu_torch/csrc/megakernel.cu",
+        "replaces": "smallpt_tpu/ops/megakernel.py:151",
+        "launches": gmain["launches"]["mega_record"],
+        "max_abs_err": max([v["max_abs_err"] for v in rec_small.values()]
+                           + [launch["max_abs_err"]]),
+        "ms": launch["kernel_ms"], "plain_ms": launch["plain_ms"],
+        "bound_ms": launch["bound_ms"], "bound_by": launch["bound_by"],
+        "rays": launch["rays"], "ptxas": ptxas_entry(
+            mk.LIBRARY[0], "mega_pass_kernelILb0ELb1E"),
+        "library_ms": None,
+    })
+    # K2 on the gradient path: the scan differentiator and the recorder
+    # above MEGA_MAX_SPHERES at config 4, first and middle launch each
+    k2 = wf_kernels[0]
+    k2["grad_launches"] = {}
+    for n, g in (("grad_scan_cornell_512x512", gmain["scan"]),
+                 ("grad_record_flat_cornell_512x512", gmain["record_flat"])):
+        k2["launches_by_path"][n] = g["launches"]["closest_hit"]
+        k2["grad_launches"][n] = {
+            k: {f: v[f] for f in ("rays", "kernel_ms", "plain_ms",
+                                  "bound_ms", "bound_by")}
+            for k, v in g["kernel"].items()}
+        k2["max_abs_err"] = max([k2["max_abs_err"]] + [
+            v["vs_plain"]["max_abs_err"] for v in g["kernel"].values()])
     wf_kernels[0]["ms_procedural10000"] = wf[
         "regen_main_procedural10000_512x384"]["kernel"]["middle"]["kernel_ms"]
     wf_kernels[0]["bound_ms_procedural10000"] = wf[

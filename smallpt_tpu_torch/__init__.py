@@ -33,7 +33,13 @@ Ported so far, with next-event estimation (ROADMAP.md):
   (and BinnedProgressiveRenderer, and render/ProgressiveRenderer's drain
   under MEGA above 2048 spheres) -> per bounce the tile work lists of the
   grid accel (ops/accel.py) and one launch of csrc/stream_binned.cu (K8),
-  the culled frontier-marching bounce.
+  the culled frontier-marching bounce;
+- scene gradients (grad/): image_loss_and_grads, sgd_train_step and
+  adam_optimizer -> the recorded-winner replay (one launch of the
+  recording megakernel, K1b in csrc/megakernel.cu, per in-pixel sample,
+  then torch autograd through the flat wavefront's bounce on the recorded
+  winners), or the flat wavefront under autograd with K2 picking the
+  winners.
 """
 
 from smallpt_tpu_torch.config import (
@@ -53,6 +59,9 @@ from smallpt_tpu_torch.engine.renderer import (
     render, render_image, render_with_stats,
 )
 from smallpt_tpu_torch.engine.streaming import StreamingRenderer
+from smallpt_tpu_torch.grad.diff import (
+    adam_optimizer, image_loss_and_grads, sgd_train_step,
+)
 
 __all__ = [
     "RenderConfig", "Mode", "Filter", "CameraModel", "Intersector",
@@ -62,4 +71,5 @@ __all__ = [
     "render_with_stats", "ProgressiveRenderer", "StreamingRenderer",
     "WavefrontStreamingRenderer", "MeshStreamProgressiveRenderer",
     "BinnedStreamingRenderer", "BinnedProgressiveRenderer",
+    "image_loss_and_grads", "sgd_train_step", "adam_optimizer",
 ]

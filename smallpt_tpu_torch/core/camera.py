@@ -62,6 +62,14 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
                       + v[..., 2] * v[..., 2])
 
 
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    """v * (1 / |v|) over the last axis, as the megakernel normalizes (its
+    camera, csrc/lane.cuh): so the flat sample set's rays, which the
+    replay differentiator traces, are the rays the recording kernel
+    traced."""
+    return v * (1.0 / _norm(v))[..., None]
+
+
 def smallpt_camera(dtype=torch.float32) -> LegacyCamera:
     """The hardcoded cpuRender camera (smallpt.cpp:277)."""
     d = torch.tensor([0.0, -0.042612, -1.0], dtype=dtype)
@@ -146,8 +154,7 @@ def _thin_lens(org, dirs, right, up, config: RenderConfig, u_lens):
     ly = (r * torch.sin(theta))[:, None]
     focus = org + dirs * config.focal_distance
     org2 = org + right[None, :] * lx + up[None, :] * ly
-    d2 = focus - org2
-    return org2, d2 / _norm(d2)[:, None]
+    return org2, _unit(focus - org2)
 
 
 def generate_rays(camera, u: torch.Tensor, config: RenderConfig, col, row,
@@ -169,10 +176,10 @@ def generate_rays(camera, u: torch.Tensor, config: RenderConfig, col, row,
         cd = camera.direction.to(dev)
         d = sx[:, None] * cx[None, :] + sy[:, None] * cy[None, :] + cd[None, :]
         org = camera.origin.to(dev)[None, :] + d * camera.push_forward.to(dev)
-        dirs = d / _norm(d)[:, None]
+        dirs = _unit(d)
         if config.aperture > 0.0:
-            return _thin_lens(org, dirs, cx / _norm(cx), cy / _norm(cy),
-                              config, u_lens)
+            return _thin_lens(org, dirs, _unit(cx), _unit(cy), config,
+                              u_lens)
         return org, dirs
     if config.camera_model == CameraModel.MATRIX:
         if not isinstance(camera, MatrixCamera):
@@ -190,11 +197,11 @@ def generate_rays(camera, u: torch.Tensor, config: RenderConfig, col, row,
             torch.zeros((n, 1), dtype=dt, device=dev),
         ], dim=-1)
         d = (local @ m.T)[:, :3]
-        dirs = d / _norm(d)[:, None]
+        dirs = _unit(d)
         org = m[:3, 3][None, :].expand(n, 3)
         if config.aperture > 0.0:
-            return _thin_lens(org, dirs, m[:3, 0] / _norm(m[:3, 0]),
-                              m[:3, 1] / _norm(m[:3, 1]), config, u_lens)
+            return _thin_lens(org, dirs, _unit(m[:3, 0]), _unit(m[:3, 1]),
+                              config, u_lens)
         return org, dirs
     raise ValueError(config.camera_model)
 

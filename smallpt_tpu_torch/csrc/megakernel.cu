@@ -1,13 +1,16 @@
 // Wavefront megakernel for sm_90a: regenerate + intersect + shade (+ NEE),
 // fused into one launch.
 //
-// Replaces: smallpt_tpu/ops/megakernel.py::_mega_kernel (without record
-// planes) in both of its modes, each launched there through one pallas_call:
+// Replaces: smallpt_tpu/ops/megakernel.py::_mega_kernel in its three uses,
+// each launched there through one pallas_call:
 // - per-pass (streaming=False), launched by render_pass_megakernel: entry
-//   point smallpt_mega_pass, kernel mega_pass_kernel;
+//   point smallpt_mega_pass, kernel mega_pass_kernel (K1a);
+// - per-pass with record_depths, launched by render_record_megakernel (the
+//   recorder of grad/replay.py): entry point smallpt_mega_record, the same
+//   kernel with kRecord (K1b);
 // - streaming (streaming=True), launched by stream_step: entry point
-//   smallpt_stream_step, kernel stream_step_kernel.
-// Both run one per-lane body, trace_lane<kStreaming, kGlobal>, with
+//   smallpt_stream_step, kernel stream_step_kernel (K1c).
+// All run one per-lane body, trace_lane<kStreaming, kGlobal, kRecord>, with
 // next-event estimation over up to kMaxLights light spheres. The camera,
 // shade and NEE cone formulas live in lane.cuh, shared with the streaming
 // DDA kernel (stream_dda.cu).
@@ -114,13 +117,15 @@ __device__ __forceinline__ Columns<kGlobal> load_columns(const float* table,
 
 // The per-lane loop of _mega_kernel: at most max_it iterations, each one
 // bounce of the lane's path, regenerating with the pixel's next sample
-// while s_idx < budget - 1.
-template <bool kStreaming, bool kGlobal>
+// while s_idx < budget - 1. With kRecord (budget 1), rec receives the
+// lane's winner at each depth (see above).
+template <bool kStreaming, bool kGlobal, bool kRecord = false>
 __device__ __forceinline__ void trace_lane(Lane& L, const Params& p,
                                            const float* __restrict__ table,
                                            const float* __restrict__ cam,
                                            const Columns<kGlobal>& col,
-                                           int lane, int budget, int max_it) {
+                                           int lane, int budget, int max_it,
+                                           int* __restrict__ rec = nullptr) {
   const int n_spheres = p.i[IP_N_SPHERES];
   const int n_lights = p.i[IP_N_LIGHTS];
   const Pixel px = pixel_of(p, lane);
@@ -133,6 +138,7 @@ __device__ __forceinline__ void trace_lane(Lane& L, const Params& p,
   const bool flip_normals = p.i[IP_FLIP] != 0;
   const bool has_env = p.i[IP_HAS_ENV] != 0;
   const float shading_eps = p.f[FP_SHADING_EPS];
+  const size_t n_lanes = (size_t)p.i[IP_N_LANES];  // the record's stride
 
   float ox = L.ox, oy = L.oy, oz = L.oz, dx = L.dx, dy = L.dy, dz = L.dz;
   float wx = L.wx, wy = L.wy, wz = L.wz, rx = L.rx, ry = L.ry, rz = L.rz;
@@ -192,6 +198,7 @@ __device__ __forceinline__ void trace_lane(Lane& L, const Params& p,
         bi = s;
       }
     }
+    if (kRecord) rec[(size_t)depth * n_lanes + lane] = bi;
     if (bi < 0) {
       // escaped: pick up the environment (the smallpt.cpp:168 hook), die
       if (has_env) {
@@ -294,6 +301,10 @@ __device__ __forceinline__ void trace_lane(Lane& L, const Params& p,
     sup = new_sup;
     alive = depth < max_depth;
   }
+  if (kRecord) {
+    for (int d = depth; d < max_depth; ++d)
+      rec[(size_t)d * n_lanes + lane] = -1;
+  }
 
   L.ox = ox; L.oy = oy; L.oz = oz; L.dx = dx; L.dy = dy; L.dz = dz;
   L.wx = wx; L.wy = wy; L.wz = wz; L.rx = rx; L.ry = ry; L.rz = rz;
@@ -302,11 +313,12 @@ __device__ __forceinline__ void trace_lane(Lane& L, const Params& p,
   L.sup = sup;
 }
 
-template <bool kGlobal>
+template <bool kGlobal, bool kRecord>
 __global__ void __launch_bounds__(kBlock)
 mega_pass_kernel(const float* __restrict__ table,
                  const float* __restrict__ cam, float* __restrict__ rad,
-                 int* __restrict__ rays, const Params p) {
+                 int* __restrict__ rays, int* __restrict__ rec,
+                 const Params p) {
   // 5 * n_spheres floats of dynamic shared memory (none with kGlobal)
   extern __shared__ float smem[];
   const Columns<kGlobal> col =
@@ -315,8 +327,8 @@ mega_pass_kernel(const float* __restrict__ table,
   if (lane >= p.i[IP_N_LANES]) return;
   Lane L{};
   L.s_idx = -1;
-  trace_lane<false, kGlobal>(L, p, table, cam, col, lane, p.i[IP_K_SAMPLES],
-                             p.i[IP_MAX_IT]);
+  trace_lane<false, kGlobal, kRecord>(L, p, table, cam, col, lane,
+                                      p.i[IP_K_SAMPLES], p.i[IP_MAX_IT], rec);
   rad[3 * lane + 0] = L.rx;
   rad[3 * lane + 1] = L.ry;
   rad[3 * lane + 2] = L.rz;
@@ -412,9 +424,28 @@ extern "C" int smallpt_mega_pass(const void* table, const void* cam,
                                  const void* fparams, void* stream) {
   const Params p = read_params(iparams, fparams);
   if (bad_params(p)) return (int)cudaErrorInvalidValue;
-  return launch(mega_pass_kernel<false>, mega_pass_kernel<true>, p, stream,
-                (const float*)table, (const float*)cam, (float*)rad,
-                (int*)rays, p);
+  return launch(mega_pass_kernel<false, false>, mega_pass_kernel<true, false>,
+                p, stream, (const float*)table, (const float*)cam,
+                (float*)rad, (int*)rays, (int*)nullptr, p);
+}
+
+// K1b: one per-pass launch with one sample a lane (params[IP_K_SAMPLES] ==
+// 1, params[IP_MAX_IT] == params[IP_MAX_DEPTH] == D) that also records each
+// lane's winner sphere id per depth. rec: (D, G) i32 on the device, every
+// entry written (-1: a miss, or a depth the path never reached); the other
+// arguments as for smallpt_mega_pass. Returns the launch's
+// cudaGetLastError().
+extern "C" int smallpt_mega_record(const void* table, const void* cam,
+                                   void* rad, void* rays, void* rec,
+                                   const void* iparams, const void* fparams,
+                                   void* stream) {
+  const Params p = read_params(iparams, fparams);
+  if (bad_params(p) || p.i[IP_K_SAMPLES] != 1 ||
+      p.i[IP_MAX_IT] != p.i[IP_MAX_DEPTH] || p.i[IP_MAX_DEPTH] <= 0)
+    return (int)cudaErrorInvalidValue;
+  return launch(mega_pass_kernel<false, true>, mega_pass_kernel<true, true>,
+                p, stream, (const float*)table, (const float*)cam,
+                (float*)rad, (int*)rays, (int*)rec, p);
 }
 
 // Advance the streaming state by at most params[IP_MAX_IT] iterations of

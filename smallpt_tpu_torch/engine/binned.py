@@ -28,9 +28,12 @@ NEE is deferred by one launch: a diffuse vertex marks per-slot pending
 bits, the next launch draws the shadow ray, unions its reach into the
 lists and resolves it in the same chunk walk. The thin lens, the
 environment light, the AOV modes and adaptive and equal-quality stepping
-are supported. Not ported: the periodic bin sort (``sort_every > 0``) and
-the three-program bounce (``fused=False``), ROADMAP.md modules item 11b.
-Entry points run on the card unless given ``device="cpu"``.
+are supported. Off by default, as in the JAX package: the periodic bin
+sort (``sort_every > 0``: every sort_every bounces each stream's lanes are
+reordered by bin key, ops/accel.py::shuffle_state) and the three-program
+bounce (``fused=False``: regeneration, the exact-distance lists of
+ops/accel.py::tile_work_lists, K8; no NEE). Both give the fused, unsorted
+bounce's bits. Entry points run on the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -56,10 +59,6 @@ from smallpt_tpu_torch.utils.metrics import RenderStats
 # Sample-index stride between streams: stream j draws ip in [j * IP_STRIDE,
 # ...). It exceeds 64 sub-lanes x 2^20 sample ids, and 16 streams fit int32.
 IP_STRIDE = 1 << 26
-
-_NOT_PORTED_11B = ("ROADMAP.md, modules item 11b: the binned sort and the "
-                   "three-program bounce")
-
 
 @dataclasses.dataclass
 class _Stream:
@@ -120,12 +119,8 @@ class BinnedStreamingRenderer:
         if config.dtype != "float32":
             raise NotImplementedError(f"not ported yet: dtype {config.dtype} "
                                       "(the port renders float32 only)")
-        if sort_every > 0:
-            raise NotImplementedError(
-                f"not ported yet: sort_every > 0 ({_NOT_PORTED_11B})")
-        if not fused:
-            raise NotImplementedError(
-                f"not ported yet: fused=False ({_NOT_PORTED_11B})")
+        self.sort_every = int(sort_every)
+        self.fused = fused
         self.device = resolve_device(device)
         self.config = config
         self.camera = camera
@@ -200,11 +195,21 @@ class BinnedStreamingRenderer:
                      for li in self.config.nee_lights)
 
     def _bounce(self, s: _Stream) -> torch.Tensor:
-        """One fused bounce of a stream (regen, shadow draw, lists, K8), in
-        place; returns its ray count on the device."""
+        """One bounce of a stream (regen, shadow draw, lists, K8), in
+        place; returns its ray count on the device. Fused: the bucketed
+        lists; otherwise the three-program bounce's exact-distance lists
+        (no NEE: the constructor refuses it)."""
         config, accel = self.config, self.accel
         mk.regen_binned(s.f, s.i, self._camv, config, self.key,
                         ip_offset=s.ip_offset, inflight=self.inflight)
+        if not self.fused:
+            lists, stops, dcut = acc.tile_work_lists(s.f, s.i, config, accel,
+                                                     k_near=self.k_near)
+            return mk.stream_step_binned(
+                self.table, config, self.key, s.f, s.i, lists, stops, dcut,
+                ip_offset=s.ip_offset, n_glob_chunks=accel.n_glob_chunks,
+                n_chunks=accel.n_chunks, inflight=self.inflight,
+                geo_lo=accel.geo_lo, geo_hi=accel.geo_hi)[2]
         shadow_keys = None
         if self.nee_rows:
             _, shadow_keys = acc.nee_shadow_prep(
@@ -227,7 +232,12 @@ class BinnedStreamingRenderer:
         a 0-d int64 tensor on the device."""
         total = torch.zeros((), dtype=torch.int64, device=self.device)
         for _ in range(n_bounces):
+            do_sort = (self.sort_every
+                       and self._bounce_idx % self.sort_every == 0)
             for s in self.streams:
+                if do_sort:
+                    s.f, s.i = acc.shuffle_state(
+                        s.f, s.i, acc.state_bin_keys(s.f, s.i, self.accel))
                 total = total + self._bounce(s)
             self._bounce_idx += 1
         return total

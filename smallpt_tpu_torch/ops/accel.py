@@ -16,14 +16,20 @@ for tile-wide culling.
    unions the reach masks of its sub-blocks' bin-key intervals (with
    deferred NEE, of its shadow rays' too) and lists the reachable chunks
    nearest-first by distance bucket, with the count to sweep and a finality
-   bound (``nee_shadow_prep`` draws the shadow rays first).
+   bound (``nee_shadow_prep`` draws the shadow rays first). The
+   three-program bounce's lists (``tile_work_lists``) order a tile's
+   reachable chunks by their exact distance instead, with one stable
+   argsort; ``tile_work_lists_nosort`` lists the whole reach set in chunk
+   order.
+4. **The bin sort** (``state_bin_keys``, ``shuffle_state``): every
+   ``sort_every`` bounces the lanes of each of the state's 8 rows are
+   reordered by bin key (a stable sort along the row, every plane moved by
+   the same permutation), so a tile holds coherent rays.
 
 The bounce kernel (ops/megakernel.py::stream_step_binned, K8) then sweeps
 the global spheres and only the listed chunks. Every field of the accel,
-and the lists, stops and dcut of a state, equal the JAX package's. The
-JAX package's periodic bin sort (``shuffle_state``, ``state_bin_keys``) and
-the three-program lists (``tile_work_lists``, ``tile_work_lists_nosort``)
-are not ported (ROADMAP.md, modules item 11b).
+the lists, stops and dcut of a state, and the shuffled state equal the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -321,6 +327,33 @@ def _interval_union(lo_s, hi_s, n_bins: int) -> torch.Tensor:
     return torch.cumsum(edges[:, :n_bins], dim=1) > 0
 
 
+def _frontier_keys(f, i, accel: GridAccel):
+    """(frontier points (ox, oy, oz), their bin keys, alive) of the binned
+    state: each lane binned at o + ts d, where its march has resolved to
+    (the origin for a fresh lane); (8, C) planes."""
+    def plane(buf, idx):
+        return buf[SUB * idx:SUB * (idx + 1)]
+
+    ts = plane(f, mk._F_TS)
+    dx, dy, dz = plane(f, 3), plane(f, 4), plane(f, 5)
+    ox = plane(f, 0) + ts * dx
+    oy = plane(f, 1) + ts * dy
+    oz = plane(f, 2) + ts * dz
+    return ((ox, oy, oz), ray_bin_keys(ox, oy, oz, dx, dy, dz, accel),
+            plane(i, mk._I_ALIVE) != 0)
+
+
+def _tile_reach(key_live, alive, accel: GridAccel):
+    """(T, C) bool: the chunks the bins of each tile's one key interval
+    [lo, hi] over its alive lanes reach (the three-program lists' reach; a
+    0/1 float32 matmul, exact)."""
+    lo1, hi1 = _masked_minmax(key_live, alive, accel.n_bins)
+    bins = torch.arange(accel.n_bins, dtype=torch.int32,
+                        device=key_live.device)
+    in1 = (bins[None, :] >= lo1[:, None]) & (bins[None, :] <= hi1[:, None])
+    return (in1.to(torch.float32) @ accel.masks) > 0.0
+
+
 def tile_work_lists_bucketed(f, i, config, accel: GridAccel, k_near=None,
                              shadow_keys=None):
     """Distance-bucketed frontier work lists of the binned state (f, i):
@@ -346,18 +379,8 @@ def tile_work_lists_bucketed(f, i, config, accel: GridAccel, k_near=None,
         k_near = mk.K_NEAR
     n_bins, c_ = accel.n_bins, accel.n_chunks
     dev = f.device
-
-    def plane(buf, idx):
-        return buf[SUB * idx:SUB * (idx + 1)]
-
-    ts = plane(f, mk._F_TS)
-    dx, dy, dz = plane(f, 3), plane(f, 4), plane(f, 5)
-    ox = plane(f, 0) + ts * dx
-    oy = plane(f, 1) + ts * dy
-    oz = plane(f, 2) + ts * dz
-    alive = plane(i, mk._I_ALIVE) != 0
+    (ox, oy, oz), key_live, alive = _frontier_keys(f, i, accel)
     t_ = f.shape[1] // LANE_B
-    key_live = ray_bin_keys(ox, oy, oz, dx, dy, dz, accel)
     in1 = _interval_union(*_masked_minmax_sub(key_live, alive, n_bins),
                           n_bins)
     masks = accel.masks
@@ -428,6 +451,126 @@ def tile_work_lists_bucketed(f, i, config, accel: GridAccel, k_near=None,
     dcut = edges[b_at.clamp(0, N_BUCKET - 1).long()]
     dcut = torch.where((stops < 0) | (stops >= n_reach), float("inf"), dcut)
     return lists, stops, dcut
+
+
+def tile_work_lists(f, i, config, accel: GridAccel, k_near=None):
+    """Distance-ordered per-tile frontier work lists of the binned state
+    (f, i), the three-program bounce's (``fused=False``): (lists (T, l_max)
+    i32, stops (T,) i32, dcut (T,) f32) on its device.
+
+    A tile reaches the chunks of the bins between its alive lanes' least
+    and greatest frontier key, and orders them by the exact distance from
+    its frontier box (over alive lanes) to each chunk's box, nearest first
+    (one stable argsort, the unreachable at +big after them). It sweeps
+    max(k_near, |distance < d0|) entries, every local chunk (stops = -1)
+    when more than l_max lie below d0; dcut is the sorted distance of the
+    first unswept entry, +inf when everything reachable is swept. Correct
+    for any lane placement: ranges only widen and the distances are lower
+    bounds."""
+    if k_near is None:
+        k_near = mk.K_NEAR
+    c_ = accel.n_chunks
+    dev = f.device
+    (ox, oy, oz), key_live, alive = _frontier_keys(f, i, accel)
+    reach = _tile_reach(key_live, alive, accel)
+    n_reach = reach.sum(dim=1, dtype=torch.int32)
+
+    # per-tile frontier box over alive lanes -> each chunk's distance
+    t_ = f.shape[1] // LANE_B
+    big = 3e38
+    v = alive.reshape(SUB, t_, LANE_B)
+    gaps = []
+    for a, p in enumerate((ox, oy, oz)):
+        pp = p.reshape(SUB, t_, LANE_B)
+        olo = torch.where(v, pp, big).amin(dim=(0, 2))
+        ohi = torch.where(v, pp, -big).amax(dim=(0, 2))
+        klo, khi = accel.k_lo[:, a], accel.k_hi[:, a]
+        gaps.append(torch.clamp(torch.maximum(
+            klo[None, :] - ohi[:, None], olo[:, None] - khi[None, :]),
+            min=0.0))
+    gx, gy, gz = gaps
+    dist = torch.sqrt(gx * gx + gy * gy + gz * gz)
+    dist = torch.where(reach, dist, big)
+
+    order = torch.argsort(dist, dim=1, stable=True)
+    ds = dist.gather(1, order)
+    l_max = accel.l_max
+    n_list = min(l_max, c_)
+    lists = torch.zeros((t_, l_max), dtype=torch.int32, device=dev)
+    lists[:, :n_list] = order[:, :n_list].to(torch.int32)
+
+    # sweep every entry below d0, so dcut >= d0 > 0 and pending lanes march
+    d0 = torch.tensor(_bucket_d0(accel), dtype=torch.float32, device=dev)
+    n_b0 = ((dist < d0) & reach).sum(dim=1, dtype=torch.int32)
+    stop_full = torch.clamp(n_reach, max=l_max)
+    stops = torch.where(
+        n_b0 > l_max, -1,
+        torch.minimum(torch.clamp(n_b0, min=int(k_near)), stop_full)).to(
+            torch.int32)
+    dcut = ds.gather(1, stops.long().clamp(0, c_ - 1)[:, None])[:, 0]
+    # +inf, not the 3e38 sentinel: a lane that misses everything carries bt
+    # == 3e38 and must still finalize once everything reachable is swept
+    dcut = torch.where((stops < 0) | (stops >= n_reach), float("inf"), dcut)
+    return lists, stops, dcut
+
+
+def tile_work_lists_nosort(f, i, config, accel: GridAccel):
+    """Sort-free work lists: each tile's whole reach set (the one key
+    interval of ``tile_work_lists``) in ascending chunk order, stops = its
+    size (-1, every local chunk, above l_max), dcut = +inf (every alive
+    lane finalizes every bounce). Returns (lists (T, l_max) i32, stops
+    (T,) i32, dcut (T,) f32)."""
+    _, key_live, alive = _frontier_keys(f, i, accel)
+    reach = _tile_reach(key_live, alive, accel)
+    n_reach = reach.sum(dim=1, dtype=torch.int32)
+    t_ = reach.shape[0]
+    l_max = accel.l_max
+    n_list = min(l_max, accel.n_chunks)
+    # the reachable chunks first, in chunk order (a stable sort of 0/1)
+    order = torch.argsort((~reach).to(torch.int8), dim=1, stable=True)
+    listed = torch.arange(n_list, device=f.device)[None, :] < n_reach[:, None]
+    lists = torch.zeros((t_, l_max), dtype=torch.int32, device=f.device)
+    lists[:, :n_list] = torch.where(listed, order[:, :n_list], 0).to(
+        torch.int32)
+    stops = torch.where(n_reach > l_max, -1, n_reach).to(torch.int32)
+    return lists, stops, torch.full((t_,), float("inf"), device=f.device)
+
+
+def state_bin_keys(f, i, accel: GridAccel) -> torch.Tensor:
+    """Sort keys of the binned state, (8, C) int: a live lane's frontier
+    bin, offset by n_bins while it has a bounce pending (so the all-chunk
+    sweeps those force gather in few tiles); an exhausted lane (dead, no
+    budget left) 2 * n_bins, so it sinks to its row's tail. A dead lane that
+    will regenerate keeps its stale ray's bin: a coherence approximation,
+    never a correctness one."""
+    def plane(buf, idx):
+        return buf[SUB * idx:SUB * (idx + 1)]
+
+    _, key, alive = _frontier_keys(f, i, accel)
+    pend = (plane(i, mk._I_PEND) != 0) & alive
+    exhausted = ~alive & (plane(i, mk._I_SIDX)
+                          >= plane(i, mk._I_BUDGET) - 1)
+    key = torch.where(pend, key + accel.n_bins, key)
+    return torch.where(exhausted, 2 * accel.n_bins, key)
+
+
+def _sort_group(keys, planes):
+    """The planes (P, 8, C), each of the 8 rows reordered along C by the
+    stable ascending sort of that row of keys (8, C). The JAX package splits
+    its planes into groups of 8 a sort, a TPU compile-time limit; one
+    gather moves them all here."""
+    perm = torch.sort(keys, dim=1, stable=True).indices
+    return planes.gather(2, perm[None].expand_as(planes))
+
+
+def shuffle_state(f, i, keys):
+    """The binned state (f, i) with the lanes of each of its 8 rows
+    reordered by keys (8, C), every f32 and int32 plane by the same stable
+    row-wise permutation: (new f, new i). Placement is free: sample streams
+    are keyed by the lane-id plane, which moves with its lane."""
+    c = f.shape[1]
+    return (_sort_group(keys, f.reshape(-1, SUB, c)).reshape(-1, c),
+            _sort_group(keys, i.reshape(-1, SUB, c)).reshape(-1, c))
 
 
 def nee_shadow_prep(f, i, table, config, accel: GridAccel, key,

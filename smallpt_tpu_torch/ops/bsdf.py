@@ -26,11 +26,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from smallpt_tpu_torch.core.math import safe_normalize, safe_sqrt
+from smallpt_tpu_torch.core.math import cross3, dot3, safe_normalize, safe_sqrt
 
 
 def _dot(a, b):
-    return torch.sum(a * b, dim=-1, keepdim=True)
+    return dot3(a, b)[..., None]
 
 
 def cosine_sample(nl: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor):
@@ -43,8 +43,8 @@ def cosine_sample(nl: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor):
     y_axis = torch.tensor([0.0, 1.0, 0.0], dtype=nl.dtype, device=nl.device)
     x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=nl.dtype, device=nl.device)
     up = torch.where((torch.abs(w[:, 0]) > 0.1)[:, None], y_axis, x_axis)
-    u = safe_normalize(torch.linalg.cross(up, w))
-    v = torch.linalg.cross(w, u)
+    u = safe_normalize(cross3(up, w))
+    v = cross3(w, u)
     d = (
         u * (torch.cos(r1) * r2s)[:, None]
         + v * (torch.sin(r1) * r2s)[:, None]

@@ -20,10 +20,13 @@ first attains it; ``perm`` maps the slot back to the sphere id.
 ``closest_hit.launches``) or raises; on a CPU tensor it runs
 ``closest_hit_plain``, the same function in the kernel's op order.
 ``intersect_spheres_pallas`` is the drop-in for ops/intersect.py's
-``intersect_spheres`` that the wavefront schedulers call.
+``intersect_spheres`` that the wavefront schedulers call;
+``intersect_spheres_hybrid_diff`` is its differentiable counterpart: K2
+picks each ray's winner (a discrete choice, no gradient), and
+``_replay_winner`` recomputes the winner's hit in PyTorch, where autograd
+reaches the centers and radii.
 
-Not in this module yet: K5 (``intersect_spheres_mxu``) and the gradient
-path's ``intersect_spheres_hybrid_diff`` (ROADMAP.md).
+Not in this module yet: K5 (``intersect_spheres_mxu``, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
-from smallpt_tpu_torch.core.math import safe_normalize
+from smallpt_tpu_torch.core.math import dot3, safe_normalize, safe_sqrt
 from smallpt_tpu_torch.core.scene import SphereScene
 from smallpt_tpu_torch.ops.intersect import Hit, sphere_uv
 from smallpt_tpu_torch.ops.megakernel import _BIG, _sphere_tt
@@ -274,3 +277,70 @@ def intersect_spheres_pallas(org, dirs, scene: SphereScene,
         uv = torch.zeros((n, 2), dtype=org.dtype, device=org.device)
     return Hit(t=t, inst=best_i, prim=best_i, x=torch.where(ok, x, 0.0),
                n=nrm, uv=uv)
+
+
+def _replay_winner(org, dirs, c, r, kernel_hit, eps, eps_rel):
+    """The per-lane replay of the kernel-chosen winner's hit, differentiable
+    in c and r: c (N, 3) and r (N,) are the winners' rows, gathered by the
+    caller. t in the cancellation-stable citardauq form, in the original
+    coordinates (op = c - org is exact for nearby values), the root
+    rejected below max(eps, eps_rel * r). Returns (t, x, n, ok (N, 1)), t
+    = inf where the kernel saw no hit or the exact det says miss; masked
+    lanes keep finite values and zero gradients (safe_sqrt, the division
+    guarded before it is taken; the sums written out, as the kernels
+    sum)."""
+    eps_i = torch.clamp(eps_rel * r, min=eps)
+    op = c - org
+    b = dot3(op, dirs)
+    fp = op - b[:, None] * dirs
+    pp = dot3(fp, fp)
+    sp = safe_sqrt(pp)
+    det = (r - sp) * (r + sp)
+    s_ = safe_sqrt(torch.clamp(det, min=0.0))
+    opn = safe_sqrt(b * b + pp)
+    cc = (opn - r) * (opn + r)
+    denom = b + s_
+    t_near = torch.where(
+        denom > 0.0,
+        cc / torch.where(denom == 0.0, torch.ones_like(denom), denom),
+        float("-inf"))
+    t = torch.where(t_near > eps_i, t_near,
+                    torch.where(denom > eps_i, denom, float("inf")))
+    t = torch.where(kernel_hit & (det >= 0.0), t, float("inf"))
+    ok = torch.isfinite(t)[:, None]
+    x = org + torch.where(ok, t[:, None], 0.0) * dirs
+    nrm = safe_normalize(torch.where(ok, x - c, 1.0))
+    return t, torch.where(ok, x, 0.0), nrm, ok
+
+
+def intersect_spheres_hybrid_diff(org, dirs, scene: SphereScene,
+                                  eps: float = 1e-4, eps_rel: float = 5e-7,
+                                  tables=None) -> Hit:
+    """Differentiable closest hit: K2 searches the winner of every ray on
+    detached rays (``closest_hit``: the kernel on a CUDA tensor, its plain
+    version on a CPU one), then ``_replay_winner`` recomputes the winner's
+    t, hit point and normal in PyTorch, where autograd reaches the scene's
+    centers and radii and the rays. The winner choice is a discrete event
+    that takes no gradient (RenderConfig.detach_sampling's bias envelope).
+
+    tables: the ``build_sphere_table`` result of the detached scene on the
+    rays' device, built once by the caller (None: built here). The JAX
+    package gathers the winners' rows with one-hot matmuls, a TPU
+    mechanism; here they are index_select gathers, whose backward adds into
+    the rows (on the card in no fixed order). Hit.uv is zeros."""
+    if tables is None:
+        tables = build_sphere_table(scene, eps=eps, eps_rel=eps_rel,
+                                    device=org.device)
+    table, perm, n_big_chunks, n_small_chunks = tables
+    t_k, slot = closest_hit(org.detach().T.contiguous(),
+                            dirs.detach().T.contiguous(), table,
+                            _S_CHUNK * n_big_chunks,
+                            _S_CHUNK * n_small_chunks)
+    kernel_hit = t_k < _BIG
+    idx = perm.index_select(0, slot.long().clamp(max=perm.shape[0] - 1))
+    c = scene.center.to(org.dtype).index_select(0, idx)
+    r = scene.radius.to(org.dtype).index_select(0, idx)
+    t, x, nrm, _ = _replay_winner(org, dirs, c, r, kernel_hit, eps, eps_rel)
+    return Hit(t=t, inst=idx, prim=idx, x=x, n=nrm,
+               uv=torch.zeros((org.shape[0], 2), dtype=org.dtype,
+                              device=org.device))

@@ -1,8 +1,8 @@
 """The wavefront megakernel: regenerate + intersect + shade, fused
 (PyTorch port of ``_mega_kernel`` in smallpt_tpu/ops/megakernel.py, in its
-per-pass and its streaming mode, with next-event estimation).
+per-pass, recording and streaming uses, with next-event estimation).
 
-One kernel body (csrc/megakernel.cu) serves both modes. Each thread owns one
+One kernel body (csrc/megakernel.cu) serves all three. Each thread owns one
 pixel lane and loops on its own: regenerate a camera ray when its path has
 died and it still has samples, sweep the sphere table for the closest hit,
 pick up emission, sample the NEE lights at diffuse vertices, shade
@@ -11,6 +11,11 @@ pick up emission, sample the NEE lights at diffuse vertices, shade
 - Per-pass mode, ``mega_pass`` (the JAX ``render_pass_megakernel``): every
   lane starts dead with a budget of k_samples, and only the summed radiance
   and the ray count of each lane leave the kernel.
+- Recording, ``mega_record`` (one launch of the JAX
+  ``render_record_megakernel``, which ``render_record_megakernel`` here
+  runs once per in-pixel sample): the per-pass mode with one sample a lane
+  that also writes each lane's winner sphere id at each depth, the record
+  of grad/replay.py's replay differentiator.
 - Streaming mode, ``stream_step`` (the JAX ``stream_step``): the path state
   of every lane persists across launches in two buffers laid out as the JAX
   package lays them out, ``(8*14, n_cols)`` f32 and ``(8*6, n_cols)`` i32,
@@ -26,9 +31,9 @@ cameras, thin lens, environment light and NEE over at most 31 light
 spheres; the RNG is bit-identical to core/rng.py.
 
 A wrapper launches the kernel on a CUDA tensor and counts the launch; on a
-CPU tensor it runs the plain version. ``render_pass_plain`` and
-``stream_step_plain`` are the two cases of one plain function,
-``_plain_lanes``: the same per-lane loop written in PyTorch on flat lanes
+CPU tensor it runs the plain version. ``render_pass_plain``,
+``record_pass_plain`` and ``stream_step_plain`` are the cases of one plain
+function, ``_plain_lanes``: the same per-lane loop written in PyTorch on flat lanes
 with masks. On the card the plain version is only the yardstick the kernel
 is checked against.
 """
@@ -235,6 +240,11 @@ def _stream_lib():
     return _entry("smallpt_stream_step", 8)
 
 
+def _record_lib():
+    """The recording entry point of the same library (K1b)."""
+    return _entry("smallpt_mega_record", 8)
+
+
 def _entry(name: str, n_args: int):
     from smallpt_tpu_torch.utils.nvcc import load_library
 
@@ -286,6 +296,49 @@ def mega_pass(table: torch.Tensor, cam: torch.Tensor, config: RenderConfig,
 
 
 mega_pass.launches = 0
+
+
+def mega_record(table: torch.Tensor, cam: torch.Tensor, config: RenderConfig,
+                key, ip_offset: int = 0, row_offset: int = 0,
+                n_rows: int | None = None, *, n_spheres: int | None = None):
+    """One recording launch over a row band (K1b): every lane traces one
+    sample, ip_offset, of its pixel, and records its winner at each depth.
+
+    The arguments are mega_pass's. Returns (radiance (G, 3) f32, rays (G,)
+    int32, winners (max_depth, G) int32): winners[d, lane] is the sphere id
+    (the table row) the lane's path hit at depth d, -1 where it missed or
+    had died.
+
+    A CUDA tensor launches csrc/megakernel.cu's smallpt_mega_record (and
+    counts the launch in ``mega_record.launches``); a CPU tensor runs
+    ``record_pass_plain``."""
+    n_spheres = _check_inputs(table, cam, config, n_spheres)
+    n_rows = config.height if n_rows is None else n_rows
+    k0, k1 = prng.key_words(key)
+    if table.device.type == "cpu":
+        return record_pass_plain(table, cam, config, k0, k1, ip_offset,
+                                 row_offset, n_rows, n_spheres=n_spheres)
+    fn = _record_lib()
+    g = n_rows * config.width
+    dev = table.device
+    rad = torch.empty((g, 3), dtype=torch.float32, device=dev)
+    rays = torch.empty((g,), dtype=torch.int32, device=dev)
+    rec = torch.empty((config.max_depth, g), dtype=torch.int32, device=dev)
+    ints, floats = _launch_args(config, g, n_spheres, k0, k1, ip_offset,
+                                row_offset, 1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table.data_ptr(), cam.data_ptr(), rad.data_ptr(),
+                 rays.data_ptr(), rec.data_ptr(), ints.ctypes.data,
+                 floats.ctypes.data, stream)
+    if err != 0:
+        raise RuntimeError(f"record megakernel launch failed: CUDA error "
+                           f"{err}")
+    mega_record.launches += 1
+    return rad, rays, rec
+
+
+mega_record.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +617,28 @@ def render_pass_plain(table: torch.Tensor, cam: torch.Tensor,
     return torch.stack([st["rx"], st["ry"], st["rz"]], dim=-1), st["rays"]
 
 
+def record_pass_plain(table: torch.Tensor, cam: torch.Tensor,
+                      config: RenderConfig, k0: int, k1: int,
+                      ip_offset: int = 0, row_offset: int = 0,
+                      n_rows: int | None = None, *,
+                      n_spheres: int | None = None, counts=None):
+    """The plain version of the recording launch (K1b): the per-pass case
+    with one sample a lane, ip_offset, that also records each lane's
+    winner at each depth. Returns (radiance (G, 3), rays (G,) int32,
+    winners (max_depth, G) int32) as ``mega_record``."""
+    _check_config(config, n_spheres)
+    n_rows = config.height if n_rows is None else n_rows
+    g = n_rows * config.width
+    st = _fresh_lanes(g, table.device)
+    rec = torch.full((config.max_depth, g), -1, dtype=torch.int32,
+                     device=table.device)
+    _plain_lanes(table, cam, config, k0, k1, st, 1, config.max_depth,
+                 ip_offset, row_offset, streaming=False, n_spheres=n_spheres,
+                 counts=counts, rec=rec)
+    return (torch.stack([st["rx"], st["ry"], st["rz"]], dim=-1), st["rays"],
+            rec)
+
+
 def stream_step_plain(table: torch.Tensor, cam: torch.Tensor,
                       config: RenderConfig, k0: int, k1: int,
                       f: torch.Tensor, i: torch.Tensor, n_iters: int,
@@ -596,10 +671,11 @@ def stream_step_plain(table: torch.Tensor, cam: torch.Tensor,
 
 def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
                  st: dict, budget, max_it: int, ip_offset: int,
-                 row_offset: int, *, streaming: bool, n_spheres, counts):
+                 row_offset: int, *, streaming: bool, n_spheres, counts,
+                 rec=None):
     """The kernel's per-lane loop in PyTorch, on flat lanes with masks: a
-    transliteration of the JAX ``_mega_kernel`` body (without record
-    planes), one function for both modes. One deviation: it normalizes with
+    transliteration of the JAX ``_mega_kernel`` body, one function for its
+    modes. One deviation: it normalizes with
     1 / sqrt, as the CUDA kernel does, where JAX uses lax.rsqrt, because
     CUDA's rsqrt is approximate and would move the kernel off its plain
     version; the parity tests against JAX check that this adds no drift.
@@ -612,7 +688,9 @@ def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
     iterations. streaming selects the (pixel, ip) keying and the moment
     update at regeneration; otherwise samples are keyed by
     pixel * spp + ip. counts: None, or a dict whose "shadow_rays" entry
-    gains the NEE shadow rays traced (for the kernel's op bound)."""
+    gains the NEE shadow rays traced (for the kernel's op bound). rec:
+    None, or a (max_depth, N) int32 tensor prefilled with -1 that receives
+    each live lane's winner (table row) at its depth."""
     dev = table.device
     f32 = torch.float32
     W = config.width
@@ -679,6 +757,9 @@ def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
         win = table[bi.clamp(min=0)]
         hit = bt < _BIG
         live_hit = alive & hit
+        if rec is not None:
+            rec[depth[live_hit], lane[live_hit]] = bi[live_hit].to(
+                torch.int32)
 
         if config.has_env:
             live_miss = alive & ~hit
@@ -1013,6 +1094,45 @@ def render_pass_megakernel(scene: SphereScene, camera, config: RenderConfig,
                           n_rows, k_samples, n_spheres=scene.n_spheres)
     return (rad.reshape(n_rows, config.width, 3),
             rays.sum(dtype=torch.int64))
+
+
+def render_record_megakernel(scene: SphereScene, camera,
+                             config: RenderConfig, key, ip_offset: int = 0,
+                             row_offset: int = 0, n_rows: int | None = None,
+                             k_samples: int | None = None, device=None):
+    """The forward pass at megakernel speed, recording every sample's
+    winner sphere id at every depth: the recorder of the replay
+    differentiator (grad/replay.py). One K1b launch (``mega_record``) per
+    in-pixel sample s, keyed with ip = ip_offset + s, so launch s traces the
+    FLAT scheduler's samples s.
+
+    Returns ((n_rows, W, 3) radiance summed over the k_samples samples, as
+    render_pass_megakernel; winners (max_depth, G * k_samples) int32, -1
+    for a miss or a dead lane, in FLAT lane order lane = local_pixel *
+    k_samples + s; rays traced as a 0-d int64 tensor). The hooks are
+    render_pass_megakernel's. ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    n_rows = config.height if n_rows is None else n_rows
+    k_samples = config.spp if k_samples is None else k_samples
+    if scene.n_spheres > MAX_SPHERES:
+        raise ValueError(f"the megakernel takes at most {MAX_SPHERES} "
+                         "spheres")
+    table = build_scene_table(scene, config, dev)
+    cam = build_camera_vec(camera, config, dev)
+    g = n_rows * config.width
+    rad = torch.zeros((g, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    recs = []
+    for s in range(k_samples):
+        r_s, n_s, w_s = mega_record(table, cam, config, key, ip_offset + s,
+                                    row_offset, n_rows,
+                                    n_spheres=scene.n_spheres)
+        rad = rad + r_s
+        rays = rays + n_s.sum(dtype=torch.int64)
+        recs.append(w_s)
+    winners = torch.stack(recs, dim=2).reshape(config.max_depth,
+                                               g * k_samples)
+    return rad.reshape(n_rows, config.width, 3), winners, rays
 
 
 # ---------------------------------------------------------------------------

@@ -227,16 +227,24 @@ def test_step_timed_advances():
      ValueError, "fused"),
     ("nee_aov", dict(cfg=dict(mode=Mode.NORMAL, nee_lights=(8,))),
      ValueError, "Mode.FULL"),
-    ("sort_every", dict(sort_every=1), NotImplementedError, "item 11b"),
-    ("three_program", dict(fused=False), NotImplementedError, "item 11b"),
+    ("sort_every", dict(sort_every=1), None, None),
+    ("three_program", dict(fused=False), None, None),
     ("mesh", dict(scene="mesh"), TypeError, "SphereScene"),
 ], ids=lambda c: c[0] if isinstance(c, tuple) else None)
 def test_refusals(case):
+    """The configs the renderer refuses. The bin sort (sort_every > 0) and
+    the three-program bounce (fused=False) were refused until they were
+    ported (ROADMAP.md item 11b); they now render, and drain to exact
+    weights (tests/test_torch_binned_sort.py holds their bits)."""
     _, kw, exc, match = case
     kw = dict(kw)
     cfg = CFG.replace(**kw.pop("cfg", {}))
     scene = (tscene.single_triangle_scene() if kw.pop("scene", None)
              else SCENE)
+    if exc is None:
+        r = _binned(cfg, spp=2, scene=scene, **kw)
+        assert (_sums(r)[1] == 2).all()
+        return
     with pytest.raises(exc, match=match):
         BinnedStreamingRenderer(scene, smallpt_camera(), cfg, device="cpu",
                                 **kw)

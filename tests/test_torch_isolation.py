@@ -38,7 +38,9 @@ assert {{"smallpt_tpu_torch.engine.streaming",
          "smallpt_tpu_torch.ops.intersect",
          "smallpt_tpu_torch.ops.intersect_pallas",
          "smallpt_tpu_torch.ops.mesh_pallas",
-         "smallpt_tpu_torch.ops.wavefront"}} <= set(names)
+         "smallpt_tpu_torch.ops.wavefront",
+         "smallpt_tpu_torch.grad.diff",
+         "smallpt_tpu_torch.grad.replay"}} <= set(names)
 from smallpt_tpu_torch.utils import nvcc
 # importing every module (K8's wrapper and stream_binned.cu's library
 # among them) builds and loads no kernel
@@ -59,7 +61,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     # every submodule imported, the streaming, wavefront, mesh streaming
     # and binned routes' among them
-    assert int(proc.stdout.split()[-1]) >= 25
+    assert int(proc.stdout.split()[-1]) >= 28
 
 
 def _sources():
@@ -104,6 +106,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     from smallpt_tpu_torch.ops import stream_dda as sd
 
     fn = types.SimpleNamespace(argtypes=None, restype=None)
+    rfn = types.SimpleNamespace(argtypes=None, restype=None)
     sfn = types.SimpleNamespace(argtypes=None, restype=None)
     dfn = types.SimpleNamespace(argtypes=None, restype=None)
     hfn = types.SimpleNamespace(argtypes=None, restype=None)
@@ -112,7 +115,8 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     bfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
                         lambda name, src: types.SimpleNamespace(
-                            smallpt_mega_pass=fn, smallpt_stream_step=sfn,
+                            smallpt_mega_pass=fn, smallpt_mega_record=rfn,
+                            smallpt_stream_step=sfn,
                             smallpt_stream_dda=dfn, smallpt_closest_hit=hfn,
                             smallpt_closest_tri=tfn,
                             smallpt_closest_tri_culled=cfn,
@@ -120,6 +124,9 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert mk._kernel_lib() is fn
     assert fn.argtypes == [ctypes.c_void_p] * 7
     assert fn.restype is ctypes.c_int
+    assert mk._record_lib() is rfn
+    assert rfn.argtypes == [ctypes.c_void_p] * 8
+    assert rfn.restype is ctypes.c_int
     assert mk._stream_lib() is sfn
     assert sfn.argtypes == [ctypes.c_void_p] * 8
     assert sfn.restype is ctypes.c_int

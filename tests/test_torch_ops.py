@@ -48,6 +48,35 @@ def test_math_helpers_match():
         rtol=1e-6)
 
 
+def _kernel_dot(a, b):
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+@pytest.mark.parametrize("helper", ["dot3", "cross3", "safe_normalize"])
+def test_vec3_helpers_round_as_the_kernels(helper):
+    """core/math.py's three-vector helpers give the kernels' arithmetic
+    (csrc/lane.cuh, --fmad=false) bit for bit: each product rounded, sums
+    left to right, v * (1 / sqrt(|v|^2)). The replay differentiator needs
+    it to trace the recording kernel's rays (ROADMAP.md, H8)."""
+    r = np.random.default_rng(7)
+    a = _t(r.normal(size=(4099, 3)).astype(np.float32)
+           * r.uniform(0.0, 1e3, size=(4099, 1)).astype(np.float32))
+    b = _t(_unit(r, 4099))
+    a[:3] = torch.tensor([[0.0, -0.0, 1.0], [0.0, 1.0, 0.0], [-0.0, 0, 0]])
+    if helper == "dot3":
+        got, want = tmath.dot3(a, b), _kernel_dot(a, b)
+    elif helper == "cross3":
+        got = tmath.cross3(a, b)
+        want = torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                            a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                            a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=-1)
+    else:
+        got = tmath.safe_normalize(a)
+        n2 = _kernel_dot(a, a)[:, None]
+        want = torch.where(n2 > 1e-24, a * (1.0 / torch.sqrt(n2)), a)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_bsdf_sampling_matches():
     r = np.random.default_rng(1)
     n = 256

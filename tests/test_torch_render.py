@@ -205,9 +205,12 @@ def test_unported_configs_raise(kw):
 
 
 def test_unported_scenes_and_gradients_raise():
-    """What still raises: an unknown scene type and gradients (item 8).
-    Sphere scenes above 2048 spheres once raised here; they take the binned
-    drain now (tests/test_torch_binned.py)."""
+    """What still raises: an unknown scene type. Sphere scenes above 2048
+    spheres once raised here; they take the binned drain now
+    (tests/test_torch_binned.py). Gradients raised here too; a
+    differentiable render now takes the flat wavefront, as in the JAX
+    package (tests/test_torch_grad.py), and gives the forward flat pass's
+    image."""
     from smallpt_tpu_torch.engine.renderer import _route
 
     cfg = RenderConfig(width=8, height=8)
@@ -215,9 +218,15 @@ def test_unported_scenes_and_gradients_raise():
     assert _route(procedural_sphere_scene(n=2049), cfg, False) == "binned"
     with pytest.raises(TypeError, match="unknown scene type"):
         render(object(), smallpt_camera(), cfg, key, device="cpu")
-    with pytest.raises(NotImplementedError, match="differentiable"):
-        render(cornell_box_scene(), smallpt_camera(), cfg, key, device="cpu",
-               differentiable=True)
+    assert _route(cornell_box_scene(), cfg, True) == "flat"
+    cfg = cfg.replace(camera_model=CameraModel.LEGACY)
+    img = render(cornell_box_scene(), smallpt_camera(), cfg, key,
+                 device="cpu", differentiable=True)
+    ref = render(cornell_box_scene(), smallpt_camera(),
+                 cfg.replace(scheduler=Scheduler.FLAT), key, device="cpu")
+    assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
+    np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("flag", [["--frames", "f_%04d.ppm"],

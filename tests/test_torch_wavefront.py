@@ -437,20 +437,35 @@ def test_routing_follows_the_jax_package(case, spies):
     ("differentiable", "item 8"), ("float64", "float32 only"),
 ])
 def test_unported_routes_raise_citing_their_item(case, match, monkeypatch):
-    scene, cfg, diff = tscene.cornell_box_scene(), _TINY, False
+    """float64 still raises. The differentiable case raised citing item 8
+    until the flat loop became differentiable: now render(differentiable=
+    True) runs run_wavefront(differentiable=True) through the hybrid
+    intersector, whose image is the forward flat pass's."""
+    scene, cfg = tscene.cornell_box_scene(), _TINY
     if case == "differentiable":
-        diff = True
-    else:
-        cfg = cfg.replace(dtype="float64")
+        seen = []
+        real = twf.run_wavefront
+
+        def spy(*a, **k):
+            seen.append(k.get("differentiable"))
+            return real(*a, **k)
+
+        monkeypatch.setattr(twf, "run_wavefront", spy)
+        img = renderer.render(scene, smallpt_camera(), cfg, rng.base_key(0),
+                              differentiable=True, device="cpu")
+        ref = renderer.render(scene, smallpt_camera(),
+                              cfg.replace(scheduler=FLAT), rng.base_key(0),
+                              device="cpu")
+        assert seen == [True, False]
+        np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        return
+    cfg = cfg.replace(dtype="float64")
     with pytest.raises(NotImplementedError, match=match):
         renderer.render(scene, smallpt_camera(), cfg, rng.base_key(0),
-                        differentiable=diff, device="cpu")
+                        device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        if diff:
-            twf.run_wavefront(None, None, None, cfg, None, None,
-                              differentiable=True)
-        else:
-            ProgressiveRenderer(scene, smallpt_camera(), cfg, device="cpu")
+        ProgressiveRenderer(scene, smallpt_camera(), cfg, device="cpu")
 
 
 def test_mesh_accel_route_runs(monkeypatch):

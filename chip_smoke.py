@@ -5,13 +5,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's six kernel libraries from csrc/ with nvcc, all at
+It builds the port's seven kernel libraries from csrc/ with nvcc, all at
 once: megakernel.cu (the per-pass mega_pass, the recording mega_record and
 the streaming stream_step, with NEE in all three), stream_dda.cu (the DDA streaming kernel,
 stream_step_dda), closest_hit.cu (K2, the wavefronts' sphere closest hit),
 closest_tri.cu (K6, their triangle closest hit), closest_tri_culled.cu
-(K7, the grid-culled triangle sweep) and stream_binned.cu (K8, the binned
-scheduler's bounce). It holds each kernel
+(K7, the grid-culled triangle sweep), stream_binned.cu (K8, the binned
+scheduler's bounce) and dda.cu (K4, the per-ray DDA closest hit). It holds each kernel
 against its plain PyTorch version (at small sizes, and on the main paths'
 own rays at full width) and against the stored f64 golden images, drives
 the main paths through the kernels and times them:
@@ -74,7 +74,21 @@ the main paths through the kernels and times them:
   K1b held to its plain version bit for bit (Cornell, the thin lens and
   the environment light, 2,048 spheres, one config-4 launch), the record's
   image to K1a's pass, and the gradients on the card at 12x12 to the
-  CPU's, with the finite-difference gates of tests/test_torch_grad*.py.
+  CPU's, with the finite-difference gates of tests/test_torch_grad*.py;
+- the per-ray DDA closest hit (scripts/bench_dda_tpu.py's stage 2):
+  intersect_spheres_dda on procedural_sphere_scene(10000), 196,608 bounce
+  and 196,608 camera rays, grids at occ_target 16, 28 and 48, K4 held bit
+  for bit to its plain version there and on tests/test_dda.py's five
+  cases, and to K2 on the same rays (t and winner), with K2's time beside
+  K4's;
+- the host surfaces on the per-pass configuration (Cornell, 1024x768, 4
+  spp a pass, max_depth 48; K1a): the interactive session over an
+  in-memory stream (each restarted pass bit-equal to a fresh renderer's,
+  the request-to-frame time), load_scene of a 10,000-sphere scene file
+  (the binned drain, K8) and back, run with native frames, a per-pass
+  checkpoint resumed byte-equal, the CLI's --frames, --scene-file,
+  --interactive, --checkpoint and --resume in process, occupancy_profile
+  on REGEN through K2, and one pass under trace.
 The megakernel's branches that the main paths do not take (thin lens,
 environment light, two NEE lights, row bands and sample slices, 2048
 spheres, the opted-in shared memory at 4096 spheres and the global-memory
@@ -379,6 +393,23 @@ def gate_shallow(img: np.ndarray, ref: np.ndarray) -> dict:
     return out
 
 
+def device_ms_by_name(prof) -> dict:
+    """The device's own events (kernels, copies, sets) of a finished
+    torch.profiler run, their durations summed by name (60 characters) in
+    ms: the profiler's raw Kineto events, read directly. key_averages()'s
+    self device times sum to the same, but build Python objects for every
+    host event first, tens of seconds for a wavefront pass's 10^5 events
+    (scripts/torch_profile_sums.py compares the two)."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
+            name = evt.name()[:60]
+            by_name[name] = by_name.get(name, 0.0) + evt.duration_ns() / 1e6
+    return by_name
+
+
 def profile(fn) -> dict:
     """torch.profiler over one call of fn: the device time by kernel name,
     and the device's busy share of the call's wall time. Diagnostic only: a
@@ -393,14 +424,7 @@ def profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    by_name = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0))
-        # the device's own events (kernels, copies); an aten:: operator's
-        # device time repeats that of the kernels it launched
-        if us > 0 and not evt.key.startswith("aten::"):
-            by_name[evt.key[:60]] = us / 1e3
+    by_name = device_ms_by_name(prof)
     busy_ms = sum(by_name.values())
     if not busy_ms:
         return {"device_ms": "not measured", "wall_ms": wall_us / 1e3}
@@ -981,6 +1005,7 @@ def _bound(ops, nbytes, **info) -> dict:
 
 def _wrappers() -> tuple:
     """Every kernel wrapper, each counting its launches."""
+    from smallpt_tpu_torch.ops import dda
     from smallpt_tpu_torch.ops import intersect_pallas as ip
     from smallpt_tpu_torch.ops import megakernel as mk
     from smallpt_tpu_torch.ops import mesh_pallas as mp
@@ -988,7 +1013,7 @@ def _wrappers() -> tuple:
 
     return (mk.mega_pass, mk.stream_step, sd.stream_step_dda, ip.closest_hit,
             mp.closest_tri, mp.closest_tri_culled, mk.stream_step_binned,
-            mk.mega_record)
+            mk.mega_record, dda.closest_hit_dda)
 
 
 def zero_counts() -> None:
@@ -2931,6 +2956,508 @@ def binned_options(scene, cfg, dev) -> dict:
     return out
 
 
+# K4 (csrc/dda.cu): tests/test_dda.py's five cases, and bench_dda_tpu.py's
+# stage 2 (procedural_sphere_scene(10000), 196,608 bounce and camera rays,
+# grids at occ_target 16, 28 and 48 with k_max 128)
+DDA_RAYS = 192 * 1024
+DDA_OCC = (16.0, 28.0, 48.0)
+
+
+def dda_rays(n, seed, inside=True, coherent=False):
+    """scripts/bench_dda_tpu.py::_rays (tests/test_dda.py::_rays without
+    coherent): origins in the Cornell volume or around the camera,
+    isotropic or camera-like unit directions; (N, 3) f32 numpy each."""
+    rng_ = np.random.default_rng(seed)
+    if inside:
+        org = rng_.uniform([5, 5, 20], [95, 75, 150], (n, 3))
+    elif coherent:
+        org = np.tile(np.asarray([[50.0, 52.0, 295.6]]), (n, 1))
+        org += rng_.normal(scale=0.5, size=(n, 3))
+    else:
+        org = rng_.uniform([-40, -40, 170], [140, 120, 320], (n, 3))
+    if coherent:
+        d = np.asarray([0.0, -0.04, -1.0]) + rng_.normal(scale=0.2,
+                                                          size=(n, 3))
+    else:
+        d = rng_.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return org.astype(np.float32), d.astype(np.float32)
+
+
+def k4_bound(counts: dict, n_rays: int, grid) -> dict:
+    """The least time of one K4 launch for the work the plain version
+    counted on the same rays (its walk visits the cells the kernel's does):
+    OPS_K2_STABLE a live part-A row, OPS_K2_FAST an overflow row and a
+    tested slot, OPS_PER_STEP a walk step and OPS_PER_INIT a ray's grid
+    clip, at the float rate; the ray planes in, t and code out, part A, the
+    overflow rows and the cell table once, at the memory rate. slot_bytes:
+    the 32 B of each tested slot the walk reads (from L2)."""
+    ops = (counts["part_a_tests"] * OPS_K2_STABLE
+           + (counts["overflow_tests"] + counts["slot_tests"]) * OPS_K2_FAST
+           + counts["walk_steps"] * OPS_PER_STEP + n_rays * OPS_PER_INIT)
+    nbytes = n_rays * (24 + 8) + 4 * (grid.part_a.numel()
+                                      + grid.overflow.numel()
+                                      + grid.cells.numel())
+    return _bound(ops, nbytes, slot_bytes=32 * counts["slot_tests"],
+                  cells_per_ray_mean=counts["walk_steps"] / n_rays,
+                  cells_per_ray_max=counts["max_steps"])
+
+
+def k4_vs_plain(name, org, dirs, grid) -> dict:
+    """K4 against closest_hit_dda_plain on the same (N, 3) rays: t and code
+    bit-equal. Returns exact()'s reading plus the plain version's counts
+    and host-clock ms, and the planes and K4's outputs for reuse."""
+    import torch
+
+    from smallpt_tpu_torch.ops import dda
+
+    o, d = org.T.contiguous(), dirs.T.contiguous()
+    got = dda.closest_hit_dda(o, d, grid)
+    cnt = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = dda.closest_hit_dda_plain(o, d, grid, counts=cnt)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    return dict(exact(name, got, want), plain_ms=plain_ms, counts=cnt,
+                planes=(o, d), got=got)
+
+
+def dda_vs_plain_small(dev) -> dict:
+    """K4 against its plain version on the card, bit for bit (t and code),
+    on tests/test_dda.py's five cases: procedural_sphere_scene(800) at occ
+    16 from inside and from outside (2,048 rays each), the Cornell box at
+    occ 4, procedural_sphere_scene(600) on a 2x2x2 grid with k_max 48 (its
+    spheres overflow) and procedural_sphere_scene(400) at occ 16 with
+    origins on the grid's corner and x face and axis-aligned directions
+    (1,024 rays each)."""
+    import torch
+
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, procedural_sphere_scene,
+    )
+    from smallpt_tpu_torch.ops import dda
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    out = {}
+    p800 = procedural_sphere_scene(800)
+    g800 = dda.build_dda_grid(p800, occ_target=16.0, device=dev)
+    for name, inside in (("procedural800_inside", True),
+                         ("procedural800_outside", False)):
+        o, d = dda_rays(2048, 1, inside=inside)
+        out[name] = k4_vs_plain(name, t(o), t(d), g800)
+    o, d = dda_rays(1024, 2)
+    out["cornell_occ4"] = k4_vs_plain("cornell", t(o), t(d), dda.build_dda_grid(
+        cornell_box_scene(), occ_target=4.0, device=dev))
+    g = dda.build_dda_grid(procedural_sphere_scene(600), nb=(2, 2, 2),
+                           k_max=48, device=dev)
+    if g.n_overflow == 0:
+        raise AssertionError("the k_max 48 grid did not overflow")
+    o, d = dda_rays(1024, 3)
+    out["overflow_nb222_k48"] = k4_vs_plain("overflow", t(o), t(d), g)
+    out["overflow_nb222_k48"]["n_overflow"] = g.n_overflow
+    g = dda.build_dda_grid(procedural_sphere_scene(400), occ_target=16.0,
+                           device=dev)
+    r = np.random.default_rng(4)
+    o = r.uniform([5, 5, 20], [95, 75, 150], (1024, 3))
+    o[:64] = np.asarray(g.lo)
+    o[64:128, 0] = g.lo[0]
+    d = np.eye(3)[r.integers(0, 3, 1024)] * r.choice([-1.0, 1.0], (1024, 1))
+    out["axis_aligned_boundary"] = k4_vs_plain(
+        "axis-aligned", t(o.astype(np.float32)), t(d.astype(np.float32)), g)
+    for v in out.values():
+        for k in ("planes", "got"):
+            v.pop(k)
+    return out
+
+
+def dda_main(dev) -> dict:
+    """bench_dda_tpu.py's stage 2 through the entry point a caller uses,
+    intersect_spheres_dda: procedural_sphere_scene(10000), 196,608 bounce
+    rays (origins in the volume, isotropic) and 196,608 camera rays (around
+    the camera, coherent), grids at occ_target 16, 28 and 48 (k_max 128).
+    The main path runs once (counts zeroed before it, read after: one K4
+    launch a grid and ray set). Then, per grid and ray set: K4 against its
+    plain version (bit-equal), against K2 (closest_hit) on the same rays
+    (hit/miss, winner id and t bit-equal), K4's, K2's and the plain
+    version's ms, the cells a ray visited (the plain walk's counts), the
+    bound and the registers."""
+    import torch
+
+    from smallpt_tpu_torch.core.scene import procedural_sphere_scene, scene_to
+    from smallpt_tpu_torch.ops import dda
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    scene = procedural_sphere_scene(10_000)
+    dscene = scene_to(scene, dev)
+    rays = {}
+    for name, inside, coh in (("bounce", True, False),
+                              ("camera", False, True)):
+        o, d = dda_rays(DDA_RAYS, 11, inside=inside, coherent=coh)
+        rays[name] = (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))
+    grids, build_s = {}, {}
+    for occ in DDA_OCC:
+        t = time.perf_counter()
+        grids[occ] = dda.build_dda_grid(scene, occ_target=occ, k_max=128,
+                                        device=dev)
+        build_s[occ] = time.perf_counter() - t
+
+    # ---- the main path: intersect_spheres_dda on every grid and ray set
+    zero_counts()
+    t = time.perf_counter()
+    hits = {(occ, n): dda.intersect_spheres_dda(o, d, dscene, g,
+                                                want_uv=False)
+            for occ, g in grids.items() for n, (o, d) in rays.items()}
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    launches = counts()
+    for h in hits.values():
+        if not (torch.isfinite(h.t) | torch.isinf(h.t)).all():
+            raise AssertionError("K4 main path: NaN t")
+
+    table, perm, nbc, nsc = ip.build_sphere_table(scene, device=dev)
+    k2 = {}
+    for n, (o, d) in rays.items():
+        ot, dt = o.T.contiguous(), d.T.contiguous()
+        ms, (t2, slot) = cuda_ms(
+            lambda: ip.closest_hit(ot, dt, table, 64 * nbc, 64 * nsc), 6,
+            skip_first=True)
+        k2[n] = dict(ms=ms, t=t2, id=perm.index_select(0, slot.long()),
+                     bound_ms=k2_bound(table, 64 * nbc, 64 * nsc,
+                                       DDA_RAYS)["bound_ms"])
+    out = dict(rays=DDA_RAYS, launches=launches, main_path_s=main_s,
+               grids={int(occ): dict(nb=list(g.nb), cells=g.n_cells, k=g.k,
+                                     n_local=g.n_local,
+                                     n_overflow=g.n_overflow,
+                                     table_mb=g.cells.numel() * 4 / 1e6,
+                                     build_s=build_s[occ])
+                      for occ, g in grids.items()},
+               k2_ms={n: v["ms"] for n, v in k2.items()},
+               k2_bound_ms={n: v["bound_ms"] for n, v in k2.items()})
+    for occ, g in grids.items():
+        for n, (o, d) in rays.items():
+            name = f"occ{int(occ)}_{n}"
+            st = k4_vs_plain(name, o, d, g)
+            (ot, dt), (t4, code) = st.pop("planes"), st.pop("got")
+            # the entry point's answer equals the wrapper's
+            h = hits[(occ, n)]
+            if not torch.equal(torch.where(t4 >= 3e38, float("inf"), t4),
+                               h.t):
+                raise AssertionError(f"{name}: intersect_spheres_dda t "
+                                     "differs from closest_hit_dda's")
+            # against K2 on the same rays: hit/miss, t and the winner
+            c = code.long()
+            ids4 = torch.where(
+                c < 0, g.perm_a.index_select(0, (-c - 1).clamp(min=0)), c)
+            hit = k2[n]["t"] < 3e38
+            if not torch.equal(t4, k2[n]["t"]):
+                raise AssertionError(
+                    f"{name}: K4 t differs from K2's on "
+                    f"{int((t4 != k2[n]['t']).sum())} rays")
+            if not torch.equal(ids4[hit], k2[n]["id"][hit]):
+                raise AssertionError(
+                    f"{name}: K4 winner differs from K2's on "
+                    f"{int((ids4[hit] != k2[n]['id'][hit]).sum())} rays")
+            ms, _ = cuda_ms(lambda: dda.closest_hit_dda(ot, dt, g), 6,
+                            skip_first=True)
+            st.update(k4_bound(st["counts"], DDA_RAYS, g))
+            st.update(kernel_ms=ms, k2_ms_same_rays=k2[n]["ms"],
+                      vs_k2=dict(t_equal=True, ids_equal=True,
+                                 hits=int(hit.sum())),
+                      mrays_per_s=DDA_RAYS / ms / 1e3)
+            out[name] = st
+    out["ptxas"] = ptxas_entry("smallpt_dda")
+    return out
+
+
+# the host surfaces' configuration: bench.py's per pass (Cornell, 1024x768,
+# 4 spp a pass, max_depth 48) and the 10,000-sphere scene load_scene swaps in
+SURF_W, SURF_H, SURF_SPHERES = 1024, 768, 10_000
+
+
+def _session_lines(lines, r, records):
+    """The session's in-memory stream: a line is read once the previous
+    request has been taken by a pass and a pass has ended since, so each
+    request restarts the accumulation in a pass of its own."""
+    for ln in lines:
+        n, deadline = len(records), time.perf_counter() + 120
+        while r.pending_requests or len(records) <= n:
+            if time.perf_counter() > deadline:
+                raise AssertionError("session stream: no pass for 120 s")
+            time.sleep(1e-3)
+        yield ln
+
+
+def host_surfaces(dev) -> dict:
+    """The host surfaces on bench.py's per-pass configuration (Cornell,
+    1024x768, 4 spp a pass, max_depth 48; K1a): an InteractiveSession over
+    an in-memory stream (update_camera, u, d, reset, snapshot, quit) driving
+    a ProgressiveRenderer, each pass that restarts the accumulation
+    bit-equal to a fresh renderer's first pass at its camera, and the time
+    from a camera request to the end of the pass showing it; load_scene of
+    a 10,000-sphere scene file (its next pass through the binned drain, K8,
+    bit-equal to a fresh renderer's) and back to the Cornell box; run with
+    frames through the native writer, each file byte-equal to the numpy
+    writer's on the same image, and a frame's write time; a checkpoint at
+    pass 2 resumed to pass 4, byte-equal to four passes; the CLI in
+    process (--frames, --scene-file, --interactive on a replaced stdin,
+    --checkpoint and --resume); occupancy_profile on REGEN through K2,
+    whose sum is render_with_stats' rays; one pass under trace."""
+    import io
+
+    import torch
+
+    from smallpt_tpu_torch import cli
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig, Scheduler,
+    )
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, procedural_sphere_scene,
+    )
+    from smallpt_tpu_torch.core.scene_io import (
+        load_scene, save_scene, scene_to_dict,
+    )
+    from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
+    from smallpt_tpu_torch.engine.renderer import render_with_stats
+    from smallpt_tpu_torch.interactive import InteractiveSession
+    from smallpt_tpu_torch.utils import image as img_io
+    from smallpt_tpu_torch.utils import metrics, native
+
+    cfg = RenderConfig(width=SURF_W, height=SURF_H, spp_per_cell=1,
+                       max_depth=48, camera_model=CameraModel.LEGACY,
+                       filter=Filter.TENT)
+    cornell, legacy = cornell_box_scene(), smallpt_camera()
+    tmp = tempfile.mkdtemp(prefix="smallpt_torch_surfaces_")
+    out = {}
+
+    def fresh(scene, camera, seed=0):
+        f = ProgressiveRenderer(scene, camera, cfg, seed=seed, device=dev)
+        f.step()
+        return f.accum
+
+    # ---- the session: each request lands between two passes
+    r = ProgressiveRenderer(cornell, legacy, cfg, seed=0, device=dev)
+    records, enq = [], []
+    real_step, real_enqueue = r.step, r.enqueue
+
+    def step(n_passes=1):
+        real_step(n_passes)
+        r.image  # the frame on the host: the copy synchronizes
+        records.append(dict(
+            count=r.sample_count, camera=r.camera,
+            accum=r.accum.clone() if r.sample_count == 1 else None,
+            t=time.perf_counter()))
+
+    def enqueue(req):
+        enq.append(time.perf_counter())
+        real_enqueue(req)
+
+    r.step, r.enqueue = step, enqueue
+    snap = os.path.join(tmp, "snap.png")
+    lines = [json.dumps({"action": "update_camera",
+                         "org": [50.0, 53.0, 295.6]}), "u", "d",
+             json.dumps({"action": "reset"}),
+             json.dumps({"action": "snapshot", "path": snap}),
+             json.dumps({"action": "quit"})]
+    session = InteractiveSession(r, stream=_session_lines(lines, r,
+                                                          records))
+    zero_counts()
+    t0 = time.perf_counter()
+    passes = session.run(max_passes=200)
+    session.reader.join(timeout=60)
+    torch.cuda.synchronize()
+    launched = counts()
+    if session.reader.is_alive():
+        raise AssertionError("session reader thread did not end")
+    restarts = [rec for rec in records if rec["count"] == 1]
+    # the first pass, and one for each of update_camera, u, d and reset
+    if len(restarts) != 5 or not os.path.exists(snap):
+        raise AssertionError(f"session: {len(restarts)} restarts, snapshot "
+                             f"{os.path.exists(snap)}")
+    for rec in restarts:
+        if not torch.equal(rec["accum"], fresh(cornell, rec["camera"])):
+            raise AssertionError("session: a restarted pass differs from a "
+                                 "fresh renderer's first pass")
+    ys = [float(rec["camera"].origin[1]) for rec in restarts]
+    # each request's pass: the restarts after the first
+    latency = [(rec["t"] - e) * 1e3 for e, rec in zip(enq, restarts[1:])]
+    if not launched["mega_pass"] or any(
+            v for k, v in launched.items() if k != "mega_pass"):
+        raise AssertionError(f"session: launches {launched}")
+    out["session"] = dict(passes=passes, seconds=time.perf_counter() - t0,
+                          launches=launched, restarts_bit_equal=len(restarts),
+                          camera_y=ys, request_to_frame_ms=latency)
+
+    # ---- load_scene: 10,000 spheres from a file (the binned drain), back
+    path = os.path.join(tmp, "procedural.json")
+    save_scene(procedural_sphere_scene(SURF_SPHERES), path)
+    r = ProgressiveRenderer(cornell, legacy, cfg, seed=0, device=dev)
+    r.step()
+    r.enqueue({"action": "load_scene", "path": path})
+    zero_counts()
+    t = time.perf_counter()
+    r.step()
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t) * 1e3
+    launched = counts()
+    if (r.route != "binned" or not launched["stream_step_binned"]
+            or not torch.equal(r.accum, fresh(load_scene(path), legacy))):
+        raise AssertionError(f"load_scene of 10,000 spheres: route "
+                             f"{r.route}, launches {launched}, or the pass "
+                             "differs from a fresh renderer's")
+    r.enqueue({"action": "load_scene", "scene": scene_to_dict(cornell)})
+    r.step()
+    if r.route != "mega" or not torch.equal(r.accum, fresh(cornell, legacy)):
+        raise AssertionError("load_scene back to the Cornell box differs")
+    out["load_scene"] = dict(route="binned", launches=launched,
+                             request_to_frame_ms=load_ms,
+                             back_to_cornell_route="mega")
+
+    # ---- run with frames through the native writer
+    frames = os.path.join(tmp, "frames", "f_%02d.ppm")
+    shown = []
+    r = ProgressiveRenderer(cornell, legacy, cfg, seed=1, device=dev)
+    t = time.perf_counter()
+    r.run(4, on_frame=lambda p: shown.append(p.image), frame_pattern=frames)
+    run_ms = (time.perf_counter() - t) * 1e3
+    # each frame byte-equal to the synchronous writer of the same image:
+    # the native one (the two tone maps round apart, ROADMAP.md H10), or
+    # without the library, the numpy one the sink falls back to
+    binary = native.available()
+    for i, img in enumerate(shown, 1):
+        ref = os.path.join(tmp, "ref.ppm")
+        if binary:
+            native.write_ppm(ref, img[::-1], binary=True)
+        else:
+            img_io.write_ppm(ref, img)
+        with open(frames % i, "rb") as fa, open(ref, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"frame {i} differs from the "
+                                     "synchronous writer's file")
+    img = shown[-1]
+    tonemap_apart = (int((native.tonemap(img) != img_io.to_int(img)).sum())
+                     if binary else None)
+    native_ms = numpy_ms = None
+    if binary:
+        t = time.perf_counter()
+        native.write_ppm(os.path.join(tmp, "n.ppm"), img[::-1], binary=True)
+        native_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    img_io.write_ppm_binary(os.path.join(tmp, "p.ppm"), img)
+    numpy_ms = (time.perf_counter() - t) * 1e3
+    out["run_frames"] = dict(native=binary, frames=len(shown),
+                             byte_equal=True, run_ms=run_ms,
+                             tonemap_values_apart=tonemap_apart,
+                             frame_write_ms_native=native_ms,
+                             frame_write_ms_numpy=numpy_ms)
+
+    # ---- a per-pass checkpoint at pass 2, resumed to pass 4
+    ck = os.path.join(tmp, "ck.npz")
+    a = ProgressiveRenderer(cornell, legacy, cfg, seed=2, device=dev)
+    a.step(2)
+    t = time.perf_counter()
+    a.save_checkpoint(ck)
+    save_ms = (time.perf_counter() - t) * 1e3
+    b = ProgressiveRenderer(cornell, legacy, cfg, seed=2, device=dev)
+    t = time.perf_counter()
+    b.load_checkpoint(ck)
+    load_ck_ms = (time.perf_counter() - t) * 1e3
+    b.step(2)
+    c = ProgressiveRenderer(cornell, legacy, cfg, seed=2, device=dev)
+    c.step(4)
+    if not (torch.equal(b.accum, c.accum) and b.sample_count == 4
+            and np.array_equal(b.image, c.image)):
+        raise AssertionError("resumed passes differ from four passes")
+    out["checkpoint"] = dict(byte_equal=True, save_ms=save_ms,
+                             load_ms=load_ck_ms,
+                             bytes=os.path.getsize(ck))
+
+    # ---- the CLI in process
+    cpath = os.path.join(tmp, "cornell.json")
+    save_scene(cornell, cpath)
+    common = ["4", "--width", str(SURF_W), "--height", str(SURF_H),
+              "--max-depth", "48", "--device", dev.type, "--quiet"]
+    f = {n: os.path.join(tmp, n + ".ppm") for n in (
+        "one", "file", "frames", "inter", "a", "b", "four")}
+    zero_counts()
+    t = time.perf_counter()
+    stdin = sys.stdin
+    try:
+        rc = [cli.main(common + ["--passes", "2", "--out", f["one"]]),
+              cli.main(common + ["--passes", "2", "--scene-file", cpath,
+                                 "--out", f["file"]]),
+              cli.main(common + ["--passes", "3", "--out", f["frames"],
+                                 "--frames", os.path.join(
+                                     tmp, "cli_frames", "f_%02d.ppm")])]
+        sys.stdin = io.StringIO(lines[0] + "\nu\n" + lines[-1] + "\n")
+        rc.append(cli.main(common + ["--interactive", "--out", f["inter"]]))
+    finally:
+        sys.stdin = stdin
+    rc += [cli.main(common + ["--passes", "2", "--out", f["a"],
+                              "--checkpoint", ck]),
+           cli.main(common + ["--passes", "2", "--out", f["b"],
+                              "--resume", ck]),
+           cli.main(common + ["--passes", "4", "--out", f["four"]])]
+    torch.cuda.synchronize()
+    launched = counts()
+
+    def same(x, y):
+        with open(f[x], "rb") as fx, open(f[y], "rb") as fy:
+            return fx.read() == fy.read()
+
+    n_frames = len(os.listdir(os.path.join(tmp, "cli_frames")))
+    if (rc != [0] * 7 or not same("one", "file") or not same("b", "four")
+            or n_frames != 3 or not launched["mega_pass"]):
+        raise AssertionError(f"CLI: rc {rc}, frames {n_frames}, launches "
+                             f"{launched}")
+    out["cli"] = dict(seconds=time.perf_counter() - t, launches=launched,
+                      scene_file_byte_equal=True, frames=n_frames,
+                      resume_byte_equal=True, interactive_rc=0)
+
+    # ---- occupancy on REGEN through K2, and one pass under trace
+    rcfg = cfg.replace(scheduler=Scheduler.REGEN,
+                       intersector=Intersector.PALLAS)
+    key = rng.fold_in(rng.base_key(0), 3)
+    zero_counts()
+    t = time.perf_counter()
+    occ = metrics.occupancy_profile(cornell, legacy, rcfg, key, device=dev)
+    occ_s = time.perf_counter() - t
+    launched = counts()
+    _, rays = render_with_stats(cornell, legacy, rcfg, key, device=dev)
+    if (int(occ.sum()) != int(rays) or occ[0] != rcfg.n_pixels
+            or not launched["closest_hit"]):
+        raise AssertionError(f"occupancy: sum {int(occ.sum())} vs rays "
+                             f"{int(rays)}, launches {launched}")
+    out["occupancy_regen_k2"] = dict(
+        iterations=len(occ), sum=int(occ.sum()), rays=int(rays),
+        seconds=occ_s, launches=launched,
+        utilization_first_last=[float(occ[0] / rcfg.n_pixels),
+                                float(occ[-1] / rcfg.n_pixels)],
+        utilization_mean=float(occ.mean() / rcfg.n_pixels))
+    r = ProgressiveRenderer(cornell, legacy, cfg, seed=0, device=dev)
+    r.step()
+    tdir = os.path.join(tmp, "trace")
+    with metrics.trace(tdir) as prof:
+        r.step()
+        torch.cuda.synchronize()
+    files = os.listdir(tdir)
+    if len(files) != 1 or os.path.getsize(os.path.join(tdir, files[0])) == 0:
+        raise AssertionError(f"trace wrote {files}")
+    with open(os.path.join(tdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    out["trace"] = dict(file=files[0],
+                        bytes=os.path.getsize(os.path.join(tdir, files[0])),
+                        events=len(events),
+                        kernel_events=sum(e.get("cat") == "kernel"
+                                          for e in events),
+                        device_ms=sum(device_ms_by_name(prof).values()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2948,6 +3475,7 @@ def main() -> int:
     )
     from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
     from smallpt_tpu_torch.engine.renderer import render
+    from smallpt_tpu_torch.ops import dda
     from smallpt_tpu_torch.ops import intersect_pallas as ip
     from smallpt_tpu_torch.ops import megakernel as mk
     from smallpt_tpu_torch.ops import mesh_pallas as mp
@@ -2965,9 +3493,9 @@ def main() -> int:
     phase("device", kind=kind, count=torch.cuda.device_count(),
           nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- 2. build: the six libraries at once ----------------------------
+    # ---- 2. build: the seven libraries at once --------------------------
     libraries = (mk.LIBRARY, sd.LIBRARY, ip.LIBRARY, mp.LIBRARY,
-                 mp.LIBRARY_CULLED, mk.LIBRARY_BINNED)
+                 mp.LIBRARY_CULLED, mk.LIBRARY_BINNED, dda.LIBRARY)
     t_build = time.perf_counter()
     nvcc.build(dict(libraries))
     t_build = time.perf_counter() - t_build
@@ -2978,6 +3506,7 @@ def main() -> int:
     mp._kernel_lib()
     mp._culled_lib()
     mk._binned_lib()
+    dda._kernel_lib()
     builds = {}
     for lib, _ in libraries:
         info = nvcc.builds.get(lib, {"cmd": None, "seconds": 0.0,
@@ -3222,6 +3751,16 @@ def main() -> int:
     gmain = grad_main(dev)
     phase("grad_main_cornell_512x512", **gmain)
 
+    # ---- 46-48. the per-ray DDA kernel K4: against its plain version on
+    # tests/test_dda.py's cases, then bench_dda_tpu.py's stage 2 through
+    # intersect_spheres_dda, against the plain version and K2; the host
+    # surfaces on the per-pass Cornell configuration --------------------------
+    k4_small = dda_vs_plain_small(dev)
+    phase("dda_vs_plain_small", **k4_small)
+    k4 = dda_main(dev)
+    phase("dda_main_procedural10000", **k4)
+    phase("host_surfaces_cornell_1024x768", **host_surfaces(dev))
+
     def wf_kernel(name, path, entry, replaces, cmp_stats):
         launch = path["kernel"]["middle"]
         errs = [st["max_abs_err"] for st in cmp_stats.values()]
@@ -3327,6 +3866,26 @@ def main() -> int:
         "bound_ms": launch["bound_ms"], "bound_by": launch["bound_by"],
         "rays": launch["rays"], "ptxas": ptxas_entry(
             mk.LIBRARY[0], "mega_pass_kernelILb0ELb1E"),
+        "library_ms": None,
+    })
+    k4_main = [v for n, v in k4.items() if n.startswith("occ")]
+    k4_mid = k4["occ28_bounce"]
+    wf_kernels.append({
+        "name": "closest_hit_dda", "route": "cuda",
+        "source": "smallpt_tpu_torch/csrc/dda.cu",
+        "replaces": "smallpt_tpu/ops/dda.py:258",
+        "launches": k4["launches"]["closest_hit_dda"],
+        "max_abs_err": max(v["max_abs_err"] for v in (*k4_small.values(),
+                                                      *k4_main)),
+        "ms": k4_mid["kernel_ms"], "plain_ms": k4_mid["plain_ms"],
+        "bound_ms": k4_mid["bound_ms"], "bound_by": k4_mid["bound_by"],
+        "rays": DDA_RAYS, "k2_ms_same_rays": k4_mid["k2_ms_same_rays"],
+        "by_grid_and_rays": {
+            n: {f: v[f] for f in ("kernel_ms", "k2_ms_same_rays", "plain_ms",
+                                  "bound_ms", "bound_by",
+                                  "cells_per_ray_mean", "cells_per_ray_max")}
+            for n, v in k4.items() if n.startswith("occ")},
+        "ptxas": k4["ptxas"],
         "library_ms": None,
     })
     # K2 on the gradient path: the scan differentiator and the recorder

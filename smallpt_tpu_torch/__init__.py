@@ -39,7 +39,14 @@ Ported so far, with next-event estimation (ROADMAP.md):
   recording megakernel, K1b in csrc/megakernel.cu, per in-pixel sample,
   then torch autograd through the flat wavefront's bounce on the recorded
   winners), or the flat wavefront under autograd with K2 picking the
-  winners.
+  winners;
+- the per-ray DDA closest hit (ops/dda.py::intersect_spheres_dda ->
+  csrc/dda.cu, K4), which no route calls, as in the JAX package;
+- the host surfaces: every progressive renderer's JSON request queue,
+  run and checkpoints (engine/progressive.py), scene files
+  (core/scene_io.py), the interactive session (interactive.py), the
+  native frame writer (utils/native.py), trace and occupancy_profile
+  (utils/metrics.py).
 """
 
 from smallpt_tpu_torch.config import (
@@ -49,6 +56,7 @@ from smallpt_tpu_torch.core.camera import LegacyCamera, MatrixCamera
 from smallpt_tpu_torch.core.scene import (
     DIFF, REFR, SPEC, Material, MeshScene, SphereScene,
 )
+from smallpt_tpu_torch.engine.accum import WeightedAccum
 from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
 from smallpt_tpu_torch.engine.mesh_stream import WavefrontStreamingRenderer
 from smallpt_tpu_torch.engine.progressive import (
@@ -72,4 +80,5 @@ __all__ = [
     "WavefrontStreamingRenderer", "MeshStreamProgressiveRenderer",
     "BinnedStreamingRenderer", "BinnedProgressiveRenderer",
     "image_loss_and_grads", "sgd_train_step", "adam_optimizer",
+    "WeightedAccum",
 ]

@@ -12,9 +12,12 @@ JAX CLI: through MeshStreamProgressiveRenderer per pass without
 Sphere scenes above MEGA_MAX_SPHERES in full transport take
 BinnedProgressiveRenderer per pass, whatever the scheduler, and
 ``--binned`` renders any sphere scene through BinnedStreamingRenderer in
-one stream (both through kernel K8). All run on the card (``--device
-cuda``, the default) or through the plain PyTorch versions (``--device
-cpu``).
+one stream (both through kernel K8). ``--scene-file`` renders a JSON scene
+file, ``--frames`` writes a frame a pass through the native frame writer,
+``--interactive`` reads the JSON request protocol from stdin
+(interactive.py), and ``--checkpoint``/``--resume`` save and resume every
+route. All run on the card (``--device cuda``, the default) or through the
+plain PyTorch versions (``--device cpu``).
 
 Examples:
     python -m smallpt_tpu_torch 16 --width 1024 --height 768 --out c.png
@@ -31,6 +34,9 @@ Examples:
         --max-depth 24
     python -m smallpt_tpu_torch 8 --scene procedural --binned --nee 8 \
         --checkpoint ck.npz
+    python -m smallpt_tpu_torch 4 --scene-file scene.json --passes 8 \
+        --frames frames/f_%04d.ppm
+    echo '{"action": "quit"}' | python -m smallpt_tpu_torch 4 --interactive
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from smallpt_tpu_torch.config import (
 )
 from smallpt_tpu_torch.core import scene as scenes
 from smallpt_tpu_torch.core.camera import default_matrix_camera, smallpt_camera
+from smallpt_tpu_torch.core.scene import MeshScene
 from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
 from smallpt_tpu_torch.engine.mesh_stream import WavefrontStreamingRenderer
 from smallpt_tpu_torch.engine.progressive import (
@@ -54,6 +61,7 @@ from smallpt_tpu_torch.engine.streaming import StreamingRenderer
 from smallpt_tpu_torch.ops.megakernel import MEGA_MAX_SPHERES
 from smallpt_tpu_torch.utils import image as img_io
 from smallpt_tpu_torch.utils.metrics import log_json
+from smallpt_tpu_torch.utils.native import FrameSink
 
 SCENES = {
     "cornell": scenes.cornell_box_scene,
@@ -69,13 +77,6 @@ SCENES = {
 }
 _MESH_SCENES = ("triangle", "mesh")
 
-# flags of the JAX package's CLI whose routes are not ported yet
-_NOT_PORTED = {
-    "interactive": "the interactive session (ROADMAP.md, modules item 13)",
-    "frames": "the per-pass frame writer (ROADMAP.md, modules item 7)",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="smallpt-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -83,6 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="total samples per pixel (divided over jitter cells, "
                         "like the reference's argv[1])")
     p.add_argument("--scene", choices=sorted(SCENES), default="cornell")
+    p.add_argument("--scene-file", default=None, metavar="PATH",
+                   help="render a JSON scene file (core/scene_io.py "
+                        "format; overrides --scene)")
     p.add_argument("--width", type=int, default=256)
     p.add_argument("--height", type=int, default=256)
     p.add_argument("--mode", choices=[m.value for m in Mode], default="full")
@@ -127,13 +131,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats", action="store_true",
                    help="emit one structured JSON log line per pass")
     p.add_argument("--checkpoint", default=None,
-                   help="with --streaming or --binned, or a mesh or big "
-                        "sphere scene's default route: save the stream "
-                        "state here after rendering")
+                   help="save the progressive or stream state here after "
+                        "rendering")
     p.add_argument("--resume", default=None,
-                   help="with --streaming or --binned, or a mesh or big "
-                        "sphere scene's default route: resume from a "
-                        "stream checkpoint (of either package)")
+                   help="resume from a checkpoint of the same route (of "
+                        "either package)")
     p.add_argument("--quality", type=float, default=None, metavar="REL_ERR",
                    help="with --streaming or --binned: equal-quality "
                         "stopping — render until the 95%%-quantile "
@@ -148,13 +150,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "to sample explicitly (e.g. --nee 8 for the Cornell "
                         "light)")
     p.add_argument("--frames", default=None, metavar="PATTERN",
-                   help="not ported yet")
+                   help="write a frame after each pass to PATTERN "
+                        "(printf-style, e.g. frames/f_%%04d.ppm) through "
+                        "the native async frame writer; the streams split "
+                        "their samples into --passes chunks for it")
     p.add_argument("--binned", action="store_true",
                    help="grid-binned streaming renderer for sphere scenes "
                         "(kernel K8): spp x passes samples per pixel in one "
                         "stream")
     p.add_argument("--interactive", action="store_true",
-                   help="not ported yet")
+                   help="render progressively until EOF or quit, reading "
+                        "line-delimited JSON commands from stdin "
+                        "(update_camera, update_scene, load_scene, reset, "
+                        "snapshot, quit, and u/d camera nudges)")
     return p
 
 
@@ -167,29 +175,41 @@ def _write(path: str, img) -> None:
         img_io.write_ppm(path, img)
 
 
+def _load_scene(args):
+    """(scene, is a mesh) of --scene-file, else of --scene."""
+    if args.scene_file:
+        from smallpt_tpu_torch.core.scene_io import load_scene
+
+        scene = load_scene(args.scene_file)
+        return scene, isinstance(scene, MeshScene)
+    return SCENES[args.scene](), args.scene in _MESH_SCENES
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what} is not yet ported")
-    scene = SCENES[args.scene]()
-    mesh_scene = args.scene in _MESH_SCENES
-    # the JAX CLI's defaults: the triangle scene takes the matrix camera,
-    # every other scene the legacy one; the filter follows the camera
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    scene, mesh_scene = _load_scene(args)
+    # the JAX CLI's defaults: the built-in triangle scene takes the matrix
+    # camera, every other scene the legacy one; the filter follows the
+    # camera; real meshes take the triangle kernel, the 1-triangle debug
+    # scene and sphere scenes the plain route (all from the resolved scene)
     camera_model = CameraModel(args.camera) if args.camera else (
-        CameraModel.MATRIX if args.scene == "triangle"
+        CameraModel.MATRIX if args.scene == "triangle" and not args.scene_file
         else CameraModel.LEGACY)
     filt = Filter(args.filter) if args.filter else (
         Filter.BOX if camera_model == CameraModel.MATRIX else Filter.TENT)
-    # real meshes take the triangle kernel; the 1-triangle debug scene and
-    # sphere scenes the plain route
     intersector = Intersector(args.intersector) if args.intersector else (
         Intersector.PALLAS if mesh_scene and scene.n_triangles >= 64
         else Intersector.JAX)
-    if args.quality is not None and not (args.streaming or args.binned):
-        build_parser().error("--quality requires --streaming or --binned "
-                             "(equal-quality stopping drives those "
-                             "renderers' moment planes)")
+    if args.streaming and args.interactive:
+        parser.error("--streaming and --interactive are exclusive (the "
+                     "interactive protocol drives the progressive "
+                     "accumulator)")
+    if args.quality is not None and not (
+            args.streaming or (args.binned and not args.interactive)):
+        parser.error("--quality requires --streaming or --binned "
+                     "(equal-quality stopping drives those renderers' "
+                     "moment planes)")
     config = RenderConfig(
         width=args.width,
         height=args.height,
@@ -216,107 +236,126 @@ def main(argv=None) -> int:
     kind = "instances" if mesh_scene else "spheres"
     for li in args.nee or ():
         if not 0 <= li < n_ent:
-            build_parser().error(f"--nee index {li} out of range (scene has "
-                                 f"{n_ent} {kind})")
+            parser.error(f"--nee index {li} out of range (scene has "
+                         f"{n_ent} {kind})")
         if float(scene.material.emission[li].max()) <= 0:
             print(f"warning: --nee light {li} has zero emission",
                   file=sys.stderr)
         if mesh_scene and not bool((scene.tri_inst == li).any()):
-            build_parser().error(f"--nee instance {li} has no triangles")
-    # an EXPLICIT --scheduler pins the per-pass engine (its keying and
-    # checkpoint format differ from the streaming one)
-    full = config.mode == Mode.FULL and config.split_budget == 1
-    mesh_stream = (not args.streaming and mesh_scene and full
-                   and args.scheduler is None)
-    # the JAX CLI sends big sphere scenes to its binned renderer, whatever
-    # the scheduler
-    big_binned = (not args.streaming and not mesh_scene and full
-                  and scene.n_spheres > MEGA_MAX_SPHERES)
-    if (args.checkpoint or args.resume) and not (
-            args.streaming or args.binned or mesh_stream or big_binned):
-        raise NotImplementedError(
-            "--checkpoint/--resume: checkpoints of the per-pass route "
-            "(ROADMAP.md, modules item 6) are not yet ported")
+            parser.error(f"--nee instance {li} has no triangles")
     n_passes = args.passes if args.passes is not None else 1
+    sink = None
+    if args.frames and not (args.interactive or args.binned):
+        sink = FrameSink(args.frames, config.width, config.height)
+        if not sink.native:
+            print("native frame writer unavailable; writing frames "
+                  "synchronously", file=sys.stderr)
 
     t0 = time.time()
-    if args.binned:
-        # one binned stream (as the JAX CLI, --binned before --streaming);
-        # a step runs 2 x max_depth bounces
-        br = BinnedStreamingRenderer(scene, camera, config, seed=args.seed,
-                                     device=args.device)
-        if args.resume:
-            br.load_checkpoint(args.resume)
-        if args.quality is not None:
-            q = br.step_to_quality(rel_err=args.quality,
-                                   max_spp=config.spp * n_passes,
-                                   n_bounces=2 * config.max_depth)
-            if not args.quiet:
-                print(f"quality stop: rel_err@95% {q['rel_err_q']:.4f} "
-                      f"spp {q['spp_min']}..{q['spp_max']} "
-                      f"({q['rounds']} rounds)", file=sys.stderr)
+    try:
+        if args.binned and not args.interactive:
+            # one binned stream (as the JAX CLI, --binned before
+            # --streaming); a step runs 2 x max_depth bounces
+            r = BinnedStreamingRenderer(scene, camera, config,
+                                        seed=args.seed, device=args.device)
+            if args.resume:
+                r.load_checkpoint(args.resume)
+            if args.quality is not None:
+                _quality(args, r.step_to_quality(
+                    rel_err=args.quality, max_spp=config.spp * n_passes,
+                    n_bounces=2 * config.max_depth))
+            else:
+                r.step(add_samples=config.spp * n_passes,
+                       n_bounces=2 * config.max_depth)
+                r.flush()
+            if args.stats:
+                log_json("binned_done", r.stats.as_dict())
+        elif args.streaming:
+            # triangle scenes stream through the wavefront (engine/
+            # mesh_stream.py); spheres keep the streaming kernels
+            r = (WavefrontStreamingRenderer if mesh_scene
+                 else StreamingRenderer)(scene, camera, config,
+                                         seed=args.seed, device=args.device)
+            # a mesh stream's step runs 2 x max_depth bounces, as in the
+            # JAX CLI; the sphere stream's runs kernel iterations until it
+            # drains
+            per_step = {"n_bounces": 2 * config.max_depth} if mesh_scene else {}
+            if args.resume:
+                r.load_checkpoint(args.resume)
+            if args.quality is not None:
+                # equal-quality stopping: spp x passes becomes the sample
+                # pool, allocated adaptively until the target stderr
+                _quality(args, r.step_to_quality(
+                    rel_err=args.quality, max_spp=config.spp * n_passes,
+                    **per_step))
+            else:
+                # with --frames the samples go in n_passes chunks, a frame
+                # after each, as the JAX CLI splits them
+                total = config.spp * n_passes
+                chunks = n_passes if sink is not None else 1
+                for c in range(chunks):
+                    r.step(add_samples=max(1, total // chunks),
+                           **(per_step or {"n_iters": 1_000_000}))
+                    if sink is not None:
+                        sink.push(r.image * args.exposure, c + 1)
+                r.flush()
+            if args.stats:
+                log_json("stream_done", r.stats.as_dict())
         else:
-            br.step(add_samples=config.spp * n_passes,
-                    n_bounces=2 * config.max_depth)
-            br.flush()
-        if args.stats:
-            log_json("binned_done", br.stats.as_dict())
-        img = br.image * args.exposure
-    elif args.streaming:
-        # triangle scenes stream through the wavefront (engine/
-        # mesh_stream.py); spheres keep the streaming kernels
-        sr = (WavefrontStreamingRenderer if mesh_scene else StreamingRenderer)(
-            scene, camera, config, seed=args.seed, device=args.device)
-        # a mesh stream's step runs 2 x max_depth bounces, as in the JAX
-        # CLI; the sphere stream's runs kernel iterations until it drains
-        per_step = {"n_bounces": 2 * config.max_depth} if mesh_scene else {}
-        if args.resume:
-            sr.load_checkpoint(args.resume)
-        if args.quality is not None:
-            # equal-quality stopping: spp x passes becomes the sample pool,
-            # allocated adaptively until the target relative stderr
-            q = sr.step_to_quality(rel_err=args.quality,
-                                   max_spp=config.spp * n_passes, **per_step)
-            if not args.quiet:
-                print(f"quality stop: rel_err@95% {q['rel_err_q']:.4f} "
-                      f"spp {q['spp_min']}..{q['spp_max']} "
-                      f"({q['rounds']} rounds)", file=sys.stderr)
-        else:
-            sr.step(add_samples=config.spp * n_passes,
-                    **(per_step or {"n_iters": 1_000_000}))
-            sr.flush()
-        if args.stats:
-            log_json("stream_done", sr.stats.as_dict())
-        img = sr.image * args.exposure
-    else:
-        # mesh scenes and big sphere scenes in full transport drive a
-        # persistent streaming wavefront per pass (accel and tables built
-        # once, state carried across passes)
-        r = (MeshStreamProgressiveRenderer if mesh_stream
-             else BinnedProgressiveRenderer if big_binned
-             else ProgressiveRenderer)(scene, camera, config, seed=args.seed,
-                                       device=args.device)
-        r.log_stats = args.stats
-        if args.resume:
-            r.load_checkpoint(args.resume)
-        for i in range(n_passes):
-            r.step()
-            if not args.quiet:
-                done = 100.0 * (i + 1) / n_passes
-                print(f"\rRendering ({config.spp * n_passes} spp) "
-                      f"{done:5.2f}%", end="", file=sys.stderr)
-        r.finalize()  # the streams drain; a per-pass step is complete
-        img = r.image * args.exposure  # the copy to the host synchronizes
+            # mesh scenes and big sphere scenes in full transport drive a
+            # persistent streaming wavefront per pass (accel and tables
+            # built once, state carried across passes); an explicit
+            # --scheduler pins a mesh to the per-pass engine
+            full = config.mode == Mode.FULL and config.split_budget == 1
+            use_binned = args.binned or (
+                not mesh_scene and full
+                and scene.n_spheres > MEGA_MAX_SPHERES)
+            use_mesh_stream = mesh_scene and full and args.scheduler is None
+            r = (BinnedProgressiveRenderer if use_binned
+                 else MeshStreamProgressiveRenderer if use_mesh_stream
+                 else ProgressiveRenderer)(scene, camera, config,
+                                           seed=args.seed, device=args.device)
+            r.log_stats = args.stats
+            if args.resume:
+                r.load_checkpoint(args.resume)
+            if args.interactive:
+                from smallpt_tpu_torch.interactive import InteractiveSession
+
+                passes = InteractiveSession(
+                    r, frame_pattern=args.frames).run(max_passes=args.passes)
+                if not args.quiet:
+                    print(f"interactive session ended after {passes} passes",
+                          file=sys.stderr)
+            else:
+                for i in range(n_passes):
+                    r.step()
+                    if sink is not None:
+                        sink.push(r.image * args.exposure, i + 1)
+                    if not args.quiet:
+                        done = 100.0 * (i + 1) / n_passes
+                        print(f"\rRendering ({config.spp * n_passes} spp) "
+                              f"{done:5.2f}%", end="", file=sys.stderr)
+            r.finalize()  # the streams drain; a per-pass step is complete
+    finally:
+        if sink is not None:
+            sink.close()
+    img = r.image * args.exposure  # the copy to the host synchronizes
     if not args.quiet:
         print(f"\nElapsed time: {(time.time() - t0) * 1000:.0f} ms",
               file=sys.stderr)
     _write(args.out, img)
     if args.checkpoint:
-        (br if args.binned else sr if args.streaming else r
-         ).save_checkpoint(args.checkpoint)
+        r.save_checkpoint(args.checkpoint)
     if not args.quiet:
         print(f"Wrote {args.out}", file=sys.stderr)
     return 0
+
+
+def _quality(args, q: dict) -> None:
+    if not args.quiet:
+        print(f"quality stop: rel_err@95% {q['rel_err_q']:.4f} "
+              f"spp {q['spp_min']}..{q['spp_max']} "
+              f"({q['rounds']} rounds)", file=sys.stderr)
 
 
 if __name__ == "__main__":

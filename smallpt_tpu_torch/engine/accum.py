@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from smallpt_tpu_torch.utils.device import resolve_device
+
 
 class WeightedAccum(NamedTuple):
     """(color, weight) accumulator pair (RenderOutputs.m_Colors /
@@ -23,7 +25,10 @@ class WeightedAccum(NamedTuple):
 
     @classmethod
     def zeros(cls, height: int, width: int, dtype=torch.float32,
-              device="cpu"):
+              device=None):
+        """Zero buffers on ``device`` (None means CUDA, like every entry
+        point of the port)."""
+        device = resolve_device(device)
         return cls(
             color=torch.zeros((height, width, 3), dtype=dtype, device=device),
             weight=torch.zeros((height, width), dtype=dtype, device=device),

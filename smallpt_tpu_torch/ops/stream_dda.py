@@ -62,14 +62,13 @@ from smallpt_tpu_torch.config import Mode, RenderConfig
 from smallpt_tpu_torch.core import rng as prng
 from smallpt_tpu_torch.core.scene import SphereScene
 from smallpt_tpu_torch.ops import megakernel as mk
+from smallpt_tpu_torch.ops.dda import MAX_AXIS_CELLS, bin_local_spheres
 from smallpt_tpu_torch.utils.device import resolve_device
 
 # The radius from which a sphere is wall-class: swept by every ray from the
 # always table instead of binned into cells (ops/intersect_pallas.py's
 # STABLE_RADIUS in the JAX package).
 STABLE_RADIUS = 100.0
-# The packed walk cell (ix<<10)|(iy<<5)|iz holds 5 bits per axis.
-MAX_AXIS_CELLS = 32
 _BIGID = 3.0e38
 _BIG = mk._BIG
 _TINY = float(np.float32(1e-20))
@@ -161,66 +160,18 @@ def build_stream_dda_tables(scene: SphereScene, config: RenderConfig,
     if lids.size == 0:
         raise ValueError("scene has no local spheres — use classic streaming")
 
-    lc = c[lids]
-    lr = r[lids]
-    ext_lo = (lc - lr[:, None]).min(axis=0)
-    ext_hi = (lc + lr[:, None]).max(axis=0)
-    span = np.maximum(ext_hi - ext_lo, 1e-6)
-    margin = max(float(span.max()) * margin_rel, 1e-6)
-    ext_lo -= margin
-    ext_hi += margin
-    span = ext_hi - ext_lo
-
-    if nb is None:
-        vol = float(span[0] * span[1] * span[2])
-        h = (vol * occ_target / max(lids.size, 1)) ** (1.0 / 3.0)
-        nb = tuple(int(np.clip(round(span[a] / h), 1, MAX_AXIS_CELLS))
-                   for a in range(3))
-    nb = tuple(int(x) for x in nb)
-    if len(nb) != 3 or not all(1 <= x <= MAX_AXIS_CELLS for x in nb):
+    if nb is not None and (len(nb) != 3 or not all(
+            1 <= int(x) <= MAX_AXIS_CELLS for x in nb)):
         # the packed cell (ix<<10)|(iy<<5)|iz holds 5 bits per axis
         raise ValueError(f"grid nb={nb}: each axis needs 1..{MAX_AXIS_CELLS} "
                          "cells")
-    nx, ny, nz = nb
-    n_cells = nx * ny * nz
-    cell = span / np.asarray(nb, np.float64)
-
-    s_lo = np.clip(((lc - lr[:, None] - margin - ext_lo) / cell), 0, None)
-    s_hi = np.clip(((lc + lr[:, None] + margin - ext_lo) / cell), 0, None)
-    s_lo = np.minimum(s_lo.astype(np.int64), np.asarray(nb) - 1)
-    s_hi = np.minimum(s_hi.astype(np.int64), np.asarray(nb) - 1)
-
-    lists: list[list[int]] = [[] for _ in range(n_cells)]
-    overflow_ids: set[int] = set()
-    for j, sid in enumerate(lids):
-        for ix in range(s_lo[j, 0], s_hi[j, 0] + 1):
-            for iy in range(s_lo[j, 1], s_hi[j, 1] + 1):
-                base = (ix * ny + iy) * nz
-                for iz in range(s_lo[j, 2], s_hi[j, 2] + 1):
-                    cl = base + iz
-                    if len(lists[cl]) < k_max:
-                        lists[cl].append(int(sid))
-                    else:
-                        overflow_ids.add(int(sid))
-
-    occ_max = max((len(lst) for lst in lists), default=0)
-    k = max(8, -(-occ_max // 8) * 8)
-
-    cells = np.zeros((n_cells, k, _SLOT), np.float32)
-    cells[:, :, 4] = _BIGID
-    for cl, lst in enumerate(lists):
-        if not lst:
-            continue
-        ids = np.asarray(lst)
-        n = len(lst)
-        cells[cl, :n, 0:3] = c[ids]
-        cells[cl, :n, 3] = r[ids]
-        cells[cl, :n, 4] = ids
+    nb, ext_lo, cell, cells, k, overflow_ids = bin_local_spheres(
+        c, r, lids, occ_target, k_max, nb, margin_rel)
 
     # NEE light spheres join the always set: the shadow walk takes the
     # light's candidate from the always sweep (a duplicate cell entry is
     # harmless under the min-fold)
-    aids = sorted(set(gids.tolist()) | overflow_ids
+    aids = sorted(set(gids.tolist()) | set(overflow_ids)
                   | set(int(li) for li in config.nee_lights))
     a_pad = max(8, -(-len(aids) // 8) * 8)
     atbl = np.zeros((a_pad, 16), np.float32)

@@ -458,7 +458,7 @@ def run_wavefront_regen(camera, intersect_fn, material: Material,
                         config: RenderConfig, key, pixel: torch.Tensor,
                         col: torch.Tensor, row: torch.Tensor, ip_offset,
                         k_samples: int, *, nee_scene=None,
-                        differentiable: bool = False):
+                        differentiable: bool = False, occupancy=None):
     """Regenerative (persistent-lane) wavefront: each lane owns one pixel
     and renders k_samples of it in turn; when its path dies, the lane
     regenerates the pixel's next camera sample inside the loop (path
@@ -468,7 +468,9 @@ def run_wavefront_regen(camera, intersect_fn, material: Material,
 
     Returns (radiance (G,3) summed over the k_samples, rays_traced as a 0-d
     int64 tensor). differentiable: each bounce under ``remat_step`` with
-    config.diff_remat, as in run_wavefront."""
+    config.diff_remat, as in run_wavefront. occupancy: None, or a list
+    that gains each iteration's live-lane count (a 0-d int64 tensor on the
+    device, read by utils/metrics.py::occupancy_profile)."""
     if config.split_budget != 1:
         raise ValueError("regenerative scheduler requires split_budget == 1")
     dtype = torch.float32
@@ -518,7 +520,10 @@ def run_wavefront_regen(camera, intersect_fn, material: Material,
         )
         sid = torch.where(need, sid_new, sid)
         # ---- one bounce ------------------------------------------------------
-        rays = rays + state.alive.sum(dtype=torch.int64)
+        live = state.alive.sum(dtype=torch.int64)
+        rays = rays + live
+        if occupancy is not None:
+            occupancy.append(live)
         state = remat_step(
             lambda st, sid=sid: bounce_step(st, intersect_fn, material,
                                             config, key, sid,

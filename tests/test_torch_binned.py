@@ -499,8 +499,13 @@ def test_cli_binned_checkpoint_resume_byte_equal(tmp_path):
     assert img_io.read_ppm(q).shape == (6, 8, 3)
 
 
-def test_cli_refusals():
+def test_cli_refusals(tmp_path):
+    """--quality without a stream is refused; a per-pass --checkpoint, once
+    refused, now saves the progressive state."""
     with pytest.raises(SystemExit):
         cli.main(["4", "--quality", "0.1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["4", "--checkpoint", "x.npz", "--device", "cpu"])
+    ck = str(tmp_path / "x.npz")
+    assert cli.main(["4", "--checkpoint", ck, "--width", "8", "--height",
+                     "6", "--max-depth", "4", "--device", "cpu", "--quiet",
+                     "--out", str(tmp_path / "x.ppm")]) == 0
+    assert int(np.load(ck)["sample_count"]) == 1

@@ -527,8 +527,9 @@ def test_cli_mesh_checkpoint_resume_byte_equal(tmp_path, small_mesh_cli,
 @pytest.mark.parametrize("sched", ["flat", "regen"])
 def test_cli_scheduler_pins_the_per_pass_engine(tmp_path, small_mesh_cli,
                                                 sched, monkeypatch):
-    """An explicit --scheduler keeps a mesh scene on the per-pass engine,
-    whose checkpoints are not ported; so do the AOV modes."""
+    """An explicit --scheduler keeps a mesh scene on the per-pass engine;
+    so do the AOV modes. Its per-pass checkpoint (the progressive state,
+    not the stream's) resumes byte-equal to one run."""
     made = []
     real = cli.ProgressiveRenderer
 
@@ -543,6 +544,12 @@ def test_cli_scheduler_pins_the_per_pass_engine(tmp_path, small_mesh_cli,
     assert cli.main(["4", *_CLI, "--scene", "mesh", "--mode", "normal",
                      "--out", out]) == 0
     assert made == [1, 1] and small_mesh_cli == []
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["4", *_CLI, "--scene", "mesh", "--scheduler", sched,
-                  "--checkpoint", str(tmp_path / "ck.npz"), "--out", out])
+    ck, b, one = (str(tmp_path / n) for n in ("ck.npz", "b.ppm", "1.ppm"))
+    pinned = ["4", *_CLI, "--scene", "mesh", "--scheduler", sched]
+    assert cli.main(pinned + ["--checkpoint", ck, "--out", out]) == 0
+    assert cli.main(pinned + ["--resume", ck, "--out", b]) == 0
+    assert cli.main(pinned + ["--passes", "2", "--out", one]) == 0
+    assert made == [1] * 5 and small_mesh_cli == []
+    assert "camera_leaves" in np.load(ck)
+    with open(b, "rb") as fb, open(one, "rb") as fo:
+        assert fb.read() == fo.read()

@@ -149,7 +149,7 @@ def test_weighted_accum_matches():
     w2[0, 0] = 0.0
     j = jaccum.WeightedAccum.zeros(4, 5).add(jnp.asarray(c1))
     j = j._replace(weight=j.weight * 0).add(jnp.asarray(c2), jnp.asarray(w2))
-    t = taccum.WeightedAccum.zeros(4, 5).add(_t(c1))
+    t = taccum.WeightedAccum.zeros(4, 5, device="cpu").add(_t(c1))
     t = t._replace(weight=t.weight * 0).add(_t(c2), _t(w2))
     np.testing.assert_array_equal(t.color.numpy(), np.asarray(j.color))
     np.testing.assert_array_equal(t.weight.numpy(), np.asarray(j.weight))

@@ -2,7 +2,7 @@
 and the CLI at 48x36 against the stored f64 golden image
 (tests/data/golden_cornell_48x36.npz, made by scripts/gen_goldens.py), and
 the rules of the port: entry points run on the card unless asked for the
-CPU, and every config outside the ported routes raises
+CPU, and every config outside the ported routes (float64) raises
 NotImplementedError.
 
 Gate (tests/test_golden.py): at most 5% of values with
@@ -232,6 +232,38 @@ def test_unported_scenes_and_gradients_raise():
 @pytest.mark.parametrize("flag", [["--frames", "f_%04d.ppm"],
                                   ["--interactive"],
                                   ["--checkpoint", "ck.npz"]])
-def test_cli_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(flag + ["--device", "cpu", "--out", str(tmp_path / "x.ppm")])
+def test_cli_unported_flags_raise(flag, tmp_path, monkeypatch):
+    """The three flags the port once refused now run on the per-pass
+    route: --frames writes a frame a pass, --interactive reads the request
+    protocol from stdin, --checkpoint saves a per-pass checkpoint that
+    resumes byte-equal to one run."""
+    import io
+
+    import smallpt_tpu_torch.interactive as interactive
+
+    sessions = []
+    real = interactive.InteractiveSession
+    monkeypatch.setattr(interactive, "InteractiveSession",
+                        lambda *a, **k: sessions.append(real(*a, **k))
+                        or sessions[-1])
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("sys.stdin", io.StringIO('{"action": "quit"}\n'))
+    common = ["4", "--width", "8", "--height", "6", "--max-depth", "4",
+              "--device", "cpu", "--quiet"]
+    out, one = str(tmp_path / "x.ppm"), str(tmp_path / "one.ppm")
+    assert cli.main(common + flag + ["--passes", "2", "--out", out]) == 0
+    assert img_io.read_ppm(out).shape == (6, 8, 3)
+    for session in sessions:  # the reader thread ended with the stream
+        session.reader.join(timeout=30)
+        assert not session.reader.is_alive()
+    assert len(sessions) == (flag[0] == "--interactive")
+    if flag[0] == "--frames":
+        assert sorted(os.listdir(tmp_path)) == [
+            "f_0001.ppm", "f_0002.ppm", "x.ppm"]
+    elif flag[0] == "--checkpoint":
+        again = str(tmp_path / "again.ppm")
+        assert cli.main(common + ["--passes", "2", "--resume", flag[1],
+                                  "--out", again]) == 0
+        assert cli.main(common + ["--passes", "4", "--out", one]) == 0
+        with open(again, "rb") as fa, open(one, "rb") as fo:
+            assert fa.read() == fo.read()

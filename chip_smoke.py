@@ -5,13 +5,15 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's seven kernel libraries from csrc/ with nvcc, all at
+It builds the port's eight kernel libraries from csrc/ with nvcc, all at
 once: megakernel.cu (the per-pass mega_pass, the recording mega_record and
 the streaming stream_step, with NEE in all three), stream_dda.cu (the DDA streaming kernel,
 stream_step_dda), closest_hit.cu (K2, the wavefronts' sphere closest hit),
 closest_tri.cu (K6, their triangle closest hit), closest_tri_culled.cu
 (K7, the grid-culled triangle sweep), stream_binned.cu (K8, the binned
-scheduler's bounce) and dda.cu (K4, the per-ray DDA closest hit). It holds each kernel
+scheduler's bounce), dda.cu (K4, the per-ray DDA closest hit) and
+closest_hit_mxu.cu (K5, the sphere sweep whose small spheres' coefficients
+are row-by-feature dot products). It holds each kernel
 against its plain PyTorch version (at small sizes, and on the main paths'
 own rays at full width) and against the stored f64 golden images, drives
 the main paths through the kernels and times them:
@@ -88,7 +90,23 @@ the main paths through the kernels and times them:
   (the binned drain, K8) and back, run with native frames, a per-pass
   checkpoint resumed byte-equal, the CLI's --frames, --scene-file,
   --interactive, --checkpoint and --resume in process, occupancy_profile
-  on REGEN through K2, and one pass under trace.
+  on REGEN through K2, and one pass under trace (also traced right after
+  the per-pass main path);
+- the MXU-assisted sweep (scripts/bench_mxu_tpu.py's shape):
+  intersect_spheres_mxu on procedural_sphere_scene(10000) and 196,608
+  rays, K5 held bit for bit to its plain version there and on the Cornell
+  box and 2,000 spheres (rays from inside and outside the spheres' box,
+  tests/test_intersect_pallas.py's 77-ray case), its refined hits held to
+  K2's under test_mxu_matches_pure_jax's gates, K2's time beside K5's;
+- multi-device (parallel/), every shard of a 2 x 2 (tile, sample) mesh on
+  the one card in this process: render_sharded (MEGA Cornell 1024x768, 4
+  spp) against the single pass; ShardedStreamingRenderer, classic on the
+  Cornell box at 1024x768 and DDA on 10,000 spheres at 512x384, each
+  shard's band state bit-equal to single-device streams keyed fold_in(key,
+  s); ShardedBinnedRenderer on 10,000 spheres at 512x384 bit-equal to
+  n_streams=2; the config-4 sharded replay step's gradients against the
+  single-device step; then two gloo ranks spawned on the card, the MEGA
+  image of each against the single pass.
 The megakernel's branches that the main paths do not take (thin lens,
 environment light, two NEE lights, row bands and sample slices, 2048
 spheres, the opted-in shared memory at 4096 spheres and the global-memory
@@ -105,6 +123,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -410,26 +429,81 @@ def device_ms_by_name(prof) -> dict:
     return by_name
 
 
+# each wrapper's kernel as the profiler names it (demangled): K1a and K1b
+# are mega_pass_kernel<kGlobal, kRecord>
+KERNEL_EVENT = {name: re.compile(pat) for name, pat in (
+    ("mega_pass", r"\bmega_pass_kernel<\w+, false>"),
+    ("mega_record", r"\bmega_pass_kernel<\w+, true>"),
+    ("stream_step", r"\bstream_step_kernel\b"),
+    ("stream_step_dda", r"\bstream_dda_kernel\b"),
+    ("closest_hit", r"\bclosest_hit_kernel\b"),
+    ("closest_hit_mxu", r"\bclosest_hit_mxu_kernel\b"),
+    ("closest_hit_dda", r"\bdda_kernel\b"),
+    ("closest_tri", r"\bclosest_tri_kernel\b"),
+    ("closest_tri_culled", r"\bclosest_tri_culled_kernel\b"),
+    ("stream_step_binned", r"\bstream_binned_kernel\b"))}
+
+
+# the seconds a profiler session is held open before and after the
+# profiled call, tried in turn until every hand-written launch has its
+# device event (utils/metrics.py::trace, PERF.md section 7, F11)
+HOLDS_S = (0.0, 2.0, 8.0)
+
+
+def events_off(names, launched: dict) -> tuple:
+    """The profiler's device-kernel events (their names) of the
+    hand-written kernels, counted by wrapper, against the launches the
+    wrappers counted over the profiled call: (the launched wrappers'
+    counts, {wrapper: (events, launches)} where the two differ)."""
+    seen = dict.fromkeys(KERNEL_EVENT, 0)
+    for name in names:
+        for w, pat in KERNEL_EVENT.items():
+            if pat.search(name):
+                seen[w] += 1
+    return ({w: n for w, n in launched.items() if n},
+            {w: (seen[w], n) for w, n in launched.items() if seen[w] != n})
+
+
 def profile(fn) -> dict:
     """torch.profiler over one call of fn: the device time by kernel name,
-    and the device's busy share of the call's wall time. Diagnostic only: a
-    profiler that records no device time gives "not measured"."""
+    and the device's busy share of the call's wall time. Every launch of a
+    hand-written kernel in the call must have its device event; a session
+    that lost one is run again held open longer (HOLDS_S), and the last
+    hold that still loses one raises, so that no busy share undercounts.
+    Diagnostic only: a profiler that records no device time gives "not
+    measured"."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
+    for hold in HOLDS_S:
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
+        before = counts()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(hold)
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+            time.sleep(hold)
+        launched = {k: v - before[k] for k, v in counts().items()}
+        events, off = events_off(
+            (e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA), launched)
+        if not off:
+            break
+    if off:
+        raise AssertionError(f"profile: the profiler recorded (events, "
+                             f"launches) {off} of the hand-written kernels "
+                             f"held open {hold} s")
     by_name = device_ms_by_name(prof)
     busy_ms = sum(by_name.values())
     if not busy_ms:
         return {"device_ms": "not measured", "wall_ms": wall_us / 1e3}
     return {"device_ms_by_kernel": by_name, "device_busy_ms": busy_ms,
-            "wall_ms": wall_us / 1e3, "busy_share": busy_ms * 1e3 / wall_us}
+            "wall_ms": wall_us / 1e3, "busy_share": busy_ms * 1e3 / wall_us,
+            "kernel_events": events, "hold_s": hold}
 
 
 def stream_full_width(name, scene, cfg, ref_mean, dev, n_rounds=3) -> dict:
@@ -1013,7 +1087,7 @@ def _wrappers() -> tuple:
 
     return (mk.mega_pass, mk.stream_step, sd.stream_step_dda, ip.closest_hit,
             mp.closest_tri, mp.closest_tri_culled, mk.stream_step_binned,
-            mk.mega_record, dda.closest_hit_dda)
+            mk.mega_record, dda.closest_hit_dda, ip.closest_hit_mxu)
 
 
 def zero_counts() -> None:
@@ -1247,26 +1321,48 @@ def aov_phases(dev) -> dict:
     return out
 
 
-def capture_calls(mod, name: str, fn, which) -> list:
-    """Run fn() with mod.name wrapped so that the arguments of its calls
-    numbered in ``which`` (from 0) are kept; returns them, one (args,
-    kwargs) a kept call."""
+def capture_calls(mod, name: str, fn, which, state=()) -> list:
+    """Run fn() with mod.name wrapped so that its calls numbered in
+    ``which`` (from 0) are kept; returns one dict a kept call: "a" and "k",
+    its positional and keyword arguments; "args", all of them by the
+    wrapper's parameter names; "before", copies of the arguments named in
+    ``state`` taken before the call (a streaming wrapper updates its state
+    in place); "out", copies of its outputs. The kept calls are fn's own
+    launches and count as such."""
+    import inspect
+
+    import torch
+
     real, kept, n = getattr(mod, name), [], [0]
+    sig = inspect.signature(real)
 
     def spy(*a, **k):
-        if n[0] in which:
-            kept.append((a, k))
+        keep = n[0] in which
         n[0] += 1
-        return real(*a, **k)
+        if not keep:
+            return real(*a, **k)
+        bound = sig.bind(*a, **k)
+        bound.apply_defaults()
+        before = {s_: bound.arguments[s_].clone() for s_ in state}
+        out = real(*a, **k)
+        kept.append(dict(a=a, k=k, args=dict(bound.arguments),
+                         before=before, out=tuple(
+                             x.clone() if isinstance(x, torch.Tensor) else x
+                             for x in out)))
+        return out
 
-    # the wrapper counts its launches on the name it is bound to
-    spy.launches = real.launches
+    # the wrapper counts its launches on the name it is bound to in its
+    # own module: the spy carries the count while it stands there
+    home = sys.modules[real.__module__] is mod
+    if home:
+        spy.launches = real.launches
     setattr(mod, name, spy)
     try:
         fn()
     finally:
         setattr(mod, name, real)
-        real.launches = spy.launches
+        if home:
+            real.launches = spy.launches
     return kept
 
 
@@ -1294,7 +1390,8 @@ def launches_vs_plain(name, kernel: str, fn, per_run: float) -> dict:
     mod = ip if kernel == "closest_hit" else mp
     kept = capture_calls(mod, kernel, fn, {0, int(per_run) // 2})
     launches = {}
-    for k, (args, kw) in zip(("first", "middle"), kept):
+    for k, call in zip(("first", "middle"), kept):
+        args, kw = call["a"], call["k"]
         n = args[2] if kernel == "closest_tri_culled" else args[0].shape[1]
         k_ms, got = cuda_ms(lambda: getattr(mod, kernel)(*args, **kw), 5)
         torch.cuda.synchronize()
@@ -3172,6 +3269,528 @@ def dda_main(dev) -> dict:
     return out
 
 
+# K5's pair, counting what the function needs: the two dots over their
+# non-zero terms (the b row's 3, 5 ops; the det row's 5, whose -q and -oo
+# need no product, 7 ops), b, det (2), the square root, the two roots and
+# three compares. The kernel also sums the zero terms, 39 ops a pair.
+OPS_K5_PAIR = 21
+MXU_RAYS = 512 * 384
+
+
+def k5_bound(stable, mxu, n_a: int, n_b: int, n_rays: int) -> dict:
+    """The least time of one K5 launch over n_rays rays: OPS_K2_STABLE a
+    live part-A row, OPS_K5_PAIR a live small sphere, a compare a dead row
+    (part A's padding, the small class's masked big spheres and padding),
+    at the float rate; 24 B of ray in and 8 B out a ray and both tables
+    once, at the memory rate."""
+    live_a = int((stable[:n_a, 3] > 0).sum())
+    row2 = mxu[:2 * n_b].view(-1, 2, 64, 8)[:, 1].reshape(-1, 8)
+    live_b = int((row2[:, 7] != 0).sum())
+    dead = n_a + n_b - live_a - live_b
+    ops = n_rays * (OPS_K2_STABLE * live_a + OPS_K5_PAIR * live_b
+                    + OPS_ROW_SKIP * dead)
+    nbytes = n_rays * (24 + 8) + (stable.numel() + mxu.numel()) * 4
+    return _bound(ops, nbytes, live_a=live_a, live_b=live_b, dead=dead)
+
+
+def k5_vs_plain(name, scene, org, dirs, dev, tables=None) -> dict:
+    """K5 against closest_hit_mxu_plain on the same (N, 3) rays, shifted
+    into the tables' frame: t and slot bit-equal. Returns exact()'s
+    reading plus the plain version's host-clock ms, the planes and K5's
+    outputs for reuse."""
+    import torch
+
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    if tables is None:
+        tables = ip.build_sphere_table_mxu(scene, device=dev)
+    stable, mxu, _, nbc, nsc, eps, shift = tables
+    o = (org - shift[None, :]).T.contiguous()
+    d = dirs.T.contiguous()
+    args = (o, d, stable, mxu, 64 * nbc, 64 * nsc, eps)
+    got = ip.closest_hit_mxu(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = ip.closest_hit_mxu_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    return dict(exact(name, got, want), plain_ms=plain_ms, args=args,
+                got=got)
+
+
+def mxu_vs_plain_small(dev) -> dict:
+    """K5 against its plain version on the card, bit for bit (t and slot):
+    the Cornell box and procedural_sphere_scene(2000) on 4,096 rays from
+    inside the spheres' box and 4,096 from outside it, and
+    tests/test_intersect_pallas.py::test_mxu_padding_and_misses's 77 rays
+    (from the camera's origin along +z; the same ray 77 times, padded to
+    no tile)."""
+    import torch
+
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, procedural_sphere_scene,
+    )
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    out = {}
+    for sname, scene in (("cornell", cornell_box_scene()),
+                         ("procedural2000", procedural_sphere_scene(2000))):
+        for rname, inside in (("inside", True), ("outside", False)):
+            o, d = dda_rays(4096, 21, inside=inside)
+            st = k5_vs_plain(f"{sname}_{rname}", scene, t(o), t(d), dev)
+            out[f"{sname}_{rname}_4096"] = st
+    o = np.tile(np.float32([[50.0, 52.0, 295.6]]), (77, 1))
+    d = np.tile(np.float32([[0.0, 0.0, 1.0]]), (77, 1))
+    out["cornell_padding_77"] = k5_vs_plain("77 rays", cornell_box_scene(),
+                                            t(o), t(d), dev)
+    for v in out.values():
+        for k in ("args", "got"):
+            v.pop(k)
+    return out
+
+
+def mxu_gates(name, h_ref, h) -> dict:
+    """tests/test_intersect_pallas.py::test_mxu_matches_pure_jax's gates of
+    K5's refined hits h against h_ref on the same rays: hit/miss agreement
+    above 0.998, winner flips below 3e-3, the 0.999 quantile of |dt| /
+    max(t, 1) below 2e-2 and its median below 1e-6 where the winners
+    agree, normals within 1e-2."""
+    tr, tm = h_ref.t.cpu().numpy(), h.t.cpu().numpy()
+    hit_r, hit_m = np.isfinite(tr), np.isfinite(tm)
+    agree = float((hit_r == hit_m).mean())
+    both = hit_r & hit_m
+    ir, im = h_ref.inst.cpu().numpy()[both], h.inst.cpu().numpy()[both]
+    flips = float((ir != im).mean())
+    same = ir == im
+    rel = np.abs(tr[both] - tm[both])[same] / np.maximum(tr[both][same], 1.0)
+    nr = h_ref.n.cpu().numpy()[both][same]
+    nm = h.n.cpu().numpy()[both][same]
+    out = dict(hit_agree=agree, flips=flips, hits=int(both.sum()),
+               rel_q999=float(np.quantile(rel, 0.999)),
+               rel_median=float(np.median(rel)),
+               normal_err=float(np.abs((nr * nm).sum(-1) - 1.0).max()))
+    if not (agree > 0.998 and flips < 3e-3 and out["rel_q999"] < 2e-2
+            and out["rel_median"] < 1e-6 and out["normal_err"] < 1e-2):
+        raise AssertionError(f"{name}: K5 against K2 failed the gates: {out}")
+    return out
+
+
+def mxu_main(dev) -> dict:
+    """scripts/bench_mxu_tpu.py's shape through the entry point a caller
+    uses, intersect_spheres_mxu: procedural_sphere_scene(10000) and 196,608
+    rays (seed 0, origins uniform in [5, 5, 20]-[95, 75, 150], isotropic
+    unit directions), the tables built once. The main path runs once
+    (counts zeroed before it, read after: one K5 launch). Then K5 against
+    its plain version (bit-equal), the refined hits against K2's route
+    (intersect_spheres_pallas) on the same rays under
+    test_mxu_matches_pure_jax's gates, K5's, K2's and the plain version's
+    ms, the bound and the registers."""
+    import torch
+
+    from smallpt_tpu_torch.core.scene import procedural_sphere_scene, scene_to
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    scene = procedural_sphere_scene(10_000)
+    dscene = scene_to(scene, dev)
+    rng_ = np.random.default_rng(0)
+    o = rng_.uniform([5, 5, 20], [95, 75, 150], (MXU_RAYS, 3))
+    d = rng_.normal(size=(MXU_RAYS, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    org = torch.from_numpy(o.astype(np.float32)).to(dev)
+    dirs = torch.from_numpy(d.astype(np.float32)).to(dev)
+    t = time.perf_counter()
+    tables = ip.build_sphere_table_mxu(scene, device=dev)
+    build_s = time.perf_counter() - t
+
+    zero_counts()
+    t = time.perf_counter()
+    h = ip.intersect_spheres_mxu(org, dirs, dscene, tables=tables)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    launches = counts()
+    if not (torch.isfinite(h.t) | torch.isinf(h.t)).all():
+        raise AssertionError("K5 main path: NaN t")
+
+    st = k5_vs_plain("procedural10000", scene, org, dirs, dev, tables)
+    args, got = st.pop("args"), st.pop("got")
+    ms, _ = cuda_ms(lambda: ip.closest_hit_mxu(*args), 6, skip_first=True)
+    k2_tables = ip.build_sphere_table(scene, device=dev)
+    table, _, nbc, nsc = k2_tables
+    ot, dt = org.T.contiguous(), dirs.T.contiguous()
+    k2_ms, _ = cuda_ms(
+        lambda: ip.closest_hit(ot, dt, table, 64 * nbc, 64 * nsc), 6,
+        skip_first=True)
+    h_k2 = ip.intersect_spheres_pallas(org, dirs, dscene, want_uv=False,
+                                       tables=k2_tables)
+    stable, mxu, _, nbc5, nsc5, _, _ = tables
+    st.update(k5_bound(stable, mxu, 64 * nbc5, 64 * nsc5, MXU_RAYS))
+    st.update(kernel_ms=ms, k2_ms_same_rays=k2_ms,
+              k2_bound_ms=k2_bound(table, 64 * nbc, 64 * nsc,
+                                   MXU_RAYS)["bound_ms"],
+              vs_k2=mxu_gates("procedural10000", h_k2, h),
+              mrays_per_s=MXU_RAYS / ms / 1e3)
+    return dict(st, rays=MXU_RAYS, launches=launches, main_path_s=main_s,
+                tables_build_s=build_s,
+                mxu_table_kb=mxu.numel() * 4 / 1e3,
+                ptxas=ptxas_entry(ip.LIBRARY_MXU[0]))
+
+
+def shard_mesh(dev):
+    """The 2 x 2 (tile, sample) mesh whose four shards all run on dev, in
+    this one process (the machine has one card)."""
+    from smallpt_tpu_torch.parallel import make_mesh
+
+    return make_mesh(2, 2, devices=[dev] * 4)
+
+
+def allclose_gate(name, got, want, rtol: float) -> dict:
+    """got within rtol of want (atol rtol * max|want|): the sharded result
+    against the single device's where only the order of the sums
+    differs."""
+    import torch
+
+    got, want = got.double().cpu(), want.double().cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (bool(torch.isfinite(got).all())
+            and torch.allclose(got, want, rtol=rtol, atol=rtol * scale)):
+        raise AssertionError(f"{name}: max |diff| {err} (scale {scale})")
+    return dict(max_abs_err=err, scale=scale, equal=bool(err == 0.0))
+
+
+def mega_config():
+    """The per-pass main path's configuration (bench.py's --perpass):
+    Cornell at 1024x768, 4 spp, max_depth 48."""
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+
+    return RenderConfig(width=1024, height=768, spp_per_cell=1,
+                        max_depth=48, camera_model=CameraModel.LEGACY,
+                        filter=Filter.TENT)
+
+
+def shard_mega(dev) -> dict:
+    """render_sharded on the 2 x 2 mesh, MEGA Cornell at 1024x768, 4 spp,
+    max_depth 48 (each shard one K1a launch over its band and sample
+    slice), against the single-device pass on the same key; the last
+    shard's launch (rows 384-767, samples 2-3) against the plain version
+    on its own inputs (compare_pass)."""
+    import torch
+
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene
+    from smallpt_tpu_torch.engine.renderer import render_with_stats
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.parallel import render_sharded
+
+    cfg = mega_config()
+    scene, cam, key = cornell_box_scene(), smallpt_camera(), rng.base_key(5)
+    mesh = shard_mesh(dev)
+    got = []
+    zero_counts()
+    # the last shard's launch (tile 1, sample 1) kept for its plain version
+    call = capture_calls(mk, "mega_pass", lambda: got.append(render_sharded(
+        scene, cam, cfg, key, mesh)), {3})[0]
+    torch.cuda.synchronize()
+    launches = counts()
+    img = got[0]
+    a = call["args"]
+    band = {k: a[k] for k in ("ip_offset", "row_offset", "n_rows",
+                              "k_samples")}
+    vs_plain = dict(compare_pass(
+        "shard_mega shard (1, 1)", *call["out"], *mk.render_pass_plain(
+            a["table"], a["cam"], a["config"], *rng.key_words(a["key"]),
+            n_spheres=a["n_spheres"], **band)), **band)
+    ref, rays = render_with_stats(scene, cam, cfg, key, device=dev)
+    ms, _ = cuda_ms(lambda: render_sharded(scene, cam, cfg, key, mesh), 3,
+                    skip_first=True)
+    ref_ms, _ = cuda_ms(lambda: render_with_stats(scene, cam, cfg, key,
+                                                  device=dev), 3,
+                        skip_first=True)
+    return dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
+                launches=launches, shard_vs_plain=vs_plain,
+                vs_single=allclose_gate("shard_mega", img, ref, 1e-5),
+                image_gate=gate(img.cpu().numpy(), ref.cpu().numpy(),
+                                MAX_FRAC),
+                ms=ms, single_pass_ms=ref_ms, rays_single=int(rays))
+
+
+def _streams_equal(name, sharded, singles, rows: int) -> dict:
+    """Each shard (t, s)'s band state against rows [t rows, (t + 1) rows)
+    of the single-device stream s, plane for plane, bit for bit."""
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    for (t, s), (f, i) in sharded.states.items():
+        fs, is_ = mk._planes(singles[s].f, singles[s].i)
+        fb, ib = mk._planes(f, i)
+        g = rows * sharded.config.width
+        for a, b, what in ((fb, fs, "f"), (ib, is_, "i")):
+            if not bool((a[:, :g] == b[:, t * g:(t + 1) * g]).all()):
+                raise AssertionError(f"{name}: shard ({t}, {s}) {what} "
+                                     "planes differ from the single stream")
+    return dict(states_equal=True)
+
+
+def shard_stream_vs_plain(name, call, dda: bool) -> dict:
+    """A captured sharded streaming launch (capture_calls with the state
+    copied before it) against stream_step_plain or stream_step_dda_plain
+    from that state on the same band, key and budget (state_gate, drained
+    when the kernel's launch drained)."""
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
+    a = call["args"]
+    cfg, n_rows = a["config"], a["n_rows"]
+    band = {k: a[k] for k in ("ip_offset", "row_offset", "n_rows")}
+    fk, ik, rk = call["out"]
+    fp, ip_ = call["before"]["f"], call["before"]["i"]
+    if a["sample_budget"] is not None:
+        mk.set_sample_budget(ip_, a["sample_budget"], cfg, n_rows)
+    k0, k1 = rng.key_words(a["key"])
+    if dda:
+        rp = sd.stream_step_dda_plain(a["tables"], a["cam"], cfg, k0, k1,
+                                      fp, ip_, a["n_iters"], **band)[2]
+    else:
+        rp = mk.stream_step_plain(a["table"], a["cam"], cfg, k0, k1, fp, ip_,
+                                  a["n_iters"], n_spheres=a["n_spheres"],
+                                  **band)[2]
+    rays_close(name, int(rk), int(rp))
+    st = state_gate(name, cfg, fk, ik, fp, ip_,
+                    drained=mk.stream_pending(ik) == (0, 0), n_rows=n_rows)
+    return dict(st, launch_rays_kernel=int(rk), launch_rays_plain=int(rp),
+                n_iters=a["n_iters"], budget=a["sample_budget"], **band)
+
+
+def shard_stream(name, scene, cfg, dev, budget: int, dda: bool) -> dict:
+    """ShardedStreamingRenderer on the 2 x 2 mesh (one step of budget
+    samples a shard, then the flush) against two single-device
+    StreamingRenderers keyed fold_in(key, s): every shard's band state bit
+    for bit, the accumulators and the image exactly; the last shard's
+    first launch (K1c or K3 on rows H/2..H-1, key fold_in(key, 1)) against
+    the plain version on its own input state (shard_stream_vs_plain)."""
+    import torch
+
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.engine.streaming import StreamingRenderer
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import stream_dda as sd
+    from smallpt_tpu_torch.parallel import ShardedStreamingRenderer
+
+    cam = smallpt_camera()
+    n_iters = cfg.max_depth * budget + 64
+    mod, wrapper = (sd, "stream_step_dda") if dda else (mk, "stream_step")
+    got = []
+
+    def run():
+        r = ShardedStreamingRenderer(scene, cam, cfg, shard_mesh(dev),
+                                     seed=2)
+        got.append((r, r.step(n_iters=n_iters, add_samples=budget)))
+        r.flush()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    # the last shard's first launch (tile 1, sample 1) kept for its plain
+    # version
+    call = capture_calls(mod, wrapper, run, {3}, state=("f", "i"))[0]
+    (r, rays), = got
+    rad, w = r.accumulators()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    if r.dda != dda:
+        raise AssertionError(f"{name}: dda {r.dda}, expected {dda}")
+    vs_plain = shard_stream_vs_plain(f"{name} shard (1, 1)", call, dda)
+    singles = []
+    for s in range(2):
+        one = StreamingRenderer(scene, cam, cfg, seed=2, device=dev)
+        one.key = rng.fold_in(rng.base_key(2), s)
+        one.step(n_iters=n_iters, add_samples=budget)
+        one.flush()
+        singles.append(one)
+    rad1 = singles[0].accumulators()[0] + singles[1].accumulators()[0]
+    w1 = singles[0].accumulators()[1] + singles[1].accumulators()[1]
+    out = _streams_equal(name, r, singles, cfg.height // 2)
+    if not (torch.equal(rad, rad1) and torch.equal(w, w1)):
+        raise AssertionError(f"{name}: accumulators differ from the single "
+                             "streams")
+    if not bool((w == 2 * budget).all()):
+        raise AssertionError(f"{name}: weights {float(w.min())}.."
+                             f"{float(w.max())}")
+    return dict(out, width=cfg.width, height=cfg.height, spp=2 * budget,
+                launches=launches, shard_vs_plain=vs_plain, rays=rays,
+                wall_ms=wall_ms,
+                image_mean=float(r.image.mean()), accumulators_equal=True)
+
+
+def shard_binned(dev, scene) -> dict:
+    """ShardedBinnedRenderer on the 2 x 2 mesh, scene
+    (procedural_sphere_scene(10000)) at 512x384, 2 samples a shard (4
+    spp), max_depth 24, against the single-device BinnedStreamingRenderer
+    with n_streams=2 (one lane a pixel): bit for bit (the JAX package's
+    contract). Two launches of the last shard (its band's lane ids offset
+    by pixel_lo), the first and one in the flush, against K8's plain
+    version on their own input states (k8_vs_plain: bit-equal)."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
+    from smallpt_tpu_torch.parallel import ShardedBinnedRenderer
+
+    cfg = RenderConfig(width=512, height=384, spp_per_cell=1, max_depth=24,
+                       camera_model=CameraModel.LEGACY, filter=Filter.TENT)
+    cam = smallpt_camera()
+    got = []
+
+    def run():
+        got.append(ShardedBinnedRenderer(scene, cam, cfg, shard_mesh(dev),
+                                         seed=0))
+        got[0].step(add_samples=2, n_bounces=8)
+        got[0].flush()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    # the last shard's (tile 1, sample 1) first launch and its 41st, in the
+    # flush: the shards take each bounce in turn
+    caps = capture_binned(run, {3, 4 * 40 + 3})
+    r = got[0]
+    rad, w = r.accumulators()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    if len(caps) != 2:
+        raise AssertionError(f"shard_binned: {launches} launches")
+    vs_plain = {k: k8_vs_plain(f"shard_binned shard (1, 1) {k}", cap)
+                for k, cap in zip(("first", "flush"), caps)}
+    one = BinnedStreamingRenderer(scene, cam, cfg, seed=0, n_streams=2,
+                                  inflight=1, device=dev)
+    one.step(add_samples=4, n_bounces=8)
+    one.flush()
+    rad1, w1 = one.accumulators()
+    if not (torch.equal(rad, rad1) and torch.equal(w, w1)):
+        raise AssertionError("shard_binned: accumulators differ from "
+                             f"n_streams=2: {float((rad - rad1).abs().max())}")
+    if r.stats.rays != one.stats.rays:
+        raise AssertionError(f"shard_binned: rays {r.stats.rays} vs "
+                             f"{one.stats.rays}")
+    return dict(width=cfg.width, height=cfg.height, spp=4,
+                launches=launches, shard_vs_plain=vs_plain,
+                rays=r.stats.rays, wall_ms=wall_ms, equal=True,
+                max_abs_err=0.0)
+
+
+def shard_replay(dev) -> dict:
+    """image_loss_and_grads_sharded at config 4 (Cornell 512x512, 4 spp,
+    max_depth 16, Intersector.PALLAS) on the 2 x 2 mesh: four K1b records,
+    four replays, against the single-device image_loss_and_grads (the
+    replay too): the loss and image to 1e-5, the gradients within 1e-4
+    (index_add adds in no fixed order on the card). The last K1b launch
+    (rows 256-511, in-pixel sample 3) against its plain version on its own
+    inputs (record_exact: bit-equal)."""
+    import torch
+
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene
+    from smallpt_tpu_torch.grad import diff, replay
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.parallel.replay_shard import (
+        image_loss_and_grads_sharded,
+    )
+
+    cfg = grad_config()
+    scene, cam, key = cornell_box_scene(), smallpt_camera(), rng.base_key(0)
+    target = replay.record_forward(scene, cam, cfg, rng.base_key(99),
+                                   device=dev)[0]
+    got = []
+    zero_counts()
+    t0 = time.perf_counter()
+    # the last record launch (tile 1, sample 1's second sample) kept for
+    # its plain version
+    call = capture_calls(mk, "mega_record", lambda: got.append(
+        image_loss_and_grads_sharded(scene, cam, cfg, key, target,
+                                     shard_mesh(dev))), {7})[0]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    (loss, img, grads), = got
+    a = call["args"]
+    band = {k: a[k] for k in ("ip_offset", "row_offset", "n_rows")}
+    vs_plain = dict(record_exact(
+        "shard_replay shard (1, 1)", call["out"], mk.record_pass_plain(
+            a["table"], a["cam"], a["config"], *rng.key_words(a["key"]),
+            n_spheres=a["n_spheres"], **band)), **band)
+    loss1, img1, grads1 = diff.image_loss_and_grads(scene, cam, cfg, key,
+                                                    target, device=dev)
+    return dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
+                max_depth=cfg.max_depth, launches=launches,
+                shard_vs_plain=vs_plain, step_ms=step_ms,
+                loss=float(loss), loss_single=float(loss1),
+                loss_gate=allclose_gate("shard_replay loss", loss, loss1,
+                                        1e-5),
+                image=allclose_gate("shard_replay image", img, img1, 1e-5),
+                grads=_grads_close("shard_replay", grads, grads1, 1e-4))
+
+
+def _rank_worker(rank: int, world: int, port: int, out: str,
+                 device: str) -> None:
+    """One of the two processes of distributed_two_ranks: gloo on the one
+    card (device), a 2 x 1 mesh over the ranks' devices, the MEGA pass;
+    each rank saves the image it ends with (the all_reduced whole)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene
+    from smallpt_tpu_torch.parallel import distributed, render_sharded
+
+    distributed.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    try:
+        mesh = distributed.global_mesh(devices=[device])
+        img = render_sharded(cornell_box_scene(), smallpt_camera(),
+                             mega_config(), rng.base_key(5), mesh)
+        np.save(os.path.join(out, f"rank{rank}.npy"), img.cpu().numpy())
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def distributed_two_ranks(dev) -> dict:
+    """Two gloo ranks spawned on the one card (NCCL refuses two ranks on
+    one device), each rendering its band of MEGA Cornell at 1024x768, 4
+    spp; the all_reduced image of each rank against the single-device
+    pass (rtol 2e-5, the JAX package's test_distributed bar)."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene
+    from smallpt_tpu_torch.engine.renderer import render_with_stats
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = tempfile.mkdtemp(prefix="smallpt_ranks_")
+    t0 = time.perf_counter()
+    tmp.spawn(_rank_worker, args=(2, port, out, str(dev)), nprocs=2,
+              join=True)
+    wall_s = time.perf_counter() - t0
+    ref = render_with_stats(cornell_box_scene(), smallpt_camera(),
+                            mega_config(), rng.base_key(5), device=dev)[0]
+    res = {}
+    for r in range(2):
+        img = torch.from_numpy(np.load(os.path.join(out, f"rank{r}.npy")))
+        res[f"rank{r}"] = allclose_gate(f"rank {r}", img, ref, 2e-5)
+    return dict(res, backend="gloo", world=2, wall_s=wall_s)
+
+
 # the host surfaces' configuration: bench.py's per pass (Cornell, 1024x768,
 # 4 spp a pass, max_depth 48) and the 10,000-sphere scene load_scene swaps in
 SURF_W, SURF_H, SURF_SPHERES = 1024, 768, 10_000
@@ -3441,21 +4060,63 @@ def host_surfaces(dev) -> dict:
     r = ProgressiveRenderer(cornell, legacy, cfg, seed=0, device=dev)
     r.step()
     tdir = os.path.join(tmp, "trace")
-    with metrics.trace(tdir) as prof:
-        r.step()
-        torch.cuda.synchronize()
-    files = os.listdir(tdir)
-    if len(files) != 1 or os.path.getsize(os.path.join(tdir, files[0])) == 0:
-        raise AssertionError(f"trace wrote {files}")
-    with open(os.path.join(tdir, files[0])) as f:
-        events = json.load(f)["traceEvents"]
-    out["trace"] = dict(file=files[0],
-                        bytes=os.path.getsize(os.path.join(tdir, files[0])),
-                        events=len(events),
-                        kernel_events=sum(e.get("cat") == "kernel"
-                                          for e in events),
-                        device_ms=sum(device_ms_by_name(prof).values()))
+    out["trace"] = trace_pass(r.step, tdir)
     return out
+
+
+def trace_pass(step, tdir) -> dict:
+    """utils/metrics.py::trace over one call of step (a K1a pass): the
+    file it wrote, its events, its device-kernel events and their device
+    ms. Every launch of a hand-written kernel in the call must be in the
+    file; a trace that lost one is taken again held open longer (HOLDS_S;
+    PERF.md section 7, F11) and the last hold raises. K1a's traced time
+    must be within 10% of its CUDA-event time on the same inputs (the
+    launch captured from a further call of step, a ProgressiveRenderer's,
+    timed apart)."""
+    import torch
+
+    from smallpt_tpu_torch.engine import progressive
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.utils import metrics
+
+    for hold in HOLDS_S:
+        sub = os.path.join(tdir, f"hold_{hold:g}")
+        torch.cuda.synchronize()
+        before = counts()
+        with metrics.trace(sub, hold_s=hold) as prof:
+            step()
+            torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in counts().items()}
+        files = os.listdir(sub)
+        if len(files) != 1 or os.path.getsize(
+                os.path.join(sub, files[0])) == 0:
+            raise AssertionError(f"trace wrote {files}")
+        with open(os.path.join(sub, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        seen, off = events_off((e.get("name", "") for e in kern), launched)
+        if not off:
+            break
+    if off or launched["mega_pass"] != 1:
+        raise AssertionError(f"trace: (events, launches) {off} of the "
+                             f"hand-written kernels held open {hold} s, "
+                             f"launches {launched}")
+    k1a_ms = sum(float(e.get("dur", 0.0)) for e in kern if KERNEL_EVENT[
+        "mega_pass"].search(e.get("name", ""))) / 1e3
+    call = capture_calls(progressive, "mega_pass", step, {0})[0]
+    cuda_k1a_ms, _ = cuda_ms(lambda: mk.mega_pass(*call["a"], **call["k"]),
+                             3)
+    rel = abs(k1a_ms - cuda_k1a_ms) / cuda_k1a_ms
+    if rel > 0.10:
+        raise AssertionError(f"trace: K1a {k1a_ms} ms traced against "
+                             f"{cuda_k1a_ms} ms in CUDA events")
+    return dict(file=files[0], bytes=os.path.getsize(
+                    os.path.join(sub, files[0])),
+                hold_s=hold, events=len(events), kernel_events=len(kern),
+                hand_written_events=seen, k1a_ms=k1a_ms,
+                k1a_cuda_event_ms=cuda_k1a_ms, k1a_rel=rel,
+                process_s=time.perf_counter() - T0,
+                device_ms=sum(device_ms_by_name(prof).values()))
 
 
 def main() -> int:
@@ -3493,9 +4154,10 @@ def main() -> int:
     phase("device", kind=kind, count=torch.cuda.device_count(),
           nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- 2. build: the seven libraries at once --------------------------
+    # ---- 2. build: the eight libraries at once --------------------------
     libraries = (mk.LIBRARY, sd.LIBRARY, ip.LIBRARY, mp.LIBRARY,
-                 mp.LIBRARY_CULLED, mk.LIBRARY_BINNED, dda.LIBRARY)
+                 mp.LIBRARY_CULLED, mk.LIBRARY_BINNED, dda.LIBRARY,
+                 ip.LIBRARY_MXU)
     t_build = time.perf_counter()
     nvcc.build(dict(libraries))
     t_build = time.perf_counter() - t_build
@@ -3507,6 +4169,7 @@ def main() -> int:
     mp._culled_lib()
     mk._binned_lib()
     dda._kernel_lib()
+    ip._mxu_lib()
     builds = {}
     for lib, _ in libraries:
         info = nvcc.builds.get(lib, {"cmd": None, "seconds": 0.0,
@@ -3587,6 +4250,8 @@ def main() -> int:
           rays=rays_total, pass_ms=pass_ms, ms_per_pass=ms,
           mrays_per_s=rays_per_pass / ms / 1e3, mean=float(img.mean()),
           plain_256x192_mean=float(ref.mean()), mean_rel=mean_rel, png=png)
+    phase("trace_early_cornell_1024x768", **trace_pass(
+        r.step, tempfile.mkdtemp(prefix="smallpt_trace_")))
 
     # ---- 6. the kernel alone at the main path's shapes: against its plain
     # version on one key, its time, and its bound ---------------------------
@@ -3761,6 +4426,36 @@ def main() -> int:
     phase("dda_main_procedural10000", **k4)
     phase("host_surfaces_cornell_1024x768", **host_surfaces(dev))
 
+    # ---- 49-50. K5, the MXU-assisted sweep: against its plain version on
+    # tests/test_intersect_pallas.py's cases, then bench_mxu_tpu.py's shape
+    # through intersect_spheres_mxu, against the plain version and K2 ---
+    k5_small = mxu_vs_plain_small(dev)
+    phase("mxu_vs_plain_small", **k5_small)
+    k5 = mxu_main(dev)
+    phase("mxu_main_procedural10000", **k5)
+
+    # ---- 51-56. multi-device: each parallel/ module on a 2 x 2 mesh of
+    # shards on the one card, against the single-device result; then two
+    # gloo ranks --------------------------------------------------------------
+    shards = {"mega": shard_mega(dev), "stream": shard_stream(
+        "shard_stream", cornell, RenderConfig(
+            width=1024, height=768, spp_per_cell=1, max_depth=48,
+            camera_model=CameraModel.LEGACY, filter=Filter.TENT), dev,
+        budget=2, dda=False)}
+    phase("shard_mega_cornell_1024x768", **shards["mega"])
+    phase("shard_stream_cornell_1024x768", **shards["stream"])
+    shards["dda"] = shard_stream(
+        "shard_stream_dda", big, RenderConfig(
+            width=512, height=384, spp_per_cell=1, max_depth=24,
+            camera_model=CameraModel.LEGACY, filter=Filter.TENT), dev,
+        budget=2, dda=True)
+    phase("shard_stream_dda_procedural10000_512x384", **shards["dda"])
+    shards["binned"] = shard_binned(dev, big)
+    phase("shard_binned_procedural10000_512x384", **shards["binned"])
+    shards["replay"] = shard_replay(dev)
+    phase("shard_replay_cornell_512x512", **shards["replay"])
+    phase("distributed_two_ranks", **distributed_two_ranks(dev))
+
     def wf_kernel(name, path, entry, replaces, cmp_stats):
         launch = path["kernel"]["middle"]
         errs = [st["max_abs_err"] for st in cmp_stats.values()]
@@ -3852,7 +4547,9 @@ def main() -> int:
     k8["launch_ms_three_program"] = {
         k: v["kernel_ms"] for k, v in opts["three_program"]["kernel"].items()}
     k8["max_abs_err"] = max([k8["max_abs_err"]] + [
-        v["max_abs_err"] for v in opts["three_program"]["kernel"].values()])
+        v["max_abs_err"] for v in opts["three_program"]["kernel"].values()]
+        + [v["max_abs_err"]
+           for v in shards["binned"]["shard_vs_plain"].values()])
     wf_kernels.append(k8)
     launch = rec_mega["launch"]
     wf_kernels.append({
@@ -3861,7 +4558,8 @@ def main() -> int:
         "replaces": "smallpt_tpu/ops/megakernel.py:151",
         "launches": gmain["launches"]["mega_record"],
         "max_abs_err": max([v["max_abs_err"] for v in rec_small.values()]
-                           + [launch["max_abs_err"]]),
+                           + [launch["max_abs_err"], shards["replay"][
+                               "shard_vs_plain"]["max_abs_err"]]),
         "ms": launch["kernel_ms"], "plain_ms": launch["plain_ms"],
         "bound_ms": launch["bound_ms"], "bound_by": launch["bound_by"],
         "rays": launch["rays"], "ptxas": ptxas_entry(
@@ -3886,6 +4584,20 @@ def main() -> int:
                                   "cells_per_ray_mean", "cells_per_ray_max")}
             for n, v in k4.items() if n.startswith("occ")},
         "ptxas": k4["ptxas"],
+        "library_ms": None,
+    })
+    wf_kernels.append({
+        "name": "closest_hit_mxu", "route": "cuda",
+        "source": "smallpt_tpu_torch/csrc/closest_hit_mxu.cu",
+        "replaces": "smallpt_tpu/ops/intersect_pallas.py:173",
+        "launches": k5["launches"]["closest_hit_mxu"],
+        "max_abs_err": max(v["max_abs_err"] for v in (*k5_small.values(),
+                                                      k5)),
+        "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "rays": MXU_RAYS, "k2_ms_same_rays": k5["k2_ms_same_rays"],
+        "k2_bound_ms": k5["k2_bound_ms"], "vs_k2": k5["vs_k2"],
+        "ptxas": k5["ptxas"],
         "library_ms": None,
     })
     # K2 on the gradient path: the scan differentiator and the recorder
@@ -3921,6 +4633,12 @@ def main() -> int:
                    for st in chain_.values()]
     stream_errs += [full[n]["kernel"]["vs_plain"]["max_abs_err"]
                     for n in full]
+    stream_errs.append(shards["stream"]["shard_vs_plain"]["max_abs_err"])
+    stream_cmp["shard_stream/shard_1_1"] = shards["stream"][
+        "shard_vs_plain"]["frac_div"]
+    k3_errs.append(shards["dda"]["shard_vs_plain"]["max_abs_err"])
+    mega_cmp = dict(cmp_stats, shard_mega_1_1=shards["mega"][
+        "shard_vs_plain"])
 
     kernels = [{
         "name": "mega_pass",
@@ -3928,8 +4646,8 @@ def main() -> int:
         "source": "smallpt_tpu_torch/csrc/megakernel.cu",
         "replaces": "smallpt_tpu/ops/megakernel.py:151",
         "launches": launches,
-        "max_abs_err": max(s["max_abs_err"] for s in cmp_stats.values()),
-        "frac_div": {k: s["frac_div"] for k, s in cmp_stats.items()},
+        "max_abs_err": max(s["max_abs_err"] for s in mega_cmp.values()),
+        "frac_div": {k: s["frac_div"] for k, s in mega_cmp.items()},
         "ms": k_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),

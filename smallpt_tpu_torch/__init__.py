@@ -8,7 +8,8 @@ the CPU tests run. Entry points render on the card unless given
 ``device="cpu"``; they never fall back on their own. The port imports
 neither JAX nor smallpt_tpu.
 
-Ported so far, with next-event estimation (ROADMAP.md):
+Ported, with next-event estimation (ROADMAP.md), all that the JAX package
+does:
 - the per-pass megakernel route: ProgressiveRenderer.step -> mega_pass ->
   one launch of csrc/megakernel.cu per pass, on a scene table and camera
   vector built once (render_with_stats -> render_pass_megakernel for a
@@ -41,7 +42,13 @@ Ported so far, with next-event estimation (ROADMAP.md):
   winners), or the flat wavefront under autograd with K2 picking the
   winners;
 - the per-ray DDA closest hit (ops/dda.py::intersect_spheres_dda ->
-  csrc/dda.cu, K4), which no route calls, as in the JAX package;
+  csrc/dda.cu, K4) and the MXU-assisted sphere sweep
+  (ops/intersect_pallas.py::intersect_spheres_mxu -> csrc/closest_hit_mxu.cu,
+  K5), which no route calls, as in the JAX package;
+- multi-device rendering (parallel/): a (tile, sample) mesh of shards
+  over devices and torch.distributed ranks, render_sharded, the sharded
+  stream, binned renderer and replay step;
+- dtype="float64" on the CPU (the float64 oracle's parity route);
 - the host surfaces: every progressive renderer's JSON request queue,
   run and checkpoints (engine/progressive.py), scene files
   (core/scene_io.py), the interactive session (interactive.py), the

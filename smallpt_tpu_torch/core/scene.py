@@ -60,11 +60,15 @@ class MeshScene(NamedTuple):
         return self.indices.shape[0]
 
 
-def scene_to(scene, device):
+def scene_to(scene, device, dtype=None):
     """The scene with every tensor on ``device`` (a no-op where they lie
-    there already)."""
+    there already), its floating tensors cast to ``dtype`` when given."""
     def move(x):
-        return x.to(device) if isinstance(x, torch.Tensor) else x
+        if not isinstance(x, torch.Tensor):
+            return x
+        if dtype is not None and x.is_floating_point():
+            return x.to(device, dtype)
+        return x.to(device)
 
     mat = Material(*(move(x) for x in scene.material))
     return type(scene)(*(mat if isinstance(x, Material) else move(x)

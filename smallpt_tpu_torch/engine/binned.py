@@ -53,7 +53,7 @@ from smallpt_tpu_torch.engine.quality import (
 )
 from smallpt_tpu_torch.ops import accel as acc
 from smallpt_tpu_torch.ops import megakernel as mk
-from smallpt_tpu_torch.utils.device import resolve_device
+from smallpt_tpu_torch.utils.device import check_dtype, resolve_device
 from smallpt_tpu_torch.utils.metrics import RenderStats
 
 # Sample-index stride between streams: stream j draws ip in [j * IP_STRIDE,
@@ -92,6 +92,83 @@ def build_accel_for_camera(scene, camera, config: RenderConfig,
                                 device=device)
 
 
+def binned_bounce(f, i, ip_offset: int, *, table, table_host, camv,
+                  config: RenderConfig, accel: acc.GridAccel, key,
+                  k_near: int, inflight: int, nee_rows: tuple = (),
+                  fused: bool = True) -> torch.Tensor:
+    """One bounce of a binned state (f, i), in place: regeneration, with
+    NEE the shadow draw, the tile work lists and one K8 launch. Fused: the
+    bucketed lists; otherwise the three-program bounce's exact-distance
+    lists (no NEE). table: the accel-ordered scene table on the state's
+    device, table_host its CPU copy (NEE's light rows); camv: the camera
+    vector's 16 values. Returns the bounce's ray count on the device. The
+    one bounce of BinnedStreamingRenderer and of the sharded renderer
+    (parallel/binned_shard.py)."""
+    mk.regen_binned(f, i, camv, config, key, ip_offset=ip_offset,
+                    inflight=inflight)
+    if not fused:
+        lists, stops, dcut = acc.tile_work_lists(f, i, config, accel,
+                                                 k_near=k_near)
+        return mk.stream_step_binned(
+            table, config, key, f, i, lists, stops, dcut,
+            ip_offset=ip_offset, n_glob_chunks=accel.n_glob_chunks,
+            n_chunks=accel.n_chunks, inflight=inflight,
+            geo_lo=accel.geo_lo, geo_hi=accel.geo_hi)[2]
+    shadow_keys = None
+    if nee_rows:
+        _, shadow_keys = acc.nee_shadow_prep(
+            f, i, table_host, config, accel, key, ip_offset=ip_offset,
+            inflight=inflight, nee_rows=nee_rows)
+    lists, stops, dcut = acc.tile_work_lists_bucketed(
+        f, i, config, accel, k_near=k_near, shadow_keys=shadow_keys)
+    return mk.stream_step_binned(
+        table, config, key, f, i, lists, stops, dcut, ip_offset=ip_offset,
+        n_glob_chunks=accel.n_glob_chunks, n_chunks=accel.n_chunks,
+        inflight=inflight, geo_lo=accel.geo_lo, geo_hi=accel.geo_hi,
+        nee_rows=nee_rows)[2]
+
+
+def light_rows(accel: acc.GridAccel, nee_lights) -> tuple:
+    """config.nee_lights are original scene indices; K8's light rows are
+    each light's first row in the accel-ordered table (padding duplicates
+    sit after it and never win the strict-< fold)."""
+    order = accel.order.cpu().numpy()
+    return tuple(int(np.nonzero(order == li)[0][0]) for li in nee_lights)
+
+
+def drain(advance_dev, pending_dev, marching_dev, stats) -> None:
+    """Drain every in-flight path and the remaining budget: rounds of 8
+    bounces (advance_dev(8), the rays as a device tensor), one host read a
+    round with the pending counts (pending_dev(): (2,) int64) and the
+    marching lanes (marching_dev(): 0-d). A round that traces no ray,
+    leaves the counts unchanged and ends with no lane marching raises. The
+    JAX package raises without the last condition, so a round in which
+    every pending lane only marched its frontier (ts += dcut >= d0 > 0 a
+    launch, which ends in a hit or an escape) aborts a healthy drain there
+    (ROADMAP.md hazard H7)."""
+    p = tuple(pending_dev().tolist())
+    if p == (0, 0):
+        return
+    while True:
+        t0 = time.perf_counter()
+        rays_d = advance_dev(8)
+        packed = torch.cat([rays_d.reshape(1).to(torch.int64),
+                            pending_dev(),
+                            marching_dev().reshape(1)]).tolist()
+        rays, p_new = packed[0], (packed[1], packed[2])
+        stats.rays += rays
+        stats.wall_s += time.perf_counter() - t0
+        stats.passes += 1
+        if p_new == (0, 0):
+            return
+        # progress = rays traced, the pending counts changed (a launch that
+        # only resolves deferred shadows finalizes no ray), or lanes
+        # marching
+        if rays == 0 and p_new == p and packed[3] == 0:
+            raise RuntimeError("flush made no progress (paths stuck?)")
+        p = p_new
+
+
 class BinnedStreamingRenderer:
     """Continuous-wavefront renderer with grid-binned culled sweeps and
     sample streams (sphere scenes).
@@ -116,9 +193,9 @@ class BinnedStreamingRenderer:
                              "resolve in one launch)")
         if not isinstance(scene, SphereScene):
             raise TypeError("binned streaming renders SphereScenes")
-        if config.dtype != "float32":
-            raise NotImplementedError(f"not ported yet: dtype {config.dtype} "
-                                      "(the port renders float32 only)")
+        # float64 on the CPU only; K8's planes stay float32, and so do the
+        # accumulators, as in the JAX package
+        check_dtype(config, device)
         self.sort_every = int(sort_every)
         self.fused = fused
         self.device = resolve_device(device)
@@ -152,7 +229,7 @@ class BinnedStreamingRenderer:
                  if accel is None else acc.accel_to(accel, self.device))
         base = mk.build_scene_table(scene, self.config, self.device)
         table = base[accel.order.long()].contiguous()
-        rows = self._light_rows(accel)
+        rows = light_rows(accel, self.config.nee_lights)
         self.scene, self.accel, self.table = scene, accel, table
         self._table_host = table.cpu()
         self.nee_rows = rows
@@ -186,46 +263,15 @@ class BinnedStreamingRenderer:
                     else np.full((g,), s.budget, np.int64))
         return tot.astype(np.int32)
 
-    def _light_rows(self, accel) -> tuple:
-        """config.nee_lights are original scene indices; K8's light rows
-        are each light's first row in the accel-ordered table (padding
-        duplicates sit after it and never win the strict-< fold)."""
-        order = accel.order.cpu().numpy()
-        return tuple(int(np.nonzero(order == li)[0][0])
-                     for li in self.config.nee_lights)
-
     def _bounce(self, s: _Stream) -> torch.Tensor:
-        """One bounce of a stream (regen, shadow draw, lists, K8), in
-        place; returns its ray count on the device. Fused: the bucketed
-        lists; otherwise the three-program bounce's exact-distance lists
-        (no NEE: the constructor refuses it)."""
-        config, accel = self.config, self.accel
-        mk.regen_binned(s.f, s.i, self._camv, config, self.key,
-                        ip_offset=s.ip_offset, inflight=self.inflight)
-        if not self.fused:
-            lists, stops, dcut = acc.tile_work_lists(s.f, s.i, config, accel,
-                                                     k_near=self.k_near)
-            return mk.stream_step_binned(
-                self.table, config, self.key, s.f, s.i, lists, stops, dcut,
-                ip_offset=s.ip_offset, n_glob_chunks=accel.n_glob_chunks,
-                n_chunks=accel.n_chunks, inflight=self.inflight,
-                geo_lo=accel.geo_lo, geo_hi=accel.geo_hi)[2]
-        shadow_keys = None
-        if self.nee_rows:
-            _, shadow_keys = acc.nee_shadow_prep(
-                s.f, s.i, self._table_host, config, accel, self.key,
-                ip_offset=s.ip_offset, inflight=self.inflight,
-                nee_rows=self.nee_rows)
-        lists, stops, dcut = acc.tile_work_lists_bucketed(
-            s.f, s.i, config, accel, k_near=self.k_near,
-            shadow_keys=shadow_keys)
-        _, _, rays = mk.stream_step_binned(
-            self.table, config, self.key, s.f, s.i, lists, stops, dcut,
-            ip_offset=s.ip_offset, n_glob_chunks=accel.n_glob_chunks,
-            n_chunks=accel.n_chunks, inflight=self.inflight,
-            geo_lo=accel.geo_lo, geo_hi=accel.geo_hi,
-            nee_rows=self.nee_rows)
-        return rays
+        """One bounce of a stream, in place (``binned_bounce``); returns
+        its ray count on the device."""
+        return binned_bounce(s.f, s.i, s.ip_offset, table=self.table,
+                             table_host=self._table_host, camv=self._camv,
+                             config=self.config, accel=self.accel,
+                             key=self.key, k_near=self.k_near,
+                             inflight=self.inflight, nee_rows=self.nee_rows,
+                             fused=self.fused)
 
     def _advance_dev(self, n_bounces: int) -> torch.Tensor:
         """Advance n_bounces without a host read; returns the rays total as
@@ -350,35 +396,12 @@ class BinnedStreamingRenderer:
 
     def flush(self) -> None:
         """Drain every in-flight path and the remaining budget; then
-        ``image`` is the exact per-pixel estimate. One host read a drain
-        round of 8 bounces (its rays and marching lanes ride with the
-        pending counts). A round that traces no ray, leaves the counts
-        unchanged and ends with no lane marching raises. The JAX package
-        raises without the last condition, so a round in which every
-        pending lane only marched its frontier (ts += dcut >= d0 > 0 a
-        launch, which ends in a hit or an escape) aborts a healthy drain
-        there (ROADMAP.md hazard H7)."""
-        p = self.pending()
-        if p == (0, 0):
-            return
-        while True:
-            t0 = time.perf_counter()
-            rays_d = self._advance_dev(8)
-            marching = sum(mk.binned_marching(s.i) for s in self.streams)
-            packed = torch.cat([rays_d[None], self._pending_dev(),
-                                marching[None]]).tolist()
-            rays, p_new = packed[0], (packed[1], packed[2])
-            self.stats.rays += rays
-            self.stats.wall_s += time.perf_counter() - t0
-            self.stats.passes += 1
-            if p_new == (0, 0):
-                return
-            # progress = rays traced, the pending counts changed (a launch
-            # that only resolves deferred shadows finalizes no ray), or
-            # lanes marching
-            if rays == 0 and p_new == p and packed[3] == 0:
-                raise RuntimeError("flush made no progress (paths stuck?)")
-            p = p_new
+        ``image`` is the exact per-pixel estimate (``drain``: one host read
+        a round of 8 bounces; marching lanes count as progress, hazard
+        H7)."""
+        drain(self._advance_dev, self._pending_dev,
+              lambda: sum(mk.binned_marching(s.i) for s in self.streams),
+              self.stats)
 
     def accumulators(self):
         """(radiance sums (H, W, 3), completed-sample weights (H, W)) on the

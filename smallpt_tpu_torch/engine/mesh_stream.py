@@ -46,7 +46,9 @@ from smallpt_tpu_torch.engine.renderer import (
     _mesh_nee_for, _nee_scene_for, make_intersect_fn,
 )
 from smallpt_tpu_torch.ops import wavefront
-from smallpt_tpu_torch.utils.device import resolve_device
+from smallpt_tpu_torch.utils.device import (
+    check_dtype, resolve_device, torch_dtype,
+)
 from smallpt_tpu_torch.utils.metrics import RenderStats
 
 
@@ -62,7 +64,7 @@ class StreamState(NamedTuple):
 
 def _init_state(config: RenderConfig, device) -> StreamState:
     g = config.n_pixels
-    f32 = dict(dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch_dtype(config), device=device)
     i32 = dict(dtype=torch.int32, device=device)
     ps = wavefront.PathState(
         org=torch.zeros((g, 3), **f32), dir=torch.zeros((g, 3), **f32),
@@ -107,13 +109,14 @@ def _bounce(scene, camera, key, st: StreamState, config: RenderConfig,
     ip = s_idx
 
     # stream-keyed camera rays for the regenerating lanes
-    u_cam = prng.stream_camera_uniforms(key, pixel, ip)
+    dtype = torch_dtype(config)
+    u_cam = prng.stream_camera_uniforms(key, pixel, ip, dtype)
     js = config.jitter_size
     group = torch.remainder(
         torch.div(ip, config.spp_per_cell, rounding_mode="floor"), js * js)
     cell_x = group % js
     cell_y = torch.div(group, js, rounding_mode="floor")
-    u_lens = (prng.stream_lens_uniforms(key, pixel, ip)
+    u_lens = (prng.stream_lens_uniforms(key, pixel, ip, dtype)
               if config.aperture > 0.0 else None)
     org, dirs = cam.generate_rays(camera, u_cam, config, cols, rows, cell_x,
                                   cell_y, u_lens=u_lens)
@@ -131,10 +134,10 @@ def _bounce(scene, camera, key, st: StreamState, config: RenderConfig,
     rays = ps.alive.sum(dtype=torch.int64)
 
     def shade_u(depth):
-        return prng.stream_shade_uniforms(key, pixel, ip, depth)
+        return prng.stream_shade_uniforms(key, pixel, ip, depth, dtype)
 
     def nee_u(depth, slot):
-        return prng.stream_nee_uniforms(key, pixel, ip, depth, slot)
+        return prng.stream_nee_uniforms(key, pixel, ip, depth, slot, dtype)
 
     ps = wavefront.bounce_step(
         ps, intersect_fn, scene.material, config, key, pixel,
@@ -164,10 +167,10 @@ class WavefrontStreamingRenderer:
                              "the splitting fidelity mode)")
         if config.mode != Mode.FULL:
             raise ValueError("streaming wavefront renders Mode.FULL")
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                f"not ported yet: dtype {config.dtype} (the port renders "
-                "float32 only)")
+        # float64 (the CPU only): the path state, camera, BSDF and
+        # intersection in float64, the scene cast to it, as the JAX
+        # package's state takes the config's dtype
+        check_dtype(config, device)
         self.config = config
         self.camera = camera
         self.device = resolve_device(device)
@@ -183,7 +186,7 @@ class WavefrontStreamingRenderer:
         (``make_intersect_fn``, once per scene, not once a bounce) and the
         NEE triangle lights. Builds into locals first, so a failure keeps
         the old scene."""
-        dscene = scene_to(scene, self.device)
+        dscene = scene_to(scene, self.device, torch_dtype(self.config))
         fn = make_intersect_fn(dscene, self.config)
         nee = _mesh_nee_for(scene, self.config, self.device)
         self.scene, self._intersect_fn, self.mesh_nee = dscene, fn, nee
@@ -392,7 +395,7 @@ class WavefrontStreamingRenderer:
             return torch.as_tensor(np.asarray(data[name]), dtype=dtype,
                                    device=self.device)
 
-        f32, i32 = torch.float32, torch.int32
+        f32, i32 = torch_dtype(self.config), torch.int32
         ps = wavefront.PathState(
             org=t("org", f32), dir=t("dir", f32), weight=t("weight", f32),
             depth=t("depth", i32), hist=t("hist", i32),

@@ -50,7 +50,9 @@ from smallpt_tpu_torch.engine.renderer import (
     wavefront_pass,
 )
 from smallpt_tpu_torch.ops.megakernel import mega_pass
-from smallpt_tpu_torch.utils.device import resolve_device
+from smallpt_tpu_torch.utils.device import (
+    check_dtype, resolve_device, torch_dtype,
+)
 from smallpt_tpu_torch.utils.metrics import RenderStats, log_json
 
 # what a malformed scene request or a scene a renderer cannot take raises
@@ -223,10 +225,12 @@ class ProgressiveRenderer(_Progressive):
         self.camera = camera
         self.config = config
         self.seed = seed
+        check_dtype(config, device)
         self.device = resolve_device(device)
         self._base = prng.base_key(seed)
         self.accum = torch.zeros((config.height, config.width, 3),
-                                 dtype=torch.float32, device=self.device)
+                                 dtype=torch_dtype(config),
+                                 device=self.device)
         self.sample_count = 0  # passes accumulated
         self._stats = RenderStats()
         self._rays_dev = None  # rays accumulated on the device (no sync)
@@ -336,7 +340,8 @@ class ProgressiveRenderer(_Progressive):
         if int(data["seed"]) != self.seed:
             raise ValueError("checkpoint seed mismatch — resume would replay "
                              "different sample streams")
-        accum = np.asarray(data["accum"], np.float32)
+        accum = np.asarray(data["accum"],
+                           self.accum.cpu().numpy().dtype)
         if accum.shape != tuple(self.accum.shape):
             raise ValueError(f"checkpoint image {accum.shape} != "
                              f"{tuple(self.accum.shape)}")

@@ -9,8 +9,8 @@ The port routes each per-pass config as the JAX package does (``_route``):
 - MEGA, Mode.FULL, split_budget 1, f32 sphere scenes of at most
   MEGA_MAX_SPHERES spheres: one megakernel launch per pass (K1a,
   ops/megakernel.py);
-- MEGA, split_budget 1, sphere scenes above MEGA_MAX_SPHERES (any mode,
-  but not NEE with an AOV mode): the binned drain (``binned_pass``: a
+- MEGA, split_budget 1, f32 sphere scenes above MEGA_MAX_SPHERES (any
+  mode, but not NEE with an AOV mode): the binned drain (``binned_pass``: a
   BinnedStreamingRenderer's budget of spp drained, kernel K8); a scene the
   grid accel cannot index (AccelUnsupported) takes REGEN instead, as in the
   JAX package;
@@ -30,6 +30,14 @@ it. Nothing falls back to another route. Entry points run on the card
 unless given ``device="cpu"``.
 The streaming routes are engine/streaming.py (spheres) and
 engine/mesh_stream.py (meshes, and any scene the wavefront shades).
+
+``dtype="float64"`` renders on the CPU only (utils/device.py::
+check_dtype), as the JAX package does with x64 for parity with the float64
+oracle: the MEGA and binned configs fall through to REGEN, and REGEN and
+FLAT run the path state, the camera, the BSDF and the intersection in
+float64, the scene cast to float64; K2's and K6's plain versions take the
+rays rounded to float32 and give t back in float64, as the JAX package's
+kernel route does.
 """
 
 from __future__ import annotations
@@ -60,7 +68,9 @@ from smallpt_tpu_torch.ops.megakernel import (
 from smallpt_tpu_torch.ops.mesh_pallas import (
     build_tri_table, intersect_mesh_culled, intersect_mesh_pallas,
 )
-from smallpt_tpu_torch.utils.device import resolve_device
+from smallpt_tpu_torch.utils.device import (
+    check_dtype, resolve_device, torch_dtype,
+)
 
 # Triangle count at and above which mesh scenes with Intersector.PALLAS
 # take the grid-culled sweep (K7); read at call time, so setting the module
@@ -71,27 +81,22 @@ MESH_ACCEL_MIN_TRIS = int(
     os.environ.get("SMALLPT_TPU_MESH_ACCEL_MIN", str(1 << 31)))
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"not ported yet: {what}")
-
-
 def _route(scene, config: RenderConfig, differentiable: bool) -> str:
     """The scheduler of a per-pass config, as the JAX package picks it
     (_use_mega, _use_binned, _use_regen): "mega", "binned", "regen" or
-    "flat"; every differentiable render is "flat". Raises
-    NotImplementedError for a dtype other than float32. The JAX package's
+    "flat"; every differentiable render is "flat". The megakernel and
+    the binned drain render float32 only, so float64 falls through to
+    REGEN, as _use_mega and _use_binned require float32. The JAX package's
     BINNED_AUTO flag is read nowhere there, so every MEGA sphere scene above
     MEGA_MAX_SPHERES takes the binned drain, here too (ROADMAP.md hazard
     H4; PERF.md has the H100 A/B against REGEN)."""
     if not isinstance(scene, (SphereScene, MeshScene)):
         raise TypeError(f"unknown scene type {type(scene)}")
-    if config.dtype != "float32":
-        raise _not_ported(f"dtype {config.dtype} (the port renders float32 "
-                          "only)")
     if differentiable:
         return "flat"
     mega_sched = (config.scheduler == Scheduler.MEGA
-                  and config.split_budget == 1)
+                  and config.split_budget == 1
+                  and config.dtype == "float32")
     if mega_sched and isinstance(scene, SphereScene):
         if scene.n_spheres <= MEGA_MAX_SPHERES:
             if config.mode == Mode.FULL:
@@ -239,12 +244,13 @@ def render_samples(scene, camera, config: RenderConfig, key,
     split-budget lanes), or (radiance, rays_traced) with return_stats.
     intersect_fn: ``make_intersect_fn``'s result, built once by a caller
     that renders many batches (None: built here)."""
-    u_cam = prng.camera_uniforms(key, sample_ids)
-    u_lens = (prng.lens_uniforms(key, sample_ids)
+    dtype = torch_dtype(config)
+    u_cam = prng.camera_uniforms(key, sample_ids, dtype)
+    u_lens = (prng.lens_uniforms(key, sample_ids, dtype)
               if config.aperture > 0.0 else None)
     org, dirs = cam.generate_rays(camera, u_cam, config, pixel_cols,
                                   pixel_rows, cell_x, cell_y, u_lens=u_lens)
-    state = wavefront.initial_state(org, dirs, config.split_budget)
+    state = wavefront.initial_state(org, dirs, config.split_budget, dtype)
     lane_sample_ids = (sample_ids if config.split_budget == 1 else
                        sample_ids.repeat_interleave(config.split_budget))
     if intersect_fn is None:
@@ -291,10 +297,12 @@ class WavefrontInputs(NamedTuple):
 
 def wavefront_inputs(scene, config: RenderConfig, route: str,
                      device, differentiable: bool = False) -> WavefrontInputs:
-    """Build a wavefront route's inputs on ``device`` once: the scene, its
-    intersect function with its K2 or K6 table or K7 accel
-    (``make_intersect_fn``), and the mesh NEE tables."""
-    dscene = scene_to(scene, device)
+    """Build a wavefront route's inputs on ``device`` once: the scene (in
+    float64 for a float64 config, on the CPU only), its intersect function
+    with its K2 or K6 table or K7 accel (``make_intersect_fn``), and the
+    mesh NEE tables."""
+    check_dtype(config, device)
+    dscene = scene_to(scene, device, torch_dtype(config))
     return WavefrontInputs(
         route, dscene,
         make_intersect_fn(dscene, config, differentiable=differentiable),
@@ -377,6 +385,7 @@ def render_with_stats(scene, camera, config: RenderConfig, key, device=None):
     """One full-frame pass: ((H, W, 3) summed radiance over config.spp
     samples per pixel, rays traced as a 0-d int64 tensor), on ``device``
     (None means CUDA). key: (2,) uint32 key words (core/rng.py)."""
+    check_dtype(config, device)
     dev = resolve_device(device)
     route = _route(scene, config, False)
     if route == "mega":
@@ -399,6 +408,7 @@ def render(scene, camera, config: RenderConfig, key,
     emission, not through the sampled directions (detach_sampling) or the
     winner choices."""
     if differentiable:
+        check_dtype(config, device)
         dev = resolve_device(device)
         route = _route(scene, config, True)
         return wavefront_pass(
@@ -412,11 +422,12 @@ def render_image(scene, camera, config: RenderConfig, seed: int = 0,
     """Run n_passes progressive passes and return the *mean* image
     (H, W, 3). Pass p is keyed with fold_in(base_key(seed), p), as in the
     JAX package; the pass inputs are built once."""
+    check_dtype(config, device)
     dev = resolve_device(device)
     route = _route(scene, config, False)
     base = prng.base_key(seed)
-    acc = torch.zeros((config.height, config.width, 3), dtype=torch.float32,
-                      device=dev)
+    acc = torch.zeros((config.height, config.width, 3),
+                      dtype=torch_dtype(config), device=dev)
     route, binned = binned_route(scene, camera, config, route, dev)
     if route == "mega":
         table, camv = pass_inputs(scene, camera, config, dev)

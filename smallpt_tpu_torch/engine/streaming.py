@@ -24,6 +24,10 @@ uniform grid instead (ops/stream_dda.py::stream_step_dda, kernel K3). The
 state buffers and the checkpoint file have the JAX package's layout, keys
 and shapes for both routes, so a checkpoint from either package resumes in
 the other. Entry points run on the card unless given ``device="cpu"``.
+
+A float64 config streams on the CPU only, as the JAX package streams it
+with x64: the kernels' state stays float32, and the accumulators come back
+in float64, the float32 result's values.
 """
 
 from __future__ import annotations
@@ -41,19 +45,20 @@ from smallpt_tpu_torch.engine.quality import (
 )
 from smallpt_tpu_torch.ops import megakernel as mk
 from smallpt_tpu_torch.ops import stream_dda as sd
-from smallpt_tpu_torch.utils.device import resolve_device
+from smallpt_tpu_torch.utils.device import (
+    check_dtype, resolve_device, torch_dtype,
+)
 from smallpt_tpu_torch.utils.metrics import RenderStats
 
 
-def _check_route(scene, config: RenderConfig) -> None:
-    """Raise for what the port's sphere streaming routes do not run."""
+def _check_route(scene, config: RenderConfig, device=None) -> None:
+    """Raise for what the port's sphere streaming routes do not run
+    (float64: on the CPU only, utils/device.py::check_dtype)."""
     if not isinstance(scene, SphereScene):
         raise NotImplementedError(
             "StreamingRenderer streams sphere scenes; mesh scenes stream "
             "through WavefrontStreamingRenderer (engine/mesh_stream.py)")
-    if config.dtype != "float32":
-        raise NotImplementedError(f"not ported yet: dtype {config.dtype} "
-                                  "(the port renders float32 only)")
+    check_dtype(config, device)
     if config.split_budget != 1:
         raise ValueError("streaming requires split_budget == 1")
     if config.mode != Mode.FULL:
@@ -72,6 +77,43 @@ def dda_auto(scene, config: RenderConfig) -> bool:
             and scene.n_spheres > mk.MEGA_MAX_SPHERES)
 
 
+def flush_stall_limit(config: RenderConfig, cap: int, capped: bool,
+                      dda: bool) -> int:
+    """How many flush rounds in a row may leave the pending counts
+    unchanged before the flush gives up. One uncapped classic round drains
+    every lane, so a repeat means a stuck stream (1). A capped round may
+    leave the counts as they were while a backlog drains, and so may a DDA
+    round (a bounce costs its walk steps + 1 iterations): both tolerate a
+    worst-case walk (at most ~2x the grid diameter a bounce) over max_depth
+    bounces. The flush of StreamingRenderer and of the sharded stream
+    (parallel/stream_shard.py; the JAX package's sharded flush raises on
+    the first repeat, ROADMAP.md hazard H9)."""
+    if not (capped or dda):
+        return 1
+    return max(3, (config.max_depth * 40) // max(cap, 1) + 2)
+
+
+def drain_stream(pending_fn, advance_fn, stall_limit: int) -> None:
+    """Flush rounds until pending_fn() reads (0, 0): advance_fn() runs one
+    round; stall_limit rounds in a row that leave the pending counts
+    unchanged raise (flush_stall_limit). The drain of StreamingRenderer's
+    flush and of the sharded stream's (parallel/stream_shard.py)."""
+    last_pending = None
+    unchanged = 0
+    while True:
+        pending = pending_fn()
+        if pending == (0, 0):
+            return
+        if pending == last_pending:
+            unchanged += 1
+            if unchanged >= stall_limit:
+                raise RuntimeError("flush made no progress (paths stuck?)")
+        else:
+            unchanged = 0
+        last_pending = pending
+        advance_fn()
+
+
 class StreamingRenderer:
     """Continuous-wavefront progressive renderer (sphere scenes, Mode.FULL).
 
@@ -86,7 +128,7 @@ class StreamingRenderer:
         StreamDDATables. A DDA iteration is finer than a classic bounce (one
         cell step), so the DDA route scales n_iters by _DDA_ITER_SCALE and
         callers keep bounce-denominated budgets. device: None means CUDA."""
-        _check_route(scene, config)
+        _check_route(scene, config, device)
         self.scene = scene
         self.camera = camera
         self.config = config
@@ -243,44 +285,29 @@ class StreamingRenderer:
         """Drain all in-flight paths (no new budget): afterwards image() is
         the exact Monte Carlo estimate over each pixel's budgeted samples."""
         # each round's cap covers the outstanding bounces (a lane may still
-        # owe its whole budget of samples x max_depth bounces), so one
-        # uncapped classic round drains every lane, and a second round with
-        # the same pending counts means a stuck stream. Capped rounds may
-        # legitimately leave the counts unchanged while a backlog drains, and
-        # so may an uncapped DDA round: a DDA bounce costs its walk steps + 1
-        # iterations, and its budget only scales by _DDA_ITER_SCALE. Both get
-        # the tolerance of a worst-case walk (<= ~2x the grid diameter per
-        # bounce) over max_depth bounces.
+        # owe its whole budget of samples x max_depth bounces)
         cap = self.config.max_depth * max(self._budget_max, 1) + 64
         capped = (self.max_launch_iters is not None
                   and self.max_launch_iters < cap)
         if capped:
             cap = self.max_launch_iters
-        stall_limit = (1 if not (capped or self._dda is not None)
-                       else max(3, (self.config.max_depth * 40)
-                                // max(cap, 1) + 2))
-        last_pending = None
-        unchanged = 0
-        total = None
-        while True:
-            pending = mk.stream_pending(self.i)
-            if pending == (0, 0):
-                break
-            if pending == last_pending:
-                unchanged += 1
-                if unchanged >= stall_limit:
-                    raise RuntimeError("flush made no progress (paths stuck?)")
-            else:
-                unchanged = 0
-            last_pending = pending
-            rays = self._advance(None, cap)
-            total = rays if total is None else total + rays
-        if total is not None:
-            self.stats.rays += int(total)
+        stall_limit = flush_stall_limit(self.config, cap, capped,
+                                        self._dda is not None)
+        total = []
+
+        def advance():
+            total.append(self._advance(None, cap))
+
+        drain_stream(lambda: mk.stream_pending(self.i), advance, stall_limit)
+        if total:
+            self.stats.rays += int(sum(total))
 
     def accumulators(self):
-        """(radiance sums (H, W, 3), completed-sample weights (H, W))."""
-        return mk.stream_image(self.f, self.i, self.config)
+        """(radiance sums (H, W, 3), completed-sample weights (H, W)), in
+        the config's dtype."""
+        dt = torch_dtype(self.config)
+        return tuple(x.to(dt) for x in mk.stream_image(self.f, self.i,
+                                                      self.config))
 
     # -- invalidation (the reference's camera-update accumulation reset,
     # smallpt.cpp:906-920) ---------------------------------------------------
@@ -299,7 +326,7 @@ class StreamingRenderer:
         """A new scene on the same route: the DDA route rebuilds its tables
         (interactive edits do not re-run the routing rule, as in the JAX
         package)."""
-        _check_route(scene, self.config)
+        _check_route(scene, self.config, self.device)
         self.scene = scene
         if self._dda is not None:
             self._dda = sd.build_stream_dda_tables(scene, self.config,

@@ -75,8 +75,11 @@ def refr_terms(d: torch.Tensor, n: torch.Tensor, nl: torch.Tensor,
     d: incoming ray dir (N,3); n: geometric normal; nl: shading normal
     (flipped against d). into = dot(n, nl) > 0 detects outside->inside."""
     into = (_dot(n, nl) > 0.0)[:, 0]
+    # the constants in the path's dtype, as the JAX package takes them
+    rnd = ((lambda x: x) if d.dtype == torch.float64
+           else (lambda x: float(np.float32(x))))
     nc = 1.0
-    nt = float(np.float32(ior))
+    nt = rnd(ior)
     nnt = torch.where(into, torch.full_like(d[:, 0], nc / nt),
                       torch.full_like(d[:, 0], nt / nc))
     ddn = _dot(d, nl)[:, 0]
@@ -88,8 +91,7 @@ def refr_terms(d: torch.Tensor, n: torch.Tensor, nl: torch.Tensor,
                           - n * (sign * (ddn * nnt + sq))[:, None])
     a = nt - nc
     b = nt + nc
-    r0 = float(np.float32(np.float32(a) * np.float32(a))
-               / np.float32(np.float32(b) * np.float32(b)))
+    r0 = rnd(rnd(rnd(a) * rnd(a)) / rnd(rnd(b) * rnd(b)))
     c = 1.0 - torch.where(into, -ddn, _dot(tdir, n)[:, 0])
     re = r0 + (1.0 - r0) * c * c * c * c * c
     tr = 1.0 - re

@@ -26,7 +26,13 @@ picks each ray's winner (a discrete choice, no gradient), and
 ``_replay_winner`` recomputes the winner's hit in PyTorch, where autograd
 reaches the centers and radii.
 
-Not in this module yet: K5 (``intersect_spheres_mxu``, ROADMAP.md).
+K5, the JAX package's MXU-assisted sweep (``_intersect_kernel_mxu``),
+becomes csrc/closest_hit_mxu.cu: ``build_sphere_table_mxu`` packs the
+small spheres as two 8-float coefficient rows each, in a frame recentred
+at their centroid; ``closest_hit_mxu`` launches K5 (counted in
+``closest_hit_mxu.launches``) or runs ``closest_hit_mxu_plain`` on a CPU
+tensor; ``intersect_spheres_mxu`` is the drop-in that refines K5's winner
+with ``_replay_winner`` in the unshifted frame.
 """
 
 from __future__ import annotations
@@ -49,8 +55,9 @@ MAX_BIG = 128
 # Part B pads to whole chunks of this many rows, as the JAX table does.
 _S_CHUNK = 64
 
-# (library name, csrc/ source) of the kernel of this module
+# (library name, csrc/ source) of each kernel of this module: K2 and K5
 LIBRARY = ("smallpt_closest_hit", "closest_hit.cu")
+LIBRARY_MXU = ("smallpt_closest_hit_mxu", "closest_hit_mxu.cu")
 
 
 def build_sphere_table(scene: SphereScene, eps: float = 1e-4,
@@ -71,19 +78,8 @@ def build_sphere_table(scene: SphereScene, eps: float = 1e-4,
         raise ValueError(
             f"{n_big} spheres with radius >= {stable_radius} exceed the "
             f"stable-sweep capacity MAX_BIG={MAX_BIG}")
-    eps_i = np.maximum(np.float32(eps), np.float32(eps_rel) * r)
-    rows = np.zeros((s, 8), np.float32)
-    rows[:, 0:3] = c
-    rows[:, 3] = r
-    rows[:, 4] = eps_i
-
-    # part A: big-first order, truncated or padded to MAX_BIG rows
-    order = np.argsort(np.where(big, 0, 1), kind="stable")
-    n_a = min(MAX_BIG, s)
-    table_a = np.zeros((MAX_BIG, 8), np.float32)
-    perm_a = np.zeros(MAX_BIG, np.int64)
-    table_a[:n_a] = rows[order[:n_a]]
-    perm_a[:n_a] = order[:n_a]
+    rows = _rows(c, r, eps, eps_rel)
+    table_a, perm_a = _part_a(rows, big)
 
     # part B: scene order, the big spheres (all in part A) zeroed
     s_pad = s + (-s) % _S_CHUNK
@@ -96,6 +92,29 @@ def build_sphere_table(scene: SphereScene, eps: float = 1e-4,
     return (torch.from_numpy(np.concatenate([table_a, table_b])).to(dev),
             torch.from_numpy(np.concatenate([perm_a, perm_b])).to(dev),
             MAX_BIG // _S_CHUNK, s_pad // _S_CHUNK)
+
+
+def _rows(c: np.ndarray, r: np.ndarray, eps: float, eps_rel: float):
+    """(S, 8) float32 rows [cx cy cz r eps_i 0 0 0], eps_i = max(eps,
+    eps_rel * r)."""
+    rows = np.zeros((c.shape[0], 8), np.float32)
+    rows[:, 0:3] = c
+    rows[:, 3] = r
+    rows[:, 4] = np.maximum(np.float32(eps), np.float32(eps_rel) * r)
+    return rows
+
+
+def _part_a(rows: np.ndarray, big: np.ndarray):
+    """Part A, the stable sweep's rows: big-first order, truncated or
+    padded to MAX_BIG rows; returns (table (MAX_BIG, 8), perm (MAX_BIG,)
+    int64)."""
+    order = np.argsort(np.where(big, 0, 1), kind="stable")
+    n_a = min(MAX_BIG, rows.shape[0])
+    table_a = np.zeros((MAX_BIG, 8), np.float32)
+    perm_a = np.zeros(MAX_BIG, np.int64)
+    table_a[:n_a] = rows[order[:n_a]]
+    perm_a[:n_a] = order[:n_a]
+    return table_a, perm_a
 
 
 def _kernel_lib():
@@ -263,7 +282,12 @@ def intersect_spheres_pallas(org, dirs, scene: SphereScene,
                                     device=org.device)
     table, perm, n_big_chunks, n_small_chunks = tables
     n = org.shape[0]
-    t, slot = closest_hit(org.T.contiguous(), dirs.T.contiguous(), table,
+    # float64 rays (the CPU's float64 route) go to the kernel's plain
+    # version in float32 and t comes back in their dtype, as in the JAX
+    # package
+    f32 = torch.float32
+    t, slot = closest_hit(org.to(f32).T.contiguous(),
+                          dirs.to(f32).T.contiguous(), table,
                           _S_CHUNK * n_big_chunks, _S_CHUNK * n_small_chunks)
     best_i = perm.index_select(0, slot.long())
     t = torch.where(t >= _BIG, float("inf"), t).to(org.dtype)
@@ -332,8 +356,9 @@ def intersect_spheres_hybrid_diff(org, dirs, scene: SphereScene,
         tables = build_sphere_table(scene, eps=eps, eps_rel=eps_rel,
                                     device=org.device)
     table, perm, n_big_chunks, n_small_chunks = tables
-    t_k, slot = closest_hit(org.detach().T.contiguous(),
-                            dirs.detach().T.contiguous(), table,
+    t_k, slot = closest_hit(org.detach().to(torch.float32).T.contiguous(),
+                            dirs.detach().to(torch.float32).T.contiguous(),
+                            table,
                             _S_CHUNK * n_big_chunks,
                             _S_CHUNK * n_small_chunks)
     kernel_hit = t_k < _BIG
@@ -344,3 +369,231 @@ def intersect_spheres_hybrid_diff(org, dirs, scene: SphereScene,
     return Hit(t=t, inst=idx, prim=idx, x=x, n=nrm,
                uv=torch.zeros((org.shape[0], 2), dtype=org.dtype,
                               device=org.device))
+
+
+def _mxu_shift(c: np.ndarray, big: np.ndarray) -> np.ndarray:
+    """The small class's centroid, (3,) float32: the sum taken in float64
+    and rounded once, divided in float32 (the JAX package sums in XLA's
+    order, which no other summation reproduces bit for bit: this lands
+    within 2 ulp of it)."""
+    n_small = np.float32(max(int((~big).sum()), 1))
+    total = c.astype(np.float64)[~big].sum(axis=0).astype(np.float32)
+    return (total / n_small).astype(np.float32)
+
+
+def _mxu_tables(c: np.ndarray, r: np.ndarray, shift: np.ndarray, eps: float,
+                eps_rel: float, stable_radius: float):
+    """The rows of ``build_sphere_table_mxu`` from float32 centers c (S, 3),
+    radii r (S,) and the recentring shift (3,), as numpy arrays: (stable
+    table (MAX_BIG, 8), MXU table (2 * S_pad, 8), perm (MAX_BIG + S_pad,)
+    int64, n_small_chunks)."""
+    s = c.shape[0]
+    c = (c - shift[None, :]).astype(np.float32)
+    big = r >= np.float32(stable_radius)
+    stable, perm_a = _part_a(_rows(c, r, eps, eps_rel), big)
+
+    # part B: per sphere the b row [cx cy cz 0 0 0 0 0] and the det row
+    # [0 0 0 2cx 2cy 2cz -q -1], q = |c|^2 - r^2; big spheres and padding
+    # are masked with q = 1e30 (det < 0, a miss) and a 0 in place of -1
+    s_pad = s + (-s) % _S_CHUNK
+    cb = np.zeros((s_pad, 3), np.float32)
+    rb = np.zeros(s_pad, np.float32)
+    cb[:s] = np.where(big[:, None], np.float32(0.0), c)
+    rb[:s] = np.where(big, np.float32(0.0), r)
+    masked = np.ones(s_pad, bool)
+    masked[:s] = big
+    cc = (cb[:, 0] * cb[:, 0] + cb[:, 1] * cb[:, 1]) + cb[:, 2] * cb[:, 2]
+    q = np.where(masked, np.float32(1e30), cc - rb * rb)
+    rows_b1 = np.zeros((s_pad, 8), np.float32)
+    rows_b1[:, 0:3] = cb
+    rows_b2 = np.zeros((s_pad, 8), np.float32)
+    rows_b2[:, 3:6] = np.float32(2.0) * cb
+    rows_b2[:, 6] = -q
+    rows_b2[:, 7] = np.where(masked, np.float32(0.0), np.float32(-1.0))
+    # chunk c holds rows [128 c, 128 c + 64) of b rows, then 64 det rows
+    n_sc = s_pad // _S_CHUNK
+    mxu = np.stack([rows_b1.reshape(n_sc, _S_CHUNK, 8),
+                    rows_b2.reshape(n_sc, _S_CHUNK, 8)],
+                   axis=1).reshape(2 * s_pad, 8)
+    perm_b = np.zeros(s_pad, np.int64)
+    perm_b[:s] = np.arange(s)
+    return stable, mxu, np.concatenate([perm_a, perm_b]), n_sc
+
+
+def build_sphere_table_mxu(scene: SphereScene, eps: float = 1e-4,
+                           eps_rel: float = 5e-7,
+                           stable_radius: float = STABLE_RADIUS,
+                           device=None):
+    """K5's tables, built in float32 on the host as the JAX package builds
+    them: (stable_tbl (MAX_BIG, 8) f32, mxu_tbl (2 * S_pad, 8) f32, perm
+    (MAX_BIG + S_pad,) int64 table slot -> sphere id, n_big_chunks,
+    n_small_chunks, eps_small, shift (3,) f32), the tensors on ``device``
+    (None: the CPU).
+
+    Part A is ``build_sphere_table``'s, in the recentred frame. The small
+    class is a chunk-interleaved coefficient matrix: chunk c holds rows
+    [128 c, 128 c + 64) of b coefficients [cx cy cz 0 0 0 0 0] and then 64
+    rows of det coefficients [0 0 0 2cx 2cy 2cz -q -1], q = |c|^2 - r^2;
+    big spheres and padding carry q = 1e30, so det < 0 makes them a miss.
+
+    ``shift`` recentres the frame at the small class's centroid (callers
+    subtract it from the ray origins; t does not move): the expanded
+    quadratic's rounding error grows with the square of the coordinates.
+    K5 compares both roots with one eps, eps_small = eps, which holds for
+    every small sphere while eps_rel * stable_radius <= eps; a ValueError
+    otherwise, and when more than MAX_BIG spheres need the stable form."""
+    if eps_rel * stable_radius > eps:
+        raise ValueError(
+            f"mxu sweep needs uniform small-class eps: eps_rel*stable_radius"
+            f" = {eps_rel * stable_radius} > eps = {eps}")
+    c = scene.center.detach().cpu().numpy().astype(np.float32)
+    r = scene.radius.detach().cpu().numpy().astype(np.float32)
+    big = r >= np.float32(stable_radius)
+    if int(big.sum()) > MAX_BIG:
+        raise ValueError(
+            f"{int(big.sum())} spheres with radius >= {stable_radius} "
+            f"exceed the stable-sweep capacity MAX_BIG={MAX_BIG}")
+    shift = _mxu_shift(c, big)
+    stable, mxu, perm, n_sc = _mxu_tables(c, r, shift, eps, eps_rel,
+                                          stable_radius)
+    dev = device or "cpu"
+    return (torch.from_numpy(stable).to(dev), torch.from_numpy(mxu).to(dev),
+            torch.from_numpy(perm).to(dev), MAX_BIG // _S_CHUNK, n_sc,
+            float(eps), torch.from_numpy(shift).to(dev))
+
+
+def _mxu_lib():
+    """The entry point of the K5 library (built at first use)."""
+    from smallpt_tpu_torch.utils.nvcc import load_library
+
+    fn = load_library(*LIBRARY_MXU).smallpt_closest_hit_mxu
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def closest_hit_mxu(org_c: torch.Tensor, dirs: torch.Tensor,
+                    stable_tbl: torch.Tensor, mxu_tbl: torch.Tensor,
+                    n_a: int, n_b: int, eps_small: float):
+    """Closest sphere of every ray through K5's two sweeps: rows [0, n_a)
+    of stable_tbl in the stable form, then the n_b small spheres of
+    mxu_tbl (2 * n_b rows, ``build_sphere_table_mxu``) by their expanded
+    quadratic, both roots rejected at eps_small.
+
+    org_c: (3, N) f32 origins in the recentred frame (org - shift); dirs:
+    (3, N) f32 unit directions. Returns (t (N,) f32, slot (N,) int32): the
+    least t, 3e38 where nothing is hit, and the first slot attaining it
+    (n_a + j for small sphere j; 0 on a miss), as the JAX kernel returns
+    them.
+
+    A CUDA tensor launches csrc/closest_hit_mxu.cu (and counts the launch
+    in ``closest_hit_mxu.launches``); a CPU tensor runs
+    ``closest_hit_mxu_plain``."""
+    n = _check_rays(org_c, dirs, stable_tbl, 8)
+    _check_rays(org_c, dirs, mxu_tbl, 8)
+    if not (0 <= n_a <= stable_tbl.shape[0] and 0 <= n_b
+            and n_b % _S_CHUNK == 0 and 2 * n_b <= mxu_tbl.shape[0]):
+        raise ValueError(f"n_a={n_a}, n_b={n_b} for tables of "
+                         f"{stable_tbl.shape[0]} and {mxu_tbl.shape[0]} rows")
+    if stable_tbl.device.type == "cpu":
+        return closest_hit_mxu_plain(org_c, dirs, stable_tbl, mxu_tbl, n_a,
+                                     n_b, eps_small)
+    fn = _mxu_lib()
+    t = torch.empty((n,), dtype=torch.float32, device=stable_tbl.device)
+    slot = torch.empty((n,), dtype=torch.int32, device=stable_tbl.device)
+    ints = np.array([n, n_a, n_b], np.int32)
+    eps = np.array([eps_small], np.float32)
+    with torch.cuda.device(stable_tbl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(org_c.data_ptr(), dirs.data_ptr(), stable_tbl.data_ptr(),
+                 mxu_tbl.data_ptr(), t.data_ptr(), slot.data_ptr(),
+                 ints.ctypes.data, eps.ctypes.data, stream)
+    if err != 0:
+        raise RuntimeError(f"closest_hit_mxu launch failed: CUDA error {err}")
+    closest_hit_mxu.launches += 1
+    return t, slot
+
+
+closest_hit_mxu.launches = 0
+
+
+def _dot8(rows, feats):
+    """rows (M, 8) . feats (8 planes, each (N, 1)) -> (N, M), the eight
+    products summed left to right, zero terms included (K5's dot8)."""
+    p = rows[None, :, 0] * feats[0]
+    for k in range(1, 8):
+        p = p + rows[None, :, k] * feats[k]
+    return p
+
+
+def closest_hit_mxu_plain(org_c, dirs, stable_tbl, mxu_tbl, n_a: int,
+                          n_b: int, eps_small: float):
+    """The plain PyTorch version of K5, in the kernel's op order: part A
+    is K2's plain stable sweep over stable_tbl's first n_a rows; each small
+    sphere's b = row1 . F - od and det = b * b + row2 . F, F = [dx dy dz
+    ox oy oz 1 oo], od = o . d, oo = o . o, s = sqrt(det) (NaN below 0, so
+    both root compares fail), the roots b - s and b + s against eps_small.
+    The two sweeps fold as one strict-< fold over the slots in order.
+    Returns (t, slot) as ``closest_hit_mxu``."""
+    n = org_c.shape[1]
+    t_a, slot_a = closest_hit_plain(org_c, dirs, stable_tbl, n_a, 0)
+    ox, oy, oz = (v[:, None] for v in org_c)
+    dx, dy, dz = (v[:, None] for v in dirs)
+    od = (ox * dx + oy * dy) + oz * dz
+    oo = (ox * ox + oy * oy) + oz * oz
+    feats = (dx, dy, dz, ox, oy, oz, torch.ones_like(ox), oo)
+    chunks = mxu_tbl[:2 * n_b].view(-1, 2, _S_CHUNK, 8)
+    row1 = chunks[:, 0].reshape(-1, 8)
+    row2 = chunks[:, 1].reshape(-1, 8)
+    eps = float(np.float32(eps_small))
+
+    def candidates(lo, hi):
+        b = _dot8(row1[lo:hi], feats) - od
+        det = b * b + _dot8(row2[lo:hi], feats)
+        s_ = torch.sqrt(det)
+        t0 = b - s_
+        t1 = b + s_
+        return (torch.where(t0 > eps, t0, torch.where(t1 > eps, t1, _BIG)),)
+
+    t_b, i_b = fold_rows(n, org_c.device, n_b, _chunk_rows(n), candidates)
+    better = t_b < t_a
+    return (torch.where(better, t_b, t_a),
+            torch.where(better, i_b + n_a, slot_a))
+
+
+def intersect_spheres_mxu(org, dirs, scene: SphereScene, eps: float = 1e-4,
+                          eps_rel: float = 5e-7, precision=None,
+                          tables=None) -> Hit:
+    """Closest analytic sphere hit through K5, the drop-in for
+    ``intersect_spheres_pallas`` on scenes of many small spheres: K5
+    chooses each ray's winner with the expanded quadratic in the recentred
+    frame, then ``_replay_winner`` recomputes the winner's t, hit point and
+    normal in the stable form in the unshifted frame, so a reported hit
+    carries K2's accuracy; only near-tie winner choices and grazing
+    hit/miss calls can differ from K2 (the JAX suite's statistical gates,
+    tests/test_intersect_pallas.py). org, dirs: (N, 3) on the device of
+    the scene's tensors. tables: ``build_sphere_table_mxu``'s result there,
+    built once by the caller (None: built here).
+
+    precision is the JAX signature's matmul precision. The port computes
+    in float32 whatever its value, as the JAX package's DEFAULT and
+    HIGHEST both do on the CPU; a TF32 tensor-core variant, the analog of
+    DEFAULT on a TPU, is speed work for later."""
+    del precision
+    if tables is None:
+        tables = build_sphere_table_mxu(scene, eps=eps, eps_rel=eps_rel,
+                                        device=org.device)
+    stable, mxu, perm, n_big_chunks, n_small_chunks, eps_small, shift = (
+        tables)
+    org_c = (org.to(torch.float32) - shift[None, :]).T.contiguous()
+    t_k, slot = closest_hit_mxu(org_c, dirs.to(torch.float32).T.contiguous(),
+                                stable, mxu, _S_CHUNK * n_big_chunks,
+                                _S_CHUNK * n_small_chunks, eps_small)
+    best_i = perm.index_select(0, slot.long().clamp(max=perm.shape[0] - 1))
+    t, x, nrm, ok = _replay_winner(
+        org, dirs, scene.center.to(org.dtype).index_select(0, best_i),
+        scene.radius.to(org.dtype).index_select(0, best_i), t_k < _BIG, eps,
+        eps_rel)
+    return Hit(t=t.to(org.dtype), inst=best_i, prim=best_i, x=x, n=nrm,
+               uv=torch.where(ok, sphere_uv(nrm), 0.0).to(org.dtype))

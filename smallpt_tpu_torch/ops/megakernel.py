@@ -1227,9 +1227,11 @@ def _asin_poly(y: torch.Tensor) -> torch.Tensor:
     return _atan2_poly(c, torch.sqrt(torch.clamp(1.0 - c * c, min=0.0)))
 
 
-def _binned_geometry(config: RenderConfig, inflight: int = 1):
-    """(lanes G * inflight, n_tiles, n_cols) of the whole image's state."""
-    g = config.n_pixels * inflight
+def _binned_geometry(config: RenderConfig, inflight: int = 1,
+                     n_pix: int | None = None):
+    """(lanes G * inflight, n_tiles, n_cols) of the state of n_pix pixels
+    (None: the whole image; a sharded row band passes its size)."""
+    g = (config.n_pixels if n_pix is None else n_pix) * inflight
     n_tiles = -(-g // (_SUB * _LANE_B))
     return g, n_tiles, n_tiles * _LANE_B
 
@@ -1245,17 +1247,28 @@ def _shift_of(inflight: int) -> int:
     return inflight.bit_length() - 1
 
 
-def init_binned_state(config: RenderConfig, inflight: int = 1, device=None):
+def init_binned_state(config: RenderConfig, inflight: int = 1,
+                      pixel_lo: int = 0, n_pix: int | None = None,
+                      device=None):
     """Fresh binned state on ``device`` (None means CUDA): every lane dead
     with s_idx -1 and budget 0, the carried candidate (3e38, -1) and
     frontier 0, and the lane-id plane q = 8c + r column-major, so tile t
     holds the contiguous ids [8192 t, 8192 (t + 1)) (a compact image block,
-    a pixel's sub-lanes in one tile). inflight must be a power of two. The
-    JAX package's sharded row bands (pixel_lo, n_pix) belong to item 12 and
-    are not ported."""
+    a pixel's sub-lanes in one tile). inflight must be a power of two.
+
+    A sharded row band (parallel/binned_shard.py) passes pixel_lo and
+    n_pix: its ids cover the global pixels [pixel_lo, pixel_lo + n_pix)
+    (offset by pixel_lo * inflight), so regeneration, keying and raster
+    positions, which read the id plane, trace the band's pixels with the
+    streams of a whole-image state. Raises ValueError when the band's
+    padded ids leave int32."""
     _shift_of(inflight)
     dev = resolve_device(device)
-    _, _, n_cols = _binned_geometry(config, inflight)
+    _, _, n_cols = _binned_geometry(config, inflight, n_pix)
+    lo = pixel_lo * inflight
+    if lo < 0 or lo + _SUB * n_cols > 2 ** 31 - 1:
+        raise ValueError(f"lane ids [{lo}, {lo + _SUB * n_cols}) of the "
+                         "band leave int32")
     f = torch.zeros((_SUB * _nf_b(config), n_cols), dtype=torch.float32,
                     device=dev)
     _plane(f, _F_BT).fill_(_BIG)
@@ -1265,17 +1278,22 @@ def init_binned_state(config: RenderConfig, inflight: int = 1, device=None):
     _plane(i, _I_SIDX).fill_(-1)
     _plane(i, _I_PIXEL).copy_(
         torch.arange(_SUB, dtype=torch.int32, device=dev)[:, None]
-        + torch.arange(n_cols, dtype=torch.int32, device=dev)[None, :] * _SUB)
+        + torch.arange(n_cols, dtype=torch.int32, device=dev)[None, :] * _SUB
+        + lo)
     return f, i
 
 
 def set_binned_budget(i: torch.Tensor, budget, config: RenderConfig,
-                      inflight: int = 1) -> torch.Tensor:
+                      inflight: int = 1,
+                      pixel_hi: int | None = None) -> torch.Tensor:
     """Raise the per-PIXEL sample budget in place and return ``i``.
     budget: a scalar or (G,) ints (adaptive sampling), gathered through the
     lane-id plane; a pixel's budget b splits over its ``inflight`` sub-lanes
-    as ceil/floor shares summing to b. Lanes past the image stay at 0."""
+    as ceil/floor shares summing to b. Lanes of pixel pixel_hi and above
+    (None: the image's end; a sharded row band passes its band's end) stay
+    at 0."""
     g = config.n_pixels
+    pixel_hi = g if pixel_hi is None else pixel_hi
     shift = _shift_of(inflight)
     q = _plane(i, _I_PIXEL)
     old = _plane(i, _I_BUDGET)
@@ -1291,7 +1309,7 @@ def set_binned_budget(i: torch.Tensor, budget, config: RenderConfig,
         sub = q - (pix << shift)
         new = torch.div(new + (inflight - 1) - sub, inflight,
                         rounding_mode="floor")
-    old.copy_(torch.where(pix < g, torch.maximum(new, old), old))
+    old.copy_(torch.where(pix < pixel_hi, torch.maximum(new, old), old))
     return i
 
 
@@ -1304,14 +1322,16 @@ def _by_lane_id(v: torch.Tensor, q: torch.Tensor, g: int, inflight: int):
 
 
 def binned_image(f: torch.Tensor, i: torch.Tensor, config: RenderConfig,
-                 inflight: int = 1):
+                 inflight: int = 1, n_pix: int | None = None):
     """(radiance (H, W, 3), completed-sample weights (H, W)) of a binned
     state: lanes keyed back to their ids (the JAX package sorts by the id
-    plane, a permutation of the state's ids; here the ids place the values
-    directly), a pixel's sub-lanes summed (disjoint samples, an exact
-    union)."""
-    g = config.n_pixels
+    plane, a permutation of the state's ids; here the ids, less the
+    least, place the values directly), a pixel's sub-lanes summed
+    (disjoint samples, an exact union). n_pix: a sharded row band's state
+    gives its (rows, W) block."""
+    g = config.n_pixels if n_pix is None else n_pix
     q = _plane(i, _I_PIXEL)
+    q = q - q.min()
     done = (_plane(i, _I_SIDX) + 1 - _plane(i, _I_ALIVE)).to(torch.float32)
     rad = torch.stack([_by_lane_id(_plane(f, _F_RX + k), q, g, inflight)
                        for k in range(3)], dim=-1)

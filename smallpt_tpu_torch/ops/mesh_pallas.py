@@ -194,7 +194,9 @@ def intersect_mesh_pallas(org, dirs, scene: MeshScene, eps: float = 0.0,
     built once by the caller (None: built here)."""
     if table is None:
         table = build_tri_table(scene, device=org.device)
-    t, tri, u, v = closest_tri(org.T.contiguous(), dirs.T.contiguous(),
+    # float64 rays (the CPU's float64 route) in float32, as the JAX package
+    t, tri, u, v = closest_tri(org.to(torch.float32).T.contiguous(),
+                               dirs.to(torch.float32).T.contiguous(),
                                table, eps=float(eps))
     t = torch.where(t >= _BIG, float("inf"), t).to(org.dtype)
     return complete_mesh_hit(scene, t, tri, u.to(org.dtype),

@@ -226,8 +226,10 @@ def _check(tables: StreamDDATables, cam, config: RenderConfig, f, i,
         raise ValueError("streaming requires split_budget == 1")
     if config.mode != Mode.FULL:
         raise ValueError("streaming renders Mode.FULL only")
-    if config.dtype != "float32":
-        raise ValueError("the DDA kernel renders float32 only")
+    if config.dtype not in ("float32", "float64"):
+        # float64 (the CPU's route) streams the kernel's float32 state
+        raise ValueError(f"the DDA kernel's state is float32, not "
+                         f"{config.dtype}")
     light_row = None
     if config.nee_lights:
         if len(config.nee_lights) != 1:

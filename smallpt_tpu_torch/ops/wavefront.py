@@ -44,6 +44,7 @@ from smallpt_tpu_torch.core.math import dot3, fdiv
 from smallpt_tpu_torch.core.scene import DIFF, REFR, SPEC, Material
 from smallpt_tpu_torch.ops import bsdf
 from smallpt_tpu_torch.ops.intersect import Hit
+from smallpt_tpu_torch.utils.device import torch_dtype
 
 # the columns of shade_uniforms (core/rng.py in the JAX package)
 U_RR, U_BSDF_1, U_BSDF_2, U_CHOICE = 0, 1, 2, 3
@@ -196,7 +197,8 @@ def _nee_tri_light(data: TriLightData, un, x, dtype):
 def _nee_cone(lc, lr, un, x, dtype):
     """One cone sample of the light sphere (lc, lr) from the points x:
     (ldir, d2, inside the shell, cos_a_max)."""
-    two_pi = float(np.float32(2.0 * np.pi))
+    two_pi = (2.0 * np.pi if dtype == torch.float64
+              else float(np.float32(2.0 * np.pi)))
     sw = lc[None, :] - x
     d2 = _dot(sw, sw)
     inside = d2 <= lr * lr
@@ -473,7 +475,7 @@ def run_wavefront_regen(camera, intersect_fn, material: Material,
     device, read by utils/metrics.py::occupancy_profile)."""
     if config.split_budget != 1:
         raise ValueError("regenerative scheduler requires split_budget == 1")
-    dtype = torch.float32
+    dtype = torch_dtype(config)
     dev = pixel.device
     g = pixel.shape[0]
     spp = config.spp

@@ -52,20 +52,40 @@ def log_json(event: str, payload: dict, stream=None) -> None:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
+def trace(log_dir: str, hold_s: float = 0.0):
     """Profile the block with torch.profiler (CPU activity, and the card's
     where there is one) and write it to log_dir as a Chrome trace file,
     trace_<pid>_<ms>.json (chrome://tracing or Perfetto open it). Yields
-    the profiler, whose key_averages() sum the time by operation."""
+    the profiler, whose key_averages() sum the time by operation.
+
+    hold_s: seconds the profiler stays open before and after the block,
+    the card synchronized. torch's profiler (Kineto over CUPTI) drops the
+    device events it places outside its session's window, and how many it
+    drops grows with the age of the process, not with what the process
+    did: on an H100 one K1a pass traced 17 s into a fresh process keeps
+    its 5 kernel events, 20-30 s later K1a's is gone, 60 s later all but
+    one or all of them, with no other work in between, whatever stream,
+    thread or runtime launched them (scripts/torch_trace_probe.py). Held
+    open 2 s on each side the session kept every event (3 of 3 tries, 79 s
+    into the process; 2 s on one side alone, 2 of 6). Pass hold_s > 0 in
+    a long-lived process and check the file for the kernels you expect."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def hold():
+        if hold_s > 0:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            time.sleep(hold_s)
 
     os.makedirs(log_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
+        hold()
         yield prof
+        hold()
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
 

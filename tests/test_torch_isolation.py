@@ -44,7 +44,13 @@ assert {{"smallpt_tpu_torch.engine.streaming",
          "smallpt_tpu_torch.ops.dda",
          "smallpt_tpu_torch.core.scene_io",
          "smallpt_tpu_torch.interactive",
-         "smallpt_tpu_torch.utils.native"}} <= set(names)
+         "smallpt_tpu_torch.utils.native",
+         "smallpt_tpu_torch.parallel",
+         "smallpt_tpu_torch.parallel.shard",
+         "smallpt_tpu_torch.parallel.stream_shard",
+         "smallpt_tpu_torch.parallel.binned_shard",
+         "smallpt_tpu_torch.parallel.replay_shard",
+         "smallpt_tpu_torch.parallel.distributed"}} <= set(names)
 from smallpt_tpu_torch.utils import nvcc
 # importing every module (K8's wrapper and stream_binned.cu's library
 # among them) builds and loads no kernel
@@ -64,8 +70,9 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     # every submodule imported, the streaming, wavefront, mesh streaming
-    # and binned routes', K4's and the host surfaces' among them
-    assert int(proc.stdout.split()[-1]) >= 32
+    # and binned routes', K4's, the host surfaces' and the multi-device
+    # modules among them
+    assert int(proc.stdout.split()[-1]) >= 38
 
 
 def _sources():
@@ -119,6 +126,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     cfn = types.SimpleNamespace(argtypes=None, restype=None)
     bfn = types.SimpleNamespace(argtypes=None, restype=None)
     kfn = types.SimpleNamespace(argtypes=None, restype=None)
+    xfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
                         lambda name, src: types.SimpleNamespace(
                             smallpt_mega_pass=fn, smallpt_mega_record=rfn,
@@ -126,7 +134,8 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
                             smallpt_stream_dda=dfn, smallpt_closest_hit=hfn,
                             smallpt_closest_tri=tfn,
                             smallpt_closest_tri_culled=cfn,
-                            smallpt_stream_binned=bfn, smallpt_dda=kfn))
+                            smallpt_stream_binned=bfn, smallpt_dda=kfn,
+                            smallpt_closest_hit_mxu=xfn))
     assert mk._kernel_lib() is fn
     assert fn.argtypes == [ctypes.c_void_p] * 7
     assert fn.restype is ctypes.c_int
@@ -154,6 +163,9 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert dda._kernel_lib() is kfn
     assert kfn.argtypes == [ctypes.c_void_p] * 10
     assert kfn.restype is ctypes.c_int
+    assert ip._mxu_lib() is xfn
+    assert xfn.argtypes == [ctypes.c_void_p] * 9
+    assert xfn.restype is ctypes.c_int
 
 
 def test_build_key_covers_included_headers(monkeypatch, tmp_path):
@@ -169,13 +181,15 @@ def test_build_key_covers_included_headers(monkeypatch, tmp_path):
     tri = ("closest_tri.cu", "closest_tri_culled.cu")
     start = {s: nvcc.source_digest(s) for s in (
         "megakernel.cu", "stream_dda.cu", "closest_hit.cu",
-        "stream_binned.cu", "dda.cu", *tri)}
+        "stream_binned.cu", "dda.cu", "closest_hit_mxu.cu", *tri)}
     with open(tmp_path / "tri.cuh", "a") as f:
         f.write("\n// an edit\n")
     before = {s: nvcc.source_digest(s) for s in start}
     assert all((before[s] != start[s]) == (s in tri) for s in start)
     assert b'#include "lane.cuh"' in (tmp_path / "stream_dda.cu").read_bytes()
     assert b'#include "lane.cuh"' in (tmp_path / "dda.cu").read_bytes()
+    assert b'#include "lane.cuh"' in (
+        tmp_path / "closest_hit_mxu.cu").read_bytes()
     with open(tmp_path / "lane.cuh", "a") as f:
         f.write("\n// an edit\n")
     after = {s: nvcc.source_digest(s) for s in before}

@@ -259,8 +259,13 @@ def test_rejects_unsupported_configs():
         _renderer(CFG.replace(split_budget=2))
     with pytest.raises(ValueError, match="Mode.FULL"):
         _renderer(CFG.replace(mode=Mode.NORMAL))
+    # float64 streams on the CPU (tests/test_torch_float64.py); the card
+    # refuses it
+    assert _renderer(CFG.replace(dtype="float64")).st.acc_rad.dtype == (
+        torch.float64)
     with pytest.raises(NotImplementedError, match="float32 only"):
-        _renderer(CFG.replace(dtype="float64"))
+        tms.WavefrontStreamingRenderer(SCENE, smallpt_camera(),
+                                       CFG.replace(dtype="float64"))
     # the sphere streaming renderer sends mesh scenes here
     with pytest.raises(NotImplementedError,
                        match="WavefrontStreamingRenderer"):

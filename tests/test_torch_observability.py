@@ -5,6 +5,7 @@ renderer's stats, and trace's file."""
 
 import json
 import os
+import time
 
 import jax
 import numpy as np
@@ -107,4 +108,19 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with open(os.path.join(log_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert len(prof.key_averages()) > 0
+
+
+def test_trace_holds_the_session_open(tmp_path):
+    """hold_s keeps the profiler open that long before and after the
+    block (the repair of F11's lost device events), and the file is still
+    written once."""
+    log_dir = str(tmp_path / "held")
+    t = time.perf_counter()
+    with metrics.trace(log_dir, hold_s=0.05) as prof:
+        inner = time.perf_counter()
+        torch.ones(4).sum()
+        inner = time.perf_counter() - inner
+    assert time.perf_counter() - t - inner >= 0.1
+    assert len(os.listdir(log_dir)) == 1
     assert len(prof.key_averages()) > 0

@@ -2,8 +2,8 @@
 and the CLI at 48x36 against the stored f64 golden image
 (tests/data/golden_cornell_48x36.npz, made by scripts/gen_goldens.py), and
 the rules of the port: entry points run on the card unless asked for the
-CPU, and every config outside the ported routes (float64) raises
-NotImplementedError.
+CPU, and float64 renders on the CPU only (NotImplementedError on the
+card).
 
 Gate (tests/test_golden.py): at most 5% of values with
 |img-golden|/(1+|golden|) > 0.1 and the means within 5%. The golden shares
@@ -195,13 +195,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     dict(dtype="float64", mode=Mode.INST_ID),
 ])
 def test_unported_configs_raise(kw):
-    """Every scheduler and mode routes since the wavefronts were ported
-    (tests/test_torch_wavefront.py); what still raises on every route is a
-    dtype other than float32."""
-    cfg = RenderConfig(width=8, height=8, **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        render(cornell_box_scene(), smallpt_camera(), cfg, rng.base_key(0),
-               device="cpu")
+    """float64 raised on every route until the CPU's float64 route was
+    ported (tests/test_torch_float64.py holds it to the oracle): now each
+    of these configs renders a finite float64 image on the CPU, and what
+    still raises is float64 on the card (the kernels are float32 only)."""
+    from smallpt_tpu_torch.core.camera import default_matrix_camera
+
+    cfg = RenderConfig(width=8, height=8, **kw)  # the MATRIX camera model
+    img = render(cornell_box_scene(), default_matrix_camera(), cfg,
+                 rng.base_key(0), device="cpu")
+    assert img.dtype == torch.float64 and img.shape == (8, 8, 3)
+    assert torch.isfinite(img).all()
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        render(cornell_box_scene(), default_matrix_camera(), cfg,
+               rng.base_key(0))
 
 
 def test_unported_scenes_and_gradients_raise():

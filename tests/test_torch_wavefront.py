@@ -437,10 +437,13 @@ def test_routing_follows_the_jax_package(case, spies):
     ("differentiable", "item 8"), ("float64", "float32 only"),
 ])
 def test_unported_routes_raise_citing_their_item(case, match, monkeypatch):
-    """float64 still raises. The differentiable case raised citing item 8
-    until the flat loop became differentiable: now render(differentiable=
-    True) runs run_wavefront(differentiable=True) through the hybrid
-    intersector, whose image is the forward flat pass's."""
+    """Both cases raised until they were ported. The differentiable case
+    raised citing item 8 until the flat loop became differentiable: now
+    render(differentiable=True) runs run_wavefront(differentiable=True)
+    through the hybrid intersector, whose image is the forward flat
+    pass's. float64 raised citing "float32 only" until the CPU's float64
+    route: now it renders on the CPU (tests/test_torch_float64.py holds it
+    to the oracle) and only the card refuses it, with that reason."""
     scene, cfg = tscene.cornell_box_scene(), _TINY
     if case == "differentiable":
         seen = []
@@ -461,11 +464,15 @@ def test_unported_routes_raise_citing_their_item(case, match, monkeypatch):
                                    atol=1e-5)
         return
     cfg = cfg.replace(dtype="float64")
+    img = renderer.render(scene, smallpt_camera(), cfg, rng.base_key(0),
+                          device="cpu")
+    assert img.dtype == torch.float64 and torch.isfinite(img).all()
+    r = ProgressiveRenderer(scene, smallpt_camera(), cfg, device="cpu")
+    assert r.route == "regen" and r.accum.dtype == torch.float64
     with pytest.raises(NotImplementedError, match=match):
-        renderer.render(scene, smallpt_camera(), cfg, rng.base_key(0),
-                        device="cpu")
+        renderer.render(scene, smallpt_camera(), cfg, rng.base_key(0))
     with pytest.raises(NotImplementedError, match=match):
-        ProgressiveRenderer(scene, smallpt_camera(), cfg, device="cpu")
+        ProgressiveRenderer(scene, smallpt_camera(), cfg)
 
 
 def test_mesh_accel_route_runs(monkeypatch):

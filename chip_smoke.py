@@ -6,7 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's eight kernel libraries from csrc/ with nvcc, all at
-once: megakernel.cu (the per-pass mega_pass, the recording mega_record and
+once (and beside them a small library of stream_binned.cu's sphere test,
+lane.cuh's and K8's plan, for two checks): megakernel.cu (the per-pass mega_pass, the recording mega_record and
 the streaming stream_step, with NEE in all three), stream_dda.cu (the DDA streaming kernel,
 stream_step_dda), closest_hit.cu (K2, the wavefronts' sphere closest hit),
 closest_tri.cu (K6, their triangle closest hit), closest_tri_culled.cu
@@ -57,9 +58,16 @@ the main paths through the kernels and times them:
   rounds (step(4, 8), flush); K8 held to its plain version bit for bit on
   every launch of small drains (the AOV modes, the thin lens and the
   environment light, two NEE lights, a one-chunk near prefix that makes
-  lanes march, the all-chunks fallback) and on the first and middle launch
-  of each main path, where the culled launch is also held to the
-  all-chunks sweep; the binned image with one lane a pixel against the
+  lanes march, the all-chunks fallback), on the first, a middle and the
+  last launch of each main path, where the culled launch is also held to
+  the all-chunks sweep, and on two constructed launches (no working lane;
+  one dense tile whose items the sweep cuts into ranges); K8's compaction
+  and plan on the card held bit for bit to their plain versions
+  (ops/megakernel.py::_k8_cut) on those and on two real launches; K8's
+  sphere test
+  with the miss decided first held bit for bit to lane.cuh's sphere_tt on
+  edge inputs (tangent rays, NaN, zero radius, origins inside and
+  outside); the binned image with one lane a pixel against the
   classic route's; the drain beside REGEN through K2 (ROADMAP.md H4); the
   CLI's binned routes in process (the default big-scene route, and
   --binned --nee with --checkpoint and --resume, byte-equal to one run);
@@ -429,19 +437,23 @@ def device_ms_by_name(prof) -> dict:
     return by_name
 
 
-# each wrapper's kernel as the profiler names it (demangled): K1a and K1b
-# are mega_pass_kernel<kGlobal, kRecord>
-KERNEL_EVENT = {name: re.compile(pat) for name, pat in (
-    ("mega_pass", r"\bmega_pass_kernel<\w+, false>"),
-    ("mega_record", r"\bmega_pass_kernel<\w+, true>"),
-    ("stream_step", r"\bstream_step_kernel\b"),
-    ("stream_step_dda", r"\bstream_dda_kernel\b"),
-    ("closest_hit", r"\bclosest_hit_kernel\b"),
-    ("closest_hit_mxu", r"\bclosest_hit_mxu_kernel\b"),
-    ("closest_hit_dda", r"\bdda_kernel\b"),
-    ("closest_tri", r"\bclosest_tri_kernel\b"),
-    ("closest_tri_culled", r"\bclosest_tri_culled_kernel\b"),
-    ("stream_step_binned", r"\bstream_binned_kernel\b"))}
+# each wrapper's kernels as the profiler names them (demangled), one
+# event each a wrapper call: K1a and K1b are mega_pass_kernel<kGlobal,
+# kRecord>; K8 launches four kernels in turn
+KERNEL_EVENT = {name: tuple(re.compile(p) for p in pats) for name, pats in (
+    ("mega_pass", (r"\bmega_pass_kernel<\w+, false>",)),
+    ("mega_record", (r"\bmega_pass_kernel<\w+, true>",)),
+    ("stream_step", (r"\bstream_step_kernel\b",)),
+    ("stream_step_dda", (r"\bstream_dda_kernel\b",)),
+    ("closest_hit", (r"\bclosest_hit_kernel\b",)),
+    ("closest_hit_mxu", (r"\bclosest_hit_mxu_kernel\b",)),
+    ("closest_hit_dda", (r"\bdda_kernel\b",)),
+    ("closest_tri", (r"\bclosest_tri_kernel\b",)),
+    ("closest_tri_culled", (r"\bclosest_tri_culled_kernel\b",)),
+    ("stream_step_binned", (r"\bbinned_compact_kernel\b",
+                            r"\bbinned_plan_kernel\b",
+                            r"\bbinned_sweep_kernel\b",
+                            r"\bstream_binned_kernel\b")))}
 
 
 # the seconds a profiler session is held open before and after the
@@ -452,16 +464,20 @@ HOLDS_S = (0.0, 2.0, 8.0)
 
 def events_off(names, launched: dict) -> tuple:
     """The profiler's device-kernel events (their names) of the
-    hand-written kernels, counted by wrapper, against the launches the
-    wrappers counted over the profiled call: (the launched wrappers'
-    counts, {wrapper: (events, launches)} where the two differ)."""
-    seen = dict.fromkeys(KERNEL_EVENT, 0)
+    hand-written kernels, counted by wrapper and kernel, against the
+    launches the wrappers counted over the profiled call: each of a
+    wrapper's kernels needs one event a call. (the launched wrappers'
+    counts, {wrapper: (events of each kernel, launches)} where one
+    differs)."""
+    seen = {w: [0] * len(pats) for w, pats in KERNEL_EVENT.items()}
     for name in names:
-        for w, pat in KERNEL_EVENT.items():
-            if pat.search(name):
-                seen[w] += 1
+        for w, pats in KERNEL_EVENT.items():
+            for k, pat in enumerate(pats):
+                if pat.search(name):
+                    seen[w][k] += 1
     return ({w: n for w, n in launched.items() if n},
-            {w: (seen[w], n) for w, n in launched.items() if seen[w] != n})
+            {w: (seen[w], n) for w, n in launched.items()
+             if any(e != n for e in seen[w])})
 
 
 def profile(fn) -> dict:
@@ -2011,75 +2027,161 @@ def cli_mesh_phases(dev) -> dict:
 # multiplications, min and max each; the entry/exit folds and the finality
 # test) ~30, then the hit point, normal, emission, uniforms and shade as the
 # megakernel's OPS_PER_BOUNCE. A pending shadow slot's resolve (t_light, the
-# cone bound and the direct term) ~60. The sweep: OPS_PER_SPHERE a (ray,
-# row) pair, for an alive lane's ray and for each pending shadow.
+# cone bound and the direct term) ~60. The sweep, for an alive lane's ray
+# and for each pending shadow against each row its tile sweeps: a pair that
+# misses (det < 0 or NaN, or a radius that is not positive) OPS_K8_MISS up
+# to that decision (the offset 3, b 5, the perpendicular 6, its square 5, a
+# square root, det 3, the two compares 2), any other OPS_PER_SPHERE.
+# cycles the card spins before a timed K8 launch (about 1 ms), longer than
+# the host takes to enqueue the launch
+K8_HOLD_CYCLES = 2_000_000
 OPS_K8_LANE = 30 + OPS_PER_BOUNCE
 OPS_K8_RESOLVE = 60
+OPS_K8_MISS = 25
 # the binned main path: bench.py --procedural-binned's shape
 # (bench.py:144-188): procedural_sphere_scene(10000), 512x384, 4 spp,
 # max_depth 24, the renderer seeded 1000
 BINNED_SEED = 1000
 
 
+def k8_items(before, args, kw):
+    """The items one K8 launch sweeps, from its input state: each alive
+    lane's ray and each pending shadow (a slot whose pending bit a lane
+    holds: no other slot's fold is read), as (tile (N,) int64, origin and
+    direction, six (N,) f32), alive lanes first, then each slot's."""
+    import torch
+
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    f, i = before
+    t = args[5].shape[0]
+    fv = f.view(-1, 8, t, mk._LANE_B)
+    iv = i.view(-1, 8, t, mk._LANE_B)
+    tile = torch.arange(t, device=f.device)[None, :, None].expand(
+        8, t, mk._LANE_B)
+    sel = [(iv[mk._I_ALIVE] != 0, 3)]
+    sel += [(((iv[mk._I_NEEP] >> s) & 1) == 1, mk._F_LD0 + 3 * s)
+            for s in range(len(kw.get("nee_rows", ())))]
+    parts = [[tile[m]] + [fv[k][m] for k in (0, 1, 2, p, p + 1, p + 2)]
+             for m, p in sel]
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+def k8_pairs(before, args, kw) -> tuple:
+    """The (item, row) pairs of one K8 launch (k8_items against every row
+    of its tile's chunk sequence on this launch's stops) and those among
+    them that do not miss (det >= 0 and a positive radius), counted by the
+    plain fold of its inputs: the sphere test's ops up to det, in the
+    kernel's order, one sequence position at a time. Returns (pairs, hit
+    pairs, rows a tile (T,) numpy)."""
+    import torch
+
+    table, lists, stops = args[0], args[5], args[6]
+    n_glob, n_chunks = kw["n_glob_chunks"], kw["n_chunks"]
+    tile, ox, oy, oz, dx, dy, dz = k8_items(before, args, kw)
+    n_seq = n_glob + torch.where(stops < 0, n_chunks, stops).long()
+    seq = n_seq[tile]
+    order = torch.argsort(seq, descending=True)
+    tile, seq = tile[order], seq[order]
+    ox, oy, oz, dx, dy, dz = (x[order, None] for x in (ox, oy, oz, dx, dy,
+                                                       dz))
+    chunks = table.view(-1, 8, 16)
+    full = stops.long()[tile] < 0
+    lists_l = lists.long()
+    l_max = lists.shape[1]
+    hits = 0
+    for j in range(int(seq[0]) if seq.numel() else 0):
+        n = int((seq > j).sum())
+        local = j - n_glob
+        if local < 0:
+            cid = torch.full((n,), j, device=tile.device)
+        else:
+            cid = n_glob + torch.where(
+                full[:n], local, lists_l[tile[:n], min(local, l_max - 1)])
+        c = chunks[cid]
+        opx = c[:, :, 0] - ox[:n]
+        opy = c[:, :, 1] - oy[:n]
+        opz = c[:, :, 2] - oz[:n]
+        b = opx * dx[:n] + opy * dy[:n] + opz * dz[:n]
+        fx = opx - b * dx[:n]
+        fy = opy - b * dy[:n]
+        fz = opz - b * dz[:n]
+        sp = torch.sqrt(fx * fx + fy * fy + fz * fz)
+        sr = c[:, :, 3]
+        hits += int(((sr - sp) * (sr + sp) >= 0.0).logical_and(
+            sr > 0.0).sum())
+    rows = 8 * n_seq.cpu().numpy()
+    return int(8 * seq.sum()), hits, rows
+
+
 def k8_bound(before, args, kw) -> dict:
     """The least time of one K8 launch on its inputs (the state before it
-    and the wrapper's arguments): OPS_PER_SPHERE per (ray, row) pair over
-    the rows of the chunks its tile sweeps on this launch's stops, the rays
-    being each alive lane's own and each pending shadow (a slot whose
-    pending bit a lane holds: no other slot's fold is read), OPS_K8_LANE
-    per alive lane and OPS_K8_RESOLVE per pending shadow, at the float
-    rate; the state read once and written once, the table, lists, stops and
-    dcut read once, at the memory rate."""
+    and the wrapper's arguments): per (item, row) pair of k8_pairs,
+    OPS_PER_SPHERE where the test does not miss and OPS_K8_MISS where it
+    does, OPS_K8_LANE per alive lane and OPS_K8_RESOLVE per pending
+    shadow, at the float rate; at the memory rate, a working lane's state
+    (alive, or a shadow pending) read once and written once, a lane
+    without work its work planes read (alive, and the pending bits with
+    NEE) and the four planes it changes written (the candidate, its row,
+    the frontier and the pending bit: the rest is its input), the table,
+    lists, stops and dcut read once. Beside it, the bound as the
+    one-kernel design was held to (bound_ms_every_pair_full): every pair
+    at OPS_PER_SPHERE, every lane's whole state in and out."""
     from smallpt_tpu_torch.ops import megakernel as mk
 
     f, i = before
     table, lists, stops = args[0], args[5], args[6]
-    n_glob, n_chunks = kw["n_glob_chunks"], kw["n_chunks"]
     n_slots = len(kw.get("nee_rows", ()))
-    t = lists.shape[0]
-    tiled = i.view(-1, 8, t, mk._LANE_B)
-    alive = tiled[mk._I_ALIVE] != 0
-    # the rays each tile sweeps: its alive lanes, then its pending shadows
-    rays_t = alive.sum(dim=(0, 2))
-    if n_slots:
-        neep = tiled[mk._I_NEEP]
-        for s in range(n_slots):
-            rays_t = rays_t + ((neep >> s) & 1).sum(dim=(0, 2))
-    rays_t = rays_t.cpu().numpy().astype(np.int64)
-    st = stops.cpu().numpy().astype(np.int64)
-    rows = 8 * (n_glob + np.where(st < 0, n_chunks, st))
-    pairs = int((rays_t * rows).sum())
-    n_alive = int(alive.sum())
-    pend_shadows = int(rays_t.sum()) - n_alive
-    ops = (OPS_PER_SPHERE * pairs + OPS_K8_LANE * n_alive
-           + OPS_K8_RESOLVE * pend_shadows)
-    nbytes = (2 * (f.numel() + i.numel()) * 4 + table.numel() * 4
-              + (lists.numel() + stops.numel() + args[7].numel()) * 4)
-    return _bound(ops, nbytes, pairs=pairs, alive=n_alive,
-                  pending_shadows=pend_shadows,
+    pairs, hit_pairs, rows = k8_pairs(before, args, kw)
+    alive = i[8 * mk._I_ALIVE:8 * mk._I_ALIVE + 8] != 0
+    work = alive | (i[8 * mk._I_NEEP:8 * mk._I_NEEP + 8] != 0) \
+        if n_slots else alive
+    n_alive, n_work = int(alive.sum()), int(work.sum())
+    n_items = k8_items(before, args, kw)[0].numel()
+    pend_shadows = n_items - n_alive
+    lane_ops = OPS_K8_LANE * n_alive + OPS_K8_RESOLVE * pend_shadows
+    ops = (OPS_PER_SPHERE * hit_pairs + OPS_K8_MISS * (pairs - hit_pairs)
+           + lane_ops)
+    inputs = (table.numel() + lists.numel() + stops.numel()
+              + args[7].numel()) * 4
+    lane_bytes = (f.shape[0] + i.shape[0]) // 8 * 4
+    nbytes = (2 * n_work * lane_bytes
+              + (work.numel() - n_work) * 4 * ((2 if n_slots else 1) + 4)
+              + inputs)
+    pr12 = _bound(OPS_PER_SPHERE * pairs + lane_ops,
+                  2 * (f.numel() + i.numel()) * 4 + inputs)
+    return _bound(ops, nbytes, pairs=pairs, hit_pairs=hit_pairs,
+                  alive=n_alive, pending_shadows=pend_shadows,
+                  working_lanes=n_work,
                   rows_per_tile={"mean": float(rows.mean()),
                                  "min": int(rows.min()),
-                                 "max": int(rows.max())})
+                                 "max": int(rows.max())},
+                  bound_ms_every_pair_full=pr12["bound_ms"],
+                  bound_by_every_pair_full=pr12["bound_by"])
 
 
-def capture_binned(fn, which) -> list:
+def capture_binned(fn, which, last: bool = False) -> list:
     """Run fn() with ops/megakernel.py's stream_step_binned wrapped so that
     each of its calls numbered in ``which`` (from 0; None: every call)
     keeps a copy of the state before and after, the rays and the
-    arguments: [(before, (f, i, rays), args, kwargs)]. The binned engine
-    updates its state in place, so the copies are taken at the call."""
+    arguments: [(before, (f, i, rays), args, kwargs)], in call order; with
+    last, the last call too, at the end of the list if ``which`` did not
+    hold it. The binned engine updates its state in place, so the copies
+    are taken at the call."""
     from smallpt_tpu_torch.ops import megakernel as mk
 
-    real, kept, n = mk.stream_step_binned, [], [0]
+    real, kept, n, final = mk.stream_step_binned, [], [0], [None]
 
     def spy(*a, **k):
         keep = which is None or n[0] in which
         n[0] += 1
-        before = (a[3].clone(), a[4].clone()) if keep else None
+        before = (a[3].clone(), a[4].clone()) if keep or last else None
         out = real(*a, **k)
+        cap = (before, (a[3].clone(), a[4].clone(), out[2]), a, k) \
+            if keep or last else None
         if keep:
-            kept.append((before, (a[3].clone(), a[4].clone(), out[2]),
-                         a, k))
+            kept.append(cap)
+        final[0] = None if keep else cap
         return out
 
     spy.launches = real.launches
@@ -2089,6 +2191,8 @@ def capture_binned(fn, which) -> list:
     finally:
         mk.stream_step_binned = real
         real.launches = spy.launches
+    if last and final[0] is not None:
+        kept.append(final[0])
     return kept
 
 
@@ -2150,8 +2254,13 @@ def k8_vs_plain(name, cap, time_it: bool = False) -> dict:
         f, i = f0.clone(), i0.clone()
         a = list(args)
         a[3], a[4] = f, i
+        # the card is held busy (K8_HOLD_CYCLES) before each timed launch,
+        # so that the events time K8's kernels and not the host's enqueueing
+        # of them: a drain's last launches take less time on the card than
+        # the wrapper on the host
         k_ms, _ = cuda_ms(lambda: mk.stream_step_binned(*a, **kw)[2], 6,
-                          setup=lambda: (f.copy_(f0), i.copy_(i0)),
+                          setup=lambda: (f.copy_(f0), i.copy_(i0),
+                                         torch.cuda._sleep(K8_HOLD_CYCLES)),
                           skip_first=True)
         out.update(kernel_ms=k_ms, **k8_bound((f0, i0), args, kw))
     return out
@@ -2281,6 +2390,308 @@ def k8_small_phases(dev) -> dict:
     return out
 
 
+def k8_plan_check(name, lib_path, before, args, kw) -> dict:
+    """K8's compaction and plan (csrc/stream_binned.cu
+    binned_compact_kernel, binned_plan_kernel) run on the card through the
+    library start_k8_check built, on one launch's input state and stops,
+    held bit for bit to their plain versions on the same inputs: each
+    tile's items (k8_items), the cut and each tile's ranges
+    (ops/megakernel.py::_k8_cut at the fill the device reports) and the
+    tiles' first units; the library's kGroup and kMinRange against
+    _k8_cut's. Returns the device's plan: the fill, the items, groups,
+    units, the range length (None: no cut) and the most ranges a group."""
+    import ctypes
+
+    import torch
+
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    lib = ctypes.CDLL(str(lib_path))
+    lib.k8_plan.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    lib.k8_plan.restype = ctypes.c_int
+    lib.smallpt_stream_binned_scratch_words.argtypes = [ctypes.c_int] * 2
+    lib.smallpt_stream_binned_scratch_words.restype = ctypes.c_longlong
+    consts = (ctypes.c_int * 2)()
+    lib.k8_constants(consts)
+    if tuple(consts) != (mk._K8_GROUP, mk._K8_MIN_RANGE):
+        raise AssertionError(f"{name}: kGroup, kMinRange {tuple(consts)} "
+                             f"!= _k8_cut's {mk._K8_GROUP}, "
+                             f"{mk._K8_MIN_RANGE}")
+    i0, stops = before[1], args[6]
+    n_cols, n_tiles = i0.shape[1], stops.shape[0]
+    n_l = len(kw.get("nee_rows", ()))
+    n_words = lib.smallpt_stream_binned_scratch_words(n_cols, n_l)
+    scratch = torch.empty(n_words, dtype=torch.int32, device=i0.device)
+    got = torch.empty(3 * n_tiles + 2, dtype=torch.int32, device=i0.device)
+    fill = ctypes.c_int(0)
+    err = lib.k8_plan(i0.data_ptr(), stops.data_ptr(), scratch.data_ptr(),
+                      got.data_ptr(), n_cols, n_l, kw["n_glob_chunks"],
+                      kw["n_chunks"], ctypes.byref(fill),
+                      torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"{name}: k8_plan: CUDA error {err}")
+    got = got.cpu().numpy().astype(np.int64)
+    d_cut, d_items = int(got[0]), got[1:1 + n_tiles]
+    d_nr, d_base = got[1 + n_tiles:1 + 2 * n_tiles], got[1 + 2 * n_tiles:]
+    n_items = torch.bincount(k8_items(before, args, kw)[0],
+                             minlength=n_tiles).cpu().numpy()
+    st = stops.cpu().numpy().astype(np.int64)
+    n_seq = kw["n_glob_chunks"] + np.where(st < 0, kw["n_chunks"], st)
+    cut, nr = mk._k8_cut(n_items, n_seq, fill.value)
+    groups = -(-n_items // mk._K8_GROUP)
+    base = np.concatenate([[0], np.cumsum(groups * nr)])
+    no_cut = 0x7fffffff  # the plan's L when no sequence is cut
+    same = dict(items=bool((d_items == n_items).all()),
+                cut=d_cut == (no_cut if cut is None else cut),
+                ranges=bool((d_nr == nr).all()),
+                unit_base=bool((d_base == base).all()))
+    if not all(same.values()):
+        raise AssertionError(f"{name}: K8's plan on the card differs from "
+                             f"_k8_cut: {same}; device L {d_cut}, plain "
+                             f"{cut}")
+    return dict(fill=fill.value, items=int(d_items.sum()),
+                groups=int(groups.sum()), units=int(d_base[-1]),
+                cut_chunks=None if d_cut == no_cut else d_cut,
+                ranges_max=int(d_nr.max()), plan_bit_equal=True)
+
+
+def k8_constructed(scene, cfg, dev, lib_path) -> dict:
+    """Two K8 launches built for the design's edges, each against its
+    plain version bit for bit and timed: one with no working lane (a real
+    launch's input with every alive and pending bit cleared), and one
+    whose dense tile's items the plan must cut into ranges (one tile of
+    8,192 lanes, 64x32 at four lanes a pixel, all alive with pending NEE
+    shadows, on the 10,000-sphere scene with every chunk swept: stops -1,
+    dcut +inf). Each one's plan is the device's (k8_plan_check, held to
+    _k8_cut on the same inputs), and so is the plan of the real launch
+    the first is built from (every lane working) and of that drain's last
+    launch (a few lanes left)."""
+    import torch
+
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    def run(name, cap, f0, i0, stops=None, dcut=None):
+        a = list(cap[2])
+        if stops is not None:
+            a[6], a[7] = stops, dcut
+        kw = cap[3]
+        plan = k8_plan_check(name, lib_path, (f0, i0), a, kw)
+        f, i = f0.clone(), i0.clone()
+        a[3], a[4] = f, i
+        rays = mk.stream_step_binned(*a, **kw)[2]
+        torch.cuda.synchronize()
+        out = k8_vs_plain(name, ((f0, i0), (f, i, rays), tuple(a), kw),
+                          time_it=True)
+        out.update(plan)
+        return out
+
+    nee = cfg.replace(nee_lights=(8,))
+    r = BinnedStreamingRenderer(scene, smallpt_camera(), nee, seed=0,
+                                device=dev)
+
+    def drain():
+        r.step(add_samples=1, n_bounces=2)
+        r.flush()
+
+    cap, last = capture_binned(drain, {1}, last=True)
+    out = {k: k8_plan_check(f"k8 {k} plan", lib_path, c[0], c[2], c[3])
+           for k, c in (("real_launch", cap), ("drain_last_launch", last))}
+    f0, i0 = (x.clone() for x in cap[0])
+    for k in (mk._I_ALIVE, mk._I_NEEP):
+        i0[8 * k:8 * k + 8] = 0
+    out["no_working_lane"] = run("k8 no working lane", cap, f0, i0)
+    if out["no_working_lane"]["items"] != 0:
+        raise AssertionError(f"no working lane: {out['no_working_lane']}")
+
+    small = nee.replace(width=64, height=32)
+    r = BinnedStreamingRenderer(scene, smallpt_camera(), small, seed=0,
+                                inflight=4, device=dev)
+    cap = capture_binned(lambda: r.step(add_samples=4, n_bounces=2),
+                         {1})[0]
+    f0, i0 = cap[0]
+    stops = torch.full_like(cap[2][6], -1)
+    dcut = torch.full_like(cap[2][7], float("inf"))
+    dense = run("k8 dense tile cut", cap, f0, i0, stops, dcut)
+    if f0.shape[1] != mk._LANE_B or dense["cut_chunks"] is None \
+            or dense["ranges_max"] < 2 or dense["pending_shadows"] == 0:
+        raise AssertionError(f"dense tile: no cut into ranges: {dense}")
+    out["dense_tile_cut"] = dense
+    return out
+
+
+# K8's early-miss sphere test beside lane.cuh's sphere_tt, and K8's
+# compaction and plan alone, built from the checkout's stream_binned.cu
+# into one small library for these checks
+K8_CHECK_CU = r"""
+#include "stream_binned.cu"
+
+__global__ void k8_sphere_pairs_kernel(const float* ray, const float* sph,
+                                       float* out, int n) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const float* a = ray + 6 * k;
+  const float* s = sph + 5 * k;
+  out[2 * k] = sphere_tt_miss_first(a[0], a[1], a[2], a[3], a[4], a[5],
+                                    s[0], s[1], s[2], s[3], s[4]);
+  out[2 * k + 1] = smallpt::sphere_tt(a[0], a[1], a[2], a[3], a[4], a[5],
+                                      s[0], s[1], s[2], s[3], s[4]);
+}
+
+extern "C" int k8_sphere_pairs(const void* ray, const void* sph, void* out,
+                               int n, void* stream) {
+  k8_sphere_pairs_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)ray, (const float*)sph, (float*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// {kGroup, kMinRange}
+extern "C" void k8_constants(int* out) {
+  out[0] = kGroup;
+  out[1] = kMinRange;
+}
+
+// K8's compaction and plan on one launch's int planes i and stops, into
+// scratch (smallpt_stream_binned_scratch_words words on this device); out
+// (3 T + 2 int32 on the device) gets {L, n_items[T], nr[T],
+// unit_base[T + 1]}, *fill the plan's fill on this device.
+extern "C" int k8_plan(const void* i, const void* stops, void* scratch,
+                       void* out, int n_cols, int n_l, int n_glob,
+                       int n_chunks, int* fill, void* stream) {
+  Fit fit;
+  cudaError_t err = device_fit(&fit);
+  if (err != cudaSuccess) return (int)err;
+  *fill = fit.fill;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int t = n_cols / kLaneB;
+  const Scratch sc = carve((int*)scratch, n_cols, n_l, fit.fill);
+  if ((err = plan((const int*)i, (const int*)stops, n_cols, n_l, n_glob,
+                  n_chunks, fit.fill, sc, s)) != cudaSuccess)
+    return (int)err;
+  int* o = (int*)out;
+  const cudaMemcpyKind d2d = cudaMemcpyDeviceToDevice;
+  if ((err = cudaMemcpyAsync(o, sc.cut, sizeof(int), d2d, s)) ||
+      (err = cudaMemcpyAsync(o + 1, sc.n_items, t * sizeof(int), d2d, s)) ||
+      (err = cudaMemcpyAsync(o + 1 + t, sc.nr, t * sizeof(int), d2d, s)))
+    return (int)err;
+  return (int)cudaMemcpyAsync(o + 1 + 2 * t, sc.unit_base,
+                              (t + 1) * sizeof(int), d2d, s);
+}
+"""
+
+
+def start_k8_check():
+    """Start nvcc on K8_CHECK_CU (its library beside the port's, in
+    _build/): (the library's path, the nvcc process), to be waited for."""
+    from smallpt_tpu_torch.utils import nvcc
+
+    nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = nvcc.BUILD_DIR / "k8_check.cu"
+    src.write_text(K8_CHECK_CU)
+    lib_path = nvcc.BUILD_DIR / f"libk8_check_{os.getpid()}.so"
+    return lib_path, subprocess.Popen(
+        [nvcc.find_nvcc(), *nvcc.NVCC_FLAGS, "-I", str(nvcc.CSRC_DIR), "-o",
+         str(lib_path), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def k8_sphere_edges(dev, lib_path) -> dict:
+    """K8's sphere test with the miss decided first
+    (stream_binned.cu::sphere_tt_miss_first) against lane.cuh::sphere_tt,
+    which every other sphere kernel calls, bit for bit on the card, through
+    the library start_k8_check built: rays tangent to the sphere
+    (and 1-3 ulp off), NaN in each input, radius 0, -0 and negative,
+    origins inside and outside pointing toward and away, the Cornell box's
+    1e5 walls, and 200,000 random pairs at the 10,000-sphere scene's
+    scale."""
+    import ctypes
+
+    import torch
+
+    fn = ctypes.CDLL(str(lib_path)).k8_sphere_pairs
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    f32 = np.float32
+    rays, sph, kinds = [], [], []
+
+    def add(kind, o, d, c, r, eps=1e-4):
+        rays.append([*o, *d])
+        sph.append([*c, r, eps])
+        kinds.append(kind)
+
+    nan = float("nan")
+    for c, r in (((0.0, 0.0, 0.0), 1.0), ((50.0, 40.0, 80.0), 16.5),
+                 ((27.0, 16.5, 47.0), 16.5)):
+        cx, cy, cz = c
+        for k in range(-3, 4):
+            y = f32(cy + r)
+            for _ in range(abs(k)):
+                y = np.nextafter(y, f32(np.inf if k > 0 else -np.inf))
+            add("tangent", (cx - 100.0, float(y), cz), (1.0, 0.0, 0.0), c, r)
+            add("tangent", (cx, cy - 3 * r, float(f32(cz - r))),
+                (0.0, 1.0, 0.0), c, r)
+        add("inside", (cx + 0.3 * r, cy + 0.2 * r, cz - 0.1 * r),
+            (0.6, 0.0, 0.8), c, r)
+        add("inside", (cx, cy, cz), (0.0, 0.0, -1.0), c, r)
+        add("outside_toward", (cx - 3 * r, cy + 0.5 * r, cz),
+            (1.0, 0.0, 0.0), c, r)
+        add("outside_away", (cx - 3 * r, cy + 0.5 * r, cz),
+            (-1.0, 0.0, 0.0), c, r)
+        add("outside_miss", (cx - 3 * r, cy + 2 * r, cz), (1.0, 0.0, 0.0),
+            c, r)
+        for rr in (0.0, -0.0, -r):
+            add("radius", (cx - 3 * r, cy, cz), (1.0, 0.0, 0.0), c, rr)
+        for slot in range(11):
+            v = [cx - 3 * r, cy, cz, 1.0, 0.0, 0.0, cx, cy, cz, r, 1e-4]
+            v[slot] = nan
+            add("nan", v[:3], v[3:6], v[6:9], v[9], v[10])
+    # the Cornell box's walls: 1e5 spheres seen from inside the box
+    for c in ((1e5 + 1, 40.8, 81.6), (-1e5 + 99, 40.8, 81.6),
+              (50, 40.8, 1e5), (50, 1e5, 81.6), (50, -1e5 + 81.6, 81.6)):
+        for d in ((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 0.6, -0.8),
+                  (0.0, -0.6, 0.8), (0.48, 0.6, 0.64)):
+            add("wall", (50.0, 52.0, 95.6), d, c, 1e5, 1e5 * 1e-4)
+    rng = np.random.default_rng(14)
+    n_rand = 200_000
+    o = rng.uniform(-20, 120, (n_rand, 3))
+    d = rng.normal(size=(n_rand, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    c = rng.uniform(-20, 120, (n_rand, 3))
+    r = rng.uniform(0.2, 6.0, (n_rand, 1))
+    edge = np.asarray(rays, f32), np.asarray(sph, f32)
+    ray_a = np.concatenate([edge[0], np.hstack([o, d]).astype(f32)])
+    sph_a = np.concatenate([edge[1], np.hstack(
+        [c, r, 1e-4 * np.ones_like(r)]).astype(f32)])
+    n = len(ray_a)
+    ray_t = torch.tensor(ray_a, device=dev)
+    sph_t = torch.tensor(sph_a, device=dev)
+    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    err = fn(ray_t.data_ptr(), sph_t.data_ptr(), out.data_ptr(), n,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"k8_sphere_pairs: CUDA error {err}")
+    bits = out.view(torch.int32)
+    differ = (bits[:, 0] != bits[:, 1]).cpu().numpy()
+    hit = (out[:, 1] < 3e38).cpu().numpy()
+    kinds += ["random"] * n_rand
+    by_kind = {}
+    for k, df, h in zip(kinds, differ, hit):
+        e = by_kind.setdefault(k, {"pairs": 0, "hits": 0, "differ": 0})
+        e["pairs"] += 1
+        e["hits"] += int(h)
+        e["differ"] += int(df)
+    result = dict(pairs=n, differ=int(differ.sum()), by_kind=by_kind)
+    if result["differ"]:
+        raise AssertionError(f"K8's early-miss test differs from "
+                             f"sphere_tt: {result}")
+    return result
+
+
 def binned_path(name, scene, cfg, dev, drain: bool,
                 n_rounds: int = 3) -> dict:
     """A binned main path at full width (procedural_sphere_scene(10000)):
@@ -2289,11 +2700,12 @@ def binned_path(name, scene, cfg, dev, drain: bool,
     (BinnedStreamingRenderer: reset, step(spp, 8), flush, as
     bench.py::bench_binned), one warm-up, then n_rounds timed with CUDA
     events, the launch counts zeroed just before and read just after; the
-    weights exactly spp; the first launch of a pass and one in its middle
-    against the plain version (bit-equal), timed, with their bounds; the
+    weights exactly spp; the first launch of a pass, one in its middle and
+    its last (in the flush) against the plain version (bit-equal), timed,
+    with their bounds; the
     first against the all-chunks sweep; the device's busy share (profiler);
-    the host part; the peak memory; the tile lists alone (time, peak
-    memory above their inputs)."""
+    the host part; the peak memory and K8's scratch a launch; the tile
+    lists alone (time, peak memory above their inputs)."""
     import torch
 
     from smallpt_tpu_torch.core.camera import smallpt_camera
@@ -2345,9 +2757,9 @@ def binned_path(name, scene, cfg, dev, drain: bool,
     if not np.isfinite(img).all() or img.shape != (cfg.height, cfg.width, 3):
         raise AssertionError(f"{name}: image not finite {img.shape}")
     per_round = k8_n / n_rounds
-    caps = capture_binned(round_, {0, int(per_round) // 2})
+    caps = capture_binned(round_, {0, int(per_round) // 2}, last=True)
     kernel = {k: k8_vs_plain(f"{name}/{k}", c, time_it=True)
-              for k, c in zip(("first", "middle"), caps)}
+              for k, c in zip(("first", "middle", "last"), caps)}
     full = k8_full_sweep(name, caps[0])
     # the tile lists of the first launch alone: time and peak memory above
     # their inputs
@@ -2357,6 +2769,10 @@ def binned_path(name, scene, cfg, dev, drain: bool,
     lists_ms, _ = cuda_ms(lambda: acc.tile_work_lists_bucketed(
         f0, i0, cfg, br.accel, k_near=br.k_near), 3)
     lists_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # the scratch each K8 call takes from the allocator (items, plan,
+    # partials: csrc/stream_binned.cu scratch_words on this card)
+    k8_scratch_mb = mk._binned_lib()[1](
+        f0.shape[1], len(kw.get("nee_rows", ()))) * 4 / 1e6
     ms = float(np.mean(round_ms))
     kernel_ms = float(np.mean([v["kernel_ms"] for v in kernel.values()]))
     ray_mean = float(np.mean(rays))
@@ -2371,7 +2787,8 @@ def binned_path(name, scene, cfg, dev, drain: bool,
                 host_ms=ms - per_round * kernel_ms,
                 first_vs_full_sweep=full, lists_ms=lists_ms,
                 lists_peak_gb=lists_peak_gb, peak_mem_gb=peak_gb,
-                mean=float(img.mean()), profile=profile(round_))
+                k8_scratch_mb=k8_scratch_mb, mean=float(img.mean()),
+                profile=profile(round_))
 
 
 def binned_vs_classic(scene, cfg, dev) -> dict:
@@ -4102,7 +4519,7 @@ def trace_pass(step, tdir) -> dict:
                              f"hand-written kernels held open {hold} s, "
                              f"launches {launched}")
     k1a_ms = sum(float(e.get("dur", 0.0)) for e in kern if KERNEL_EVENT[
-        "mega_pass"].search(e.get("name", ""))) / 1e3
+        "mega_pass"][0].search(e.get("name", ""))) / 1e3
     call = capture_calls(progressive, "mega_pass", step, {0})[0]
     cuda_k1a_ms, _ = cuda_ms(lambda: mk.mega_pass(*call["a"], **call["k"]),
                              3)
@@ -4159,7 +4576,15 @@ def main() -> int:
                  mp.LIBRARY_CULLED, mk.LIBRARY_BINNED, dda.LIBRARY,
                  ip.LIBRARY_MXU)
     t_build = time.perf_counter()
-    nvcc.build(dict(libraries))
+    # K8's check library (its sphere test, its plan) builds beside them
+    check_lib, check_nvcc = start_k8_check()
+    try:
+        nvcc.build(dict(libraries))
+    finally:
+        _, check_err = check_nvcc.communicate(timeout=600)
+    if check_nvcc.returncode:
+        raise RuntimeError(f"nvcc failed on the K8 check library: "
+                           f"{check_err}")
     t_build = time.perf_counter() - t_build
     mk._kernel_lib()
     mk._stream_lib()
@@ -4381,9 +4806,11 @@ def main() -> int:
     # ---- 32. the CLI's mesh routes -----------------------------------------
     phase("cli_mesh_routes", **cli_mesh_phases(dev))
 
-    # ---- 33-41. the binned scheduler: K8 against its plain version on small
-    # drains, its four main paths at bench.py's --procedural-binned shape, the
-    # image against the classic route, the H4 A/B and the CLI's routes -------
+    # ---- 33-43. the binned scheduler: K8 against its plain version on small
+    # drains, its four main paths at bench.py's --procedural-binned shape, two
+    # constructed launches (no working lane; a dense tile cut into ranges),
+    # its early-miss sphere test against sphere_tt, the image against the
+    # classic route, the H4 A/B and the CLI's routes -------------------------
     k8_small = k8_small_phases(dev)
     phase("binned_vs_plain_small", **k8_small)
     from smallpt_tpu_torch.core.scene import procedural_sphere_scene
@@ -4399,6 +4826,9 @@ def main() -> int:
              pcfg.replace(nee_lights=(8,)), False)):
         binned[name] = binned_path(name, big, cfg_, dev, drain)
         phase(name, **binned[name])
+    k8_built = k8_constructed(big, pcfg, dev, check_lib)
+    phase("k8_constructed_launches", **k8_built)
+    phase("k8_sphere_test_edges", **k8_sphere_edges(dev, check_lib))
     phase("binned_vs_classic", **binned_vs_classic(big, pcfg, dev))
     phase("h4_binned_vs_regen_k2", **h4_ab(big, pcfg, dev))
     phase("cli_binned_routes", **cli_binned_phases(dev))
@@ -4537,6 +4967,15 @@ def main() -> int:
         "bound_ms_by_path": {
             n: {k: v["bound_ms"] for k, v in b["kernel"].items()}
             for n, b in binned.items()},
+        "bound_ms_every_pair_full_by_path": {
+            n: {k: v["bound_ms_every_pair_full"]
+                for k, v in b["kernel"].items()}
+            for n, b in binned.items()},
+        "constructed": {
+            n: {k: v[k] for k in ("kernel_ms", "bound_ms", "items", "units",
+                                  "cut_chunks", "ranges_max", "fill")
+                if k in v}
+            for n, v in k8_built.items()},
         "round_ms_by_path": {n: b["ms_per_round"]
                              for n, b in binned.items()},
         "ptxas": ptxas_entry(mk.LIBRARY_BINNED[0]),
@@ -4549,7 +4988,9 @@ def main() -> int:
     k8["max_abs_err"] = max([k8["max_abs_err"]] + [
         v["max_abs_err"] for v in opts["three_program"]["kernel"].values()]
         + [v["max_abs_err"]
-           for v in shards["binned"]["shard_vs_plain"].values()])
+           for v in shards["binned"]["shard_vs_plain"].values()]
+        + [v["max_abs_err"] for v in k8_built.values()
+           if "max_abs_err" in v])
     wf_kernels.append(k8)
     launch = rec_mega["launch"]
     wf_kernels.append({

@@ -1,4 +1,4 @@
-"""Paired A/B of the PyTorch port's host-bound wavefront paths between two
+"""Paired A/B of the PyTorch port's wavefront and binned paths between two
 source trees, on one CUDA card.
 
     python scripts/torch_wavefront_ab.py PARENT_TREE CHANGE_TREE \
@@ -22,19 +22,36 @@ warm-up, then three):
   (path 4);
 - ``mesh_stream_mesh500_256x192``: a ``WavefrontStreamingRenderer`` round
   (reset, step(n_bounces=24, add_samples=8), flush) on path 3's scene (path
-  6).
+  6);
+- the binned paths through K8 at bench.py --procedural-binned's shape
+  (procedural_sphere_scene(10000), 512x384, 4 spp, max_depth 24, four
+  lanes a pixel, seeded 1000), each without and with NEE on sphere 8
+  (``*_nee``): ``binned_drain_procedural10000_512x384``, a
+  ``ProgressiveRenderer`` pass on the "binned" route (path 8), and
+  ``binned_stream_procedural10000_512x384``, a ``BinnedStreamingRenderer``
+  round (reset, step(4, 8), flush; path 9). Beside the pass times: K8's
+  launches a pass, a checksum of the accumulators' bits (``*_bits``: K8 is
+  bit-equal to one plain version in every tree, so the trees' images must
+  be too), and every K8 launch of one more pass timed alone from its own
+  input state (CUDA events, the mean of five after a warm-up, the card
+  held busy about 1 ms before each, so that the events time the launch's
+  kernels and not the host's enqueueing of them): the first, middle and
+  last launch and their sum (``*_k8_pass_ms``); the first change worker
+  also sums each launch's bound (chip_smoke.py::k8_bound, from the change
+  tree) over that pass (``*_k8_pass_bound_ms``).
 
---paths keeps only the named ones.
+--paths keeps only the named ones (all of them by default).
 
 It prints one JSON line a worker, then the card's name and power limit and
-a summary line: each path's mean pass or round time a tree (over its
-workers) and the change's ratio to the parent. Exits non-zero without a
-card. Imports neither JAX nor the JAX package.
+a summary line: each reading's mean a tree (over its workers) and the
+change's ratio to the parent. Exits non-zero without a card, or if the
+trees' ``*_bits`` differ. Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -43,6 +60,12 @@ import sys
 import numpy as np
 
 N_TIMED = 3
+BINNED_SEED = 1000
+HOLD_CYCLES = 2_000_000  # the card's spin before a timed launch, ~1 ms
+BINNED = ("binned_drain_procedural10000_512x384",
+          "binned_drain_procedural10000_512x384_nee",
+          "binned_stream_procedural10000_512x384",
+          "binned_stream_procedural10000_512x384_nee")
 
 
 def _ms(fn) -> float:
@@ -65,7 +88,115 @@ def _times(fn) -> list:
     return [_ms(fn) for _ in range(N_TIMED)]
 
 
-def worker(only: set) -> dict:
+def _launch_ms(run, state, before) -> float:
+    """One K8 launch (run()) from its input state: the mean of five timed
+    runs after a warm-up, the state copied back before each, outside the
+    events, and the card then held busy."""
+    import torch
+
+    times = []
+    for k in range(6):
+        for x, x0 in zip(state, before):
+            x.copy_(x0)
+        torch.cuda._sleep(HOLD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        if k:
+            times.append(float(a.elapsed_time(b)))
+    return float(np.mean(times))
+
+
+def binned(only: set, bounds: bool) -> dict:
+    """The binned paths (see the module's docstring)."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_sphere_scene
+    from smallpt_tpu_torch.engine.binned import BinnedStreamingRenderer
+    from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    k8_bound = None
+    if bounds:
+        import chip_smoke
+
+        k8_bound = chip_smoke.k8_bound
+    dev = torch.device("cuda")
+    cam = smallpt_camera()
+    scene = procedural_sphere_scene(10000)
+    base = RenderConfig(width=512, height=384, spp_per_cell=1, max_depth=24,
+                        camera_model=CameraModel.LEGACY, filter=Filter.TENT)
+    out = {}
+    for name in BINNED:
+        if only and name not in only:
+            continue
+        cfg = base.replace(nee_lights=(8,)) if name.endswith("_nee") \
+            else base
+        if "_drain_" in name:
+            r = ProgressiveRenderer(scene, cam, cfg, seed=BINNED_SEED,
+                                    device=dev)
+            br = r._binned
+
+            def round_():
+                r.step()
+        else:
+            r = br = BinnedStreamingRenderer(scene, cam, cfg,
+                                             seed=BINNED_SEED, device=dev)
+
+            def round_():
+                r.reset()
+                r.step(add_samples=cfg.spp, n_bounces=8)
+                r.flush()
+        round_()
+        torch.cuda.synchronize()
+        n0 = mk.stream_step_binned.launches
+        out[name] = [_ms(round_) for _ in range(N_TIMED)]
+        out[name + "_launches"] = (mk.stream_step_binned.launches
+                                   - n0) / N_TIMED
+        rad, w = br.accumulators()
+        out[name + "_bits"] = hashlib.sha256(
+            rad.cpu().numpy().tobytes() + w.cpu().numpy().tobytes()
+        ).hexdigest()[:16]
+
+        # every K8 launch of one more pass, each timed alone (and bounded)
+        # from its input state before the pass goes on
+        real, ms, bound = mk.stream_step_binned, [], []
+
+        def spy(*a, **k):
+            before = (a[3].clone(), a[4].clone())
+            ms.append(_launch_ms(lambda: real(*a, **k), (a[3], a[4]),
+                                 before))
+            if k8_bound is not None:
+                bound.append(k8_bound(before, a, k)["bound_ms"])
+            a[3].copy_(before[0])
+            a[4].copy_(before[1])
+            return real(*a, **k)
+
+        spy.launches = real.launches
+        mk.stream_step_binned = spy
+        try:
+            round_()
+        finally:
+            mk.stream_step_binned = real
+            real.launches = spy.launches
+        torch.cuda.synchronize()
+        for k, v in (("first", ms[0]), ("middle", ms[len(ms) // 2]),
+                     ("last", ms[-1])):
+            out[f"{name}_{k}_launch_ms"] = v
+        out[name + "_k8_pass_ms"] = float(np.sum(ms))
+        if bound:
+            out[name + "_k8_pass_bound_ms"] = float(np.sum(bound))
+        del r, br
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker(only: set, bounds: bool) -> dict:
     import torch
 
     from smallpt_tpu_torch.config import (
@@ -99,7 +230,8 @@ def worker(only: set) -> dict:
         "flat_split8_cornell_1024x768": (
             cornell, c1.replace(scheduler=Scheduler.FLAT, split_budget=8)),
     }
-    out = {"tree": os.environ.get("PYTHONPATH", "")}
+    out = {"tree": os.environ.get("PYTHONPATH", ""),
+           **binned(only, bounds)}
     for name, (scene, cfg) in passes.items():
         if only and name not in only:
             continue
@@ -127,6 +259,7 @@ def main() -> int:
     p.add_argument("change")
     p.add_argument("--paths", default="")
     p.add_argument("--blocks", type=int, default=1)
+    p.add_argument("--bounds", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--out", default="wavefront_ab.json")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args()
@@ -137,16 +270,20 @@ def main() -> int:
         return 1
     if args.worker:
         only = set(filter(None, args.paths.split(",")))
-        print(json.dumps(worker(only)), flush=True)
+        print(json.dumps(worker(only, args.bounds)), flush=True)
         return 0
     runs = []
-    for side in ("parent", "change", "change", "parent") * args.blocks:
+    for n, side in enumerate(("parent", "change", "change", "parent")
+                             * args.blocks):
         tree = os.path.abspath(getattr(args, side))
         env = dict(os.environ, PYTHONPATH=tree)
+        # the binned paths' bounds once, in the first change worker
+        extra = ["--bounds"] if n == 1 else []
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), args.parent,
-             args.change, "--worker", "--paths", args.paths], env=env,
-            capture_output=True, text=True, timeout=900, cwd=tree)
+             args.change, "--worker", "--paths", args.paths, *extra],
+            env=env, capture_output=True, text=True, timeout=1800,
+            cwd=tree)
         if res.returncode:
             print(res.stdout, res.stderr, file=sys.stderr)
             return res.returncode
@@ -158,21 +295,27 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    summary = {}
-    for name in runs[0]:
+    summary, same = {}, True
+    for name in {k: 0 for r in runs for k in r}:
         if name in ("tree", "side") or name.endswith("_mean"):
             continue
-        by = {side: float(np.mean([t for r in runs if r["side"] == side
-                                   for t in r[name]]))
+        if name.endswith("_bits"):
+            same &= len({r[name] for r in runs}) == 1
+            continue
+        by = {side: [t for r in runs if r["side"] == side and name in r
+                     for t in np.atleast_1d(r[name])]
               for side in ("parent", "change")}
-        summary[name] = dict(parent_ms=by["parent"], change_ms=by["change"],
-                             ratio=by["change"] / by["parent"])
+        by = {k: float(np.mean(v)) if v else None for k, v in by.items()}
+        summary[name] = dict(parent=by["parent"], change=by["change"],
+                             ratio=by["change"] / by["parent"]
+                             if by["parent"] and by["change"] else None)
+    summary["images_bit_equal"] = same
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(dict(device=smi, runs=runs, summary=summary), f, indent=1)
     print(smi)
     print(json.dumps(summary))
-    return 0
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

@@ -1450,15 +1450,44 @@ LIBRARY_BINNED = ("smallpt_stream_binned", "stream_binned.cu")
 _KERNEL_LANE_B = 1024
 
 
+# K8's sweep constants (csrc/stream_binned.cu kGroup, kMinRange): items a
+# unit of work, and the shortest range, in chunks, of a cut chunk sequence
+_K8_GROUP = 64
+_K8_MIN_RANGE = 8
+
+
+def _k8_cut(n_items, n_seq, fill: int):
+    """The plain version of K8's plan (csrc/stream_binned.cu
+    binned_plan_kernel), from each tile's item count and chunk-sequence
+    length (numpy ints, (T,)) and the units that fill the card (the
+    kernel's fill: 32 an SM, read from the device): (L, nr), L the range
+    length in chunks (None: no sequence is cut) and nr (T,) the ranges a
+    group of each tile. Sequences are cut only when the tiles' groups of
+    _K8_GROUP items are fewer than the fill."""
+    n_items = np.asarray(n_items, np.int64)
+    n_seq = np.asarray(n_seq, np.int64)
+    groups = -(-n_items // _K8_GROUP)
+    some = (groups > 0) & (n_seq > 0)
+    if groups.sum() >= fill:
+        return None, some.astype(np.int64)
+    cut = max(_K8_MIN_RANGE, -(-int((groups * n_seq).sum()) // fill))
+    return cut, np.where(some, -(-n_seq // cut), 0)
+
+
 def _binned_lib():
-    """The entry point of csrc/stream_binned.cu (built at first use)."""
+    """The entry points of csrc/stream_binned.cu (built at first use): the
+    bounce and its scratch size."""
     from smallpt_tpu_torch.utils.nvcc import load_library
 
-    fn = load_library(*LIBRARY_BINNED).smallpt_stream_binned
+    lib = load_library(*LIBRARY_BINNED)
+    fn, words = lib.smallpt_stream_binned, \
+        lib.smallpt_stream_binned_scratch_words
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12
+        fn.argtypes = [ctypes.c_void_p] * 13
         fn.restype = ctypes.c_int
-    return fn
+        words.argtypes = [ctypes.c_int, ctypes.c_int]
+        words.restype = ctypes.c_longlong
+    return fn, words
 
 
 def _check_binned(table, config: RenderConfig, f, i, lists, stops, dcut,
@@ -1545,20 +1574,30 @@ def stream_step_binned(table: torch.Tensor, config: RenderConfig, key,
                          f"(csrc/stream_binned.cu) is built for tiles of "
                          f"{_KERNEL_LANE_B} columns; only the plain version "
                          "on the CPU takes another width")
-    fn = _binned_lib()
+    fn, scratch_words = _binned_lib()
     rays = torch.zeros((), dtype=torch.int64, device=table.device)
     ints, floats = _launch_args(config, _SUB * f.shape[1], table.shape[0],
                                 k0, k1, ip_offset, 0, 0, max_it=0,
                                 lights=nee_rows)
-    bints = np.array([f.shape[1], n_glob_chunks, n_chunks, lists.shape[1],
-                      shift, _MODE_CODE[config.mode], n_tiles], np.int32)
     bfloats = np.array([*geo_lo, *geo_hi], np.float32)
     with torch.cuda.device(table.device):
+        # the item lists, the plan and the partials of one launch, written
+        # before they are read; their size depends on the card's SM count
+        n_words = scratch_words(f.shape[1], len(nee_rows))
+        if n_words < 0:
+            raise RuntimeError("stream_step_binned: the device's SM count "
+                               "could not be read")
+        scratch = torch.empty(n_words, dtype=torch.int32,
+                              device=table.device)
+        bints = np.array([f.shape[1], n_glob_chunks, n_chunks,
+                          lists.shape[1], shift, _MODE_CODE[config.mode],
+                          n_tiles, n_words], np.int32)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(table.data_ptr(), f.data_ptr(), i.data_ptr(),
                  stops.data_ptr(), lists.data_ptr(), dcut.data_ptr(),
-                 rays.data_ptr(), ints.ctypes.data, floats.ctypes.data,
-                 bints.ctypes.data, bfloats.ctypes.data, stream)
+                 rays.data_ptr(), scratch.data_ptr(), ints.ctypes.data,
+                 floats.ctypes.data, bints.ctypes.data, bfloats.ctypes.data,
+                 stream)
     if err != 0:
         raise RuntimeError(f"stream_step_binned launch failed: CUDA error "
                            f"{err}")

@@ -125,6 +125,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     tfn = types.SimpleNamespace(argtypes=None, restype=None)
     cfn = types.SimpleNamespace(argtypes=None, restype=None)
     bfn = types.SimpleNamespace(argtypes=None, restype=None)
+    bwfn = types.SimpleNamespace(argtypes=None, restype=None)
     kfn = types.SimpleNamespace(argtypes=None, restype=None)
     xfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
@@ -134,7 +135,9 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
                             smallpt_stream_dda=dfn, smallpt_closest_hit=hfn,
                             smallpt_closest_tri=tfn,
                             smallpt_closest_tri_culled=cfn,
-                            smallpt_stream_binned=bfn, smallpt_dda=kfn,
+                            smallpt_stream_binned=bfn,
+                            smallpt_stream_binned_scratch_words=bwfn,
+                            smallpt_dda=kfn,
                             smallpt_closest_hit_mxu=xfn))
     assert mk._kernel_lib() is fn
     assert fn.argtypes == [ctypes.c_void_p] * 7
@@ -157,9 +160,11 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert mp._culled_lib() is cfn
     assert cfn.argtypes == [ctypes.c_void_p] * 13
     assert cfn.restype is ctypes.c_int
-    assert mk._binned_lib() is bfn
-    assert bfn.argtypes == [ctypes.c_void_p] * 12
+    assert mk._binned_lib() == (bfn, bwfn)
+    assert bfn.argtypes == [ctypes.c_void_p] * 13
     assert bfn.restype is ctypes.c_int
+    assert bwfn.argtypes == [ctypes.c_int, ctypes.c_int]
+    assert bwfn.restype is ctypes.c_longlong
     assert dda._kernel_lib() is kfn
     assert kfn.argtypes == [ctypes.c_void_p] * 10
     assert kfn.restype is ctypes.c_int

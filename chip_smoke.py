@@ -37,7 +37,12 @@ the main paths through the kernels and times them:
   pass's image held to the megakernel's on the same key; FLAT with K6 on
   procedural_mesh_scene(500) at 256x192, held to the plain intersector
   route; FLAT with K2 and split_budget 8 on the Cornell box at 1024x768.
-  The goldens and the AOV modes run through these routes too;
+  The goldens and the AOV modes run through these routes too. K6 is held
+  bit for bit to its plain version on the first and a middle launch of
+  FLAT and of the mesh stream, and on constructed launches that reach its
+  plan's edges (77 rays cut to one range a chunk, a tie with a copy in a
+  later range, rays parallel to a plane of triangles, n_rows below the
+  table), each with the plan its launcher made;
 - the grid-culled sweep (K7): against its plain version on the 60-ball
   mesh (random, coherent and surface rays, an overflowing list, a ragged
   tile, all-miss rays) and on procedural_mesh_scene(500)'s camera and
@@ -439,7 +444,8 @@ def device_ms_by_name(prof) -> dict:
 
 # each wrapper's kernels as the profiler names them (demangled), one
 # event each a wrapper call: K1a and K1b are mega_pass_kernel<kGlobal,
-# kRecord>; K8 launches four kernels in turn
+# kRecord>; K6 launches one kernel (a memset, no kernel, zeroes its
+# counters first when it cuts its rows); K8 launches four kernels in turn
 KERNEL_EVENT = {name: tuple(re.compile(p) for p in pats) for name, pats in (
     ("mega_pass", (r"\bmega_pass_kernel<\w+, false>",)),
     ("mega_record", (r"\bmega_pass_kernel<\w+, true>",)),
@@ -1025,15 +1031,25 @@ def k3_hd(dev) -> dict:
 
 
 # float ops of one (ray, row) test of the closest-hit kernels, counted from
-# csrc/lane.cuh and csrc/closest_tri.cu (a square root or a division counts
-# as one op): K2's stable form (sphere_tt) 37 and the fold's compare 1; its
-# direct quadratic (sphere_tt_fast) 25 and the compare; K6's row (iq's
-# formulation, the bounds and the fold) 49; a skipped row (radius 0, or a
+# csrc/lane.cuh and csrc/tri.cuh (a square root or a division counts as
+# one op): K2's stable form (sphere_tt) 37 and the fold's compare 1; its
+# direct quadratic (sphere_tt_fast) 25 and the compare; the whole triangle
+# test (iq's formulation, the bounds and the fold, tri_candidate) 49, as
+# K7 and K6 run it on every pair they sweep; a skipped row (radius 0, or a
 # padding triangle) its one compare.
 OPS_K2_STABLE = 38
 OPS_K2_FAST = 26
 OPS_K6_ROW = 49
 OPS_ROW_SKIP = 1
+# K6's bound prices each pair at the ops a test that decides it on dn and
+# t first needs (tests/test_torch_tri_split.py emulates one): rov0 (3), dn
+# (5) and dn == 0 (1): 9 where dn is 0; then 1 / dn, t (7) and eps < t <
+# bt (2): 19 where t drops it; then q (9), u (7), v (6) and the bounds
+# with u + v (5): 46 for the whole test. csrc/closest_tri.cu runs the
+# whole test on every pair it sweeps (such a test lost on bounce rays,
+# PERF.md); a row it leaves out as it stages the table (padding, n = 0)
+# costs no op a pair.
+OPS_K6_DN, OPS_K6_T, OPS_K6_FULL = 9, 19, 46
 
 
 def k2_bound(table, n_a: int, n_b: int, n_rays: int) -> dict:
@@ -1051,15 +1067,73 @@ def k2_bound(table, n_a: int, n_b: int, n_rays: int) -> dict:
     return _bound(ops, nbytes, live_a=live_a, live_b=live_b, dead=dead)
 
 
-def k6_bound(table, n_rays: int) -> dict:
-    """The least time of one K6 launch over n_rays rays: OPS_K6_ROW per
-    (ray, triangle), a compare per padding row, at the float rate; 24 B in
-    and 16 B out a ray and the table's 64-B rows once at the memory rate."""
-    live = int((table[:, 12] > 0.5).sum())
-    dead = table.shape[0] - live
-    ops = n_rays * (OPS_K6_ROW * live + OPS_ROW_SKIP * dead)
-    nbytes = n_rays * (24 + 16) + table.shape[0] * 64
-    return _bound(ops, nbytes, live=live, dead=dead)
+def k6_pairs(org, dirs, table, n_rows=None, eps: float = 0.0) -> dict:
+    """The (ray, row) pairs of one K6 launch by where a test that decides
+    dn and t first decides them, counted by a plain fold of the launch's
+    own rays over the rows in row order with the running best kept row by
+    row (the sweep uncut): "dn" (dn == 0), "t" (t outside (eps, bt)),
+    "full" (the whole test), over the live rows ("live": valid, n not 0);
+    "left_out", the rows the kernel leaves out as it stages them."""
+    import torch
+
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    rows = table[:table.shape[0] if n_rows is None else n_rows]
+    live = (rows[:, 12] > 0.5) & (rows[:, 9:12] != 0.0).any(dim=1)
+    r = rows[live]
+    lane = [x[:, None] for x in (*org, *dirs)]
+    dx, dy, dz = lane[3:]
+    bt = torch.full((org.shape[1], 1), 3.0e38, device=org.device)
+    out = dict(dn=0, t=0, full=0, live=int(live.sum()),
+               left_out=int((~live).sum()))
+    for lo in range(0, r.shape[0], 128):
+        cols = [r[lo:lo + 128, k][None, :] for k in range(13)]
+        hit, t, _, _ = mp._tri_test(lane, cols, eps)
+        dn = dx * cols[9] + dy * cols[10] + dz * cols[11]
+        cand = torch.where(hit, t, 3.0e38)
+        run = torch.cummin(cand, dim=1).values
+        best = torch.minimum(bt, torch.cat([bt, run[:, :-1]], dim=1))
+        at_dn = dn == 0.0
+        at_t = ~at_dn & ~((eps < t) & (t < best))
+        out["dn"] += int(at_dn.sum())
+        out["t"] += int(at_t.sum())
+        out["full"] += int((~at_dn & ~at_t).sum())
+        bt = torch.minimum(bt, run[:, -1:])
+    return out
+
+
+def k6_plan(org, dirs, table, n_rows=None, eps: float = 0.0) -> dict:
+    """The plan K6's launcher makes of a launch on these arguments
+    (csrc/closest_tri.cu::smallpt_closest_tri_plan, on the card), with its
+    scratch in MB."""
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    plan = mp.closest_tri_plan(
+        org.shape[1], table.shape[0] if n_rows is None else n_rows,
+        table.device)
+    return dict(plan, scratch_mb=plan["scratch_words"] * 4 / 1e6)
+
+
+def k6_bound(org, dirs, table, n_rows=None, eps: float = 0.0) -> dict:
+    """The least time of one K6 launch on its arguments: each (ray, row)
+    pair at the ops a test that decides dn and t first spends up to its
+    decision (k6_pairs: OPS_K6_DN, OPS_K6_T, OPS_K6_FULL; none for a row
+    left out), at the float rate; 24 B in and 16 B out a ray and the table's 64-B rows once
+    at the memory rate. Beside it, the bound as the one-stage test was held
+    to (bound_ms_every_pair_full): OPS_K6_ROW per (ray, live row), a
+    compare per padding row."""
+    n_rays = org.shape[1]
+    pairs = k6_pairs(org, dirs, table, n_rows, eps)
+    rows = table.shape[0] if n_rows is None else n_rows
+    valid = int((table[:rows, 12] > 0.5).sum())
+    ops = (OPS_K6_DN * pairs["dn"] + OPS_K6_T * pairs["t"]
+           + OPS_K6_FULL * pairs["full"])
+    nbytes = n_rays * (24 + 16) + rows * 64
+    full = _bound(n_rays * (OPS_K6_ROW * valid
+                            + OPS_ROW_SKIP * (rows - valid)), nbytes)
+    return _bound(ops, nbytes, pairs=pairs, valid_rows=valid,
+                  bound_ms_every_pair_full=full["bound_ms"],
+                  bound_by_every_pair_full=full["bound_by"])
 
 
 def k7_bound(args, work) -> dict:
@@ -1254,6 +1328,92 @@ def closest_tri_phases(dev) -> dict:
     return out
 
 
+def k6_constructed_launches(dev) -> dict:
+    """K6 against its plain version (t, tri, u, v bit-equal) on launches
+    built to reach the edges of its plan, each with the plan its launcher
+    made, its scratch, its time and its bounds:
+    - 77 camera rays of procedural_mesh_scene(500) over all 32,014 rows:
+      one ray block, cut to one range a chunk (the deepest cut);
+    - the mesh's valid rows twice over, the copy after the originals (and
+      a padding row), on 3,072 camera and first-bounce rays (64x48): every
+      hit ties with its copy in a later range, and the original must win;
+    - 4,000 triangles (2,000 unit quads) in the plane z = 5 and 3,072 rays,
+      two in three with dz = 0 exactly (dn == 0 on every pair: all miss),
+      the rest crossing the plane from above a quad;
+    - the first 20,000 rows of the mesh's table (n_rows below its 32,032
+      rows, off a chunk boundary) on the 3,072 bounce rays."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_mesh_scene, scene_to
+    from smallpt_tpu_torch.engine.renderer import make_intersect_fn
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    mesh = procedural_mesh_scene(500)
+    cfg = RenderConfig(width=64, height=48, camera_model=CameraModel.LEGACY,
+                       filter=Filter.TENT)
+    ds = scene_to(mesh, dev)
+    (co, cd), (bo, bd) = camera_and_bounce_rays(
+        ds, cfg, smallpt_camera(), rng.fold_in(rng.base_key(0), 1002),
+        make_intersect_fn(ds, cfg), dev)
+    table = mp.build_tri_table(mesh, device=dev)
+    valid = table[table[:, 12] > 0.5]
+    dup = torch.cat([valid, torch.zeros((1, 16), device=dev), valid])
+    dup = torch.cat([dup, torch.zeros(((-dup.shape[0]) % 32, 16),
+                                      device=dev)])
+    g = torch.Generator().manual_seed(15)
+    xy = torch.rand((2000, 2), generator=g) * 200.0
+    quads = torch.zeros((4000, 16))
+    for k, (e1, e2) in enumerate((((1, 0, 0), (1, 1, 0)),
+                                  ((1, 1, 0), (0, 1, 0)))):
+        q = quads[k::2]
+        q[:, 0:2], q[:, 2] = xy, 5.0
+        q[:, 3:6], q[:, 6:9] = torch.tensor(e1), torch.tensor(e2)
+        q[:, 9:12] = torch.linalg.cross(q[:, 3:6], q[:, 6:9])
+        q[:, 12] = 1.0
+    quads = quads.to(dev)
+    n = 3072
+    po = torch.rand((n, 3), generator=g) * torch.tensor([200.0, 200.0, 10.0])
+    pd = torch.nn.functional.normalize(torch.randn((n, 3), generator=g),
+                                       dim=1)
+    flat = torch.arange(n) % 3 != 2
+    pd[flat, 2] = 0.0
+    cross = ~flat
+    po[cross, :2] = xy[torch.arange(int(cross.sum())) % 2000] + 0.25
+    po[cross, 2] = 9.0
+    pd[cross] = torch.tensor([0.01, 0.02, -1.0])
+    out = {}
+    for name, o, d, tab, n_rows in (
+            ("rays77_all_rows", co[:77], cd[:77], table, None),
+            ("duplicate_tie_camera", co, cd, dup, None),
+            ("duplicate_tie_bounce", bo, bd, dup, None),
+            ("parallel_to_plane", po.to(dev), pd.to(dev), quads, None),
+            ("n_rows_20000", bo, bd, table, 20000)):
+        ot, dt = o.T.contiguous(), d.T.contiguous()
+        kw = {} if n_rows is None else {"n_rows": n_rows}
+        got = mp.closest_tri(ot, dt, tab, **kw)
+        st = exact(name, got, mp.closest_tri_plain(ot, dt, tab, **kw))
+        hit = got[0] < 3e38
+        if name.startswith("duplicate") and (
+                not bool(hit.any())
+                or bool((got[1][hit] >= valid.shape[0]).any())):
+            raise AssertionError(f"{name}: a copy won a tie")
+        if name == "parallel_to_plane" and (
+                bool(hit[flat.to(dev)].any())
+                or not bool(hit[cross.to(dev)].any())):
+            raise AssertionError(f"{name}: hits {int(hit.sum())}")
+        if n_rows is not None and bool((got[1][hit] >= n_rows).any()):
+            raise AssertionError(f"{name}: a row past n_rows won")
+        ms, _ = cuda_ms(lambda: mp.closest_tri(ot, dt, tab, **kw), 3)
+        out[name] = dict(st, plan=k6_plan(ot, dt, tab, **kw), kernel_ms=ms,
+                         **k6_bound(ot, dt, tab, **kw))
+    if out["rays77_all_rows"]["plan"]["ranges"] != -(-table.shape[0] // 256):
+        raise AssertionError(f"77 rays: plan {out['rays77_all_rows']}")
+    return out
+
+
 def wavefront_golden_phases(dev) -> dict:
     """The goldens through the wavefront routes and the closest-hit
     kernels (tests/test_torch_wavefront.py's cases): Cornell 48x36 through
@@ -1422,8 +1582,11 @@ def launches_vs_plain(name, kernel: str, fn, per_run: float) -> dict:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t) * 1e3
         bound = (k2_bound(args[2], args[3], args[4], n)
-                 if kernel == "closest_hit" else k6_bound(args[2], n)
+                 if kernel == "closest_hit" else k6_bound(*args, **kw)
                  if kernel == "closest_tri" else k7_bound(args, work))
+        if kernel == "closest_tri":
+            # the cut K6's launcher made of this launch, and its scratch
+            bound["plan"] = k6_plan(*args, **kw)
         launches[k] = dict(rays=n, kernel_ms=k_ms, plain_ms=plain_ms,
                            vs_plain=exact(name, got, want), **bound)
     return launches
@@ -1773,17 +1936,21 @@ def closest_tri_culled_phases(dev):
         lists_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         k7_ms, _ = cuda_ms(lambda: mp.closest_tri_culled(*args), 5)
         k6_ms, _ = cuda_ms(lambda: mp.closest_tri(ot, dt, table), 5)
-        k6b = k6_bound(table, n)
+        k6b = k6_bound(ot, dt, table)
         vs_k6[name] = dict(cmp, rays=n, k7_ms=k7_ms, k6_ms=k6_ms,
                            lists_ms=lists_ms,
                            lists_peak_gb_above_inputs=lists_peak,
                            k7_plus_lists_ms=k7_ms + lists_ms,
                            k7_bound_ms=vs_plain[name]["bound_ms"],
                            k6_bound_ms=k6b["bound_ms"],
+                           k6_bound_ms_every_pair_full=k6b[
+                               "bound_ms_every_pair_full"],
+                           k6_plan=k6_plan(ot, dt, table),
                            chunks_per_tile=vs_plain[name][
                                "chunks_per_tile"],
                            pairs_k7=vs_plain[name]["pairs"],
-                           pairs_k6=n * k6b["live"])
+                           pairs_k6=ot.shape[1] * k6b["valid_rows"],
+                           pairs_k6_staged=k6b["pairs"])
     return vs_plain, vs_k6
 
 
@@ -4784,6 +4951,8 @@ def main() -> int:
     phase("closest_hit_vs_plain", **k2_stats)
     k6_stats = closest_tri_phases(dev)
     phase("closest_tri_vs_plain", **k6_stats)
+    k6_built = k6_constructed_launches(dev)
+    phase("k6_constructed_launches", **k6_built)
     phase("wavefront_goldens", **wavefront_golden_phases(dev))
     phase("aov_modes_256x192", **aov_phases(dev))
 
@@ -4946,6 +5115,26 @@ def main() -> int:
         "flat_main_mesh500_256x192": wf_kernels[1]["launches"],
         "mesh_stream_main_mesh500_256x192": ms_paths[
             "mesh_stream_main_mesh500_256x192"]["launches"]["closest_tri"]}
+    # K6 on every launch it was held on: the plan its launcher made (with
+    # its scratch), the time and both bounds; the paths' peak memory
+    k6_paths = {"flat_main_mesh500_256x192": wf["flat_main_mesh500_256x192"],
+                "mesh_stream_main_mesh500_256x192": ms_paths[
+                    "mesh_stream_main_mesh500_256x192"]}
+    k6_keys = ("rays", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+               "bound_ms_every_pair_full", "pairs", "plan")
+    wf_kernels[1]["launch_by_path"] = {
+        n: {k: {x: v[x] for x in k6_keys if x in v}
+            for k, v in p["kernel"].items()} for n, p in k6_paths.items()}
+    wf_kernels[1]["peak_gb_by_path"] = {n: p["peak_mem_gb"]
+                                        for n, p in k6_paths.items()}
+    wf_kernels[1]["constructed"] = {
+        n: {x: v[x] for x in k6_keys if x in v} for n, v in k6_built.items()}
+    wf_kernels[1]["max_abs_err"] = max(
+        [wf_kernels[1]["max_abs_err"]]
+        + [v["max_abs_err"] for v in k6_built.values()])
+    wf_kernels[1]["bound_ms_every_pair_full"] = wf[
+        "flat_main_mesh500_256x192"]["kernel"]["middle"][
+        "bound_ms_every_pair_full"]
     b_main = binned["binned_drain_procedural10000_512x384"]
     b_mid = b_main["kernel"]["middle"]
     k8_errs = [v["max_abs_err"] for v in k8_small.values()]

@@ -17,12 +17,18 @@ warm-up, then three):
 - ``regen_procedural10000_512x384``: the same on 10,000 spheres, max_depth
   24 (path 2);
 - ``flat_mesh500_256x192``: FLAT + K6 on procedural_mesh_scene(500), max_depth
-  12 (path 3);
+  12 (path 3); K6 is bit-equal to one plain version in every tree, so the
+  image's bits (``*_bits``) must be equal across the trees;
 - ``flat_split8_cornell_1024x768``: FLAT + K2 with split_budget 8, as path 1
   (path 4);
 - ``mesh_stream_mesh500_256x192``: a ``WavefrontStreamingRenderer`` round
   (reset, step(n_bounces=24, add_samples=8), flush) on path 3's scene (path
-  6);
+  6), its accumulators' bits likewise. On both mesh paths every K6 launch
+  of one more pass or round is timed alone as K8's are below (the first,
+  middle and last, the sum: ``*_k6_pass_ms``), and the first change worker
+  sums their bounds (chip_smoke.py::k6_bound: ``*_k6_pass_bound_ms``, and
+  at the whole test's 49 ops every live pair,
+  ``*_k6_pass_bound_every_pair_full_ms``);
 - the binned paths through K8 at bench.py --procedural-binned's shape
   (procedural_sphere_scene(10000), 512x384, 4 spp, max_depth 24, four
   lanes a pixel, seeded 1000), each without and with NEE on sphere 8
@@ -159,9 +165,7 @@ def binned(only: set, bounds: bool) -> dict:
         out[name + "_launches"] = (mk.stream_step_binned.launches
                                    - n0) / N_TIMED
         rad, w = br.accumulators()
-        out[name + "_bits"] = hashlib.sha256(
-            rad.cpu().numpy().tobytes() + w.cpu().numpy().tobytes()
-        ).hexdigest()[:16]
+        out[name + "_bits"] = _bits(rad.cpu().numpy(), w.cpu().numpy())
 
         # every K8 launch of one more pass, each timed alone (and bounded)
         # from its input state before the pass goes on
@@ -194,6 +198,53 @@ def binned(only: set, bounds: bool) -> dict:
         del r, br
         torch.cuda.empty_cache()
     return out
+
+
+def _k6_pass(run, bounds: bool) -> dict:
+    """Every K6 launch of one more run(), each timed alone (``_launch_ms``:
+    K6 writes only its outputs, so nothing is restored) and, with bounds,
+    bounded (chip_smoke.py::k6_bound from the change tree: the staged
+    test's ops, and every live pair at the whole test's): the first,
+    middle and last launch's ms, their sum and the bounds' sums."""
+    import torch
+
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    k6_bound = None
+    if bounds:
+        import chip_smoke
+
+        k6_bound = chip_smoke.k6_bound
+    real, ms, bound, full = mp.closest_tri, [], [], []
+
+    def spy(*a, **k):
+        ms.append(_launch_ms(lambda: real(*a, **k), (), ()))
+        if k6_bound is not None:
+            b = k6_bound(*a, **k)
+            bound.append(b["bound_ms"])
+            full.append(b["bound_ms_every_pair_full"])
+        return real(*a, **k)
+
+    spy.launches = real.launches
+    mp.closest_tri = spy
+    try:
+        run()
+    finally:
+        mp.closest_tri = real
+        real.launches = spy.launches
+    torch.cuda.synchronize()
+    out = {"k6_first_launch_ms": ms[0], "k6_middle_launch_ms":
+           ms[len(ms) // 2], "k6_last_launch_ms": ms[-1],
+           "k6_pass_ms": float(np.sum(ms)), "k6_pass_launches": len(ms)}
+    if bound:
+        out.update(k6_pass_bound_ms=float(np.sum(bound)),
+                   k6_pass_bound_every_pair_full_ms=float(np.sum(full)))
+    return out
+
+
+def _bits(*arrays) -> str:
+    return hashlib.sha256(b"".join(
+        np.ascontiguousarray(a).tobytes() for a in arrays)).hexdigest()[:16]
 
 
 def worker(only: set, bounds: bool) -> dict:
@@ -238,6 +289,10 @@ def worker(only: set, bounds: bool) -> dict:
         r = ProgressiveRenderer(scene, cam, cfg, seed=0, device=dev)
         out[name] = _times(r.step)
         out[name + "_mean"] = float(r.image.mean())
+        if scene is mesh:
+            out[name + "_bits"] = _bits(r.image)
+            out.update({f"{name}_{k}": v
+                        for k, v in _k6_pass(r.step, bounds).items()})
         del r
     if only and "mesh_stream_mesh500_256x192" not in only:
         return out
@@ -249,7 +304,11 @@ def worker(only: set, bounds: bool) -> dict:
         s.step(n_bounces=24, add_samples=8)
         s.flush()
 
-    out["mesh_stream_mesh500_256x192"] = _times(round_)
+    name = "mesh_stream_mesh500_256x192"
+    out[name] = _times(round_)
+    rad, w = s.accumulators()
+    out[name + "_bits"] = _bits(rad.cpu().numpy(), w.cpu().numpy())
+    out.update({f"{name}_{k}": v for k, v in _k6_pass(round_, bounds).items()})
     return out
 
 
@@ -277,7 +336,7 @@ def main() -> int:
                              * args.blocks):
         tree = os.path.abspath(getattr(args, side))
         env = dict(os.environ, PYTHONPATH=tree)
-        # the binned paths' bounds once, in the first change worker
+        # the K6 and K8 launches' bounds once, in the first change worker
         extra = ["--bounds"] if n == 1 else []
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), args.parent,

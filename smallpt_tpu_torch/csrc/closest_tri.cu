@@ -3,13 +3,13 @@
 //
 // Replaces: smallpt_tpu/ops/mesh_pallas.py::_mesh_kernel, launched there by
 // _closest_tri through one pallas_call; entry point smallpt_closest_tri,
-// kernel closest_tri_kernel.
+// kernel closest_tri_kernel; the launch's plan, smallpt_closest_tri_plan.
 //
 // Contract (ops/mesh_pallas.py::closest_tri): org and dir are (3, N) f32
 // planes, the table (rows, 16) f32 rows [v0(3) e1(3) e2(3) n(3) valid 0 0
 // 0] with n = cross(e1, e2). Per (ray, row), op for op the JAX kernel's
 // formulation (iq's triIntersect, scene.cpp:52-70; tri.cuh::tri_candidate,
-// shared with K7):
+// which K7 shares):
 //   rov0 = o - v0;  q = cross(rov0, d);  dn = dot(d, n)
 //   inv = 1 / (dn == 0 ? 1 : dn)
 //   u = -dot(q, e2) * inv;  v = dot(q, e1) * inv;  t = -dot(n, rov0) * inv
@@ -19,28 +19,51 @@
 // kernel's chunk min-loc with a strict < across chunks, which is one
 // sequential strict-< fold over the rows in table order.
 //
-// What bounds it on an H100: the float work, ~30 ops a (ray, triangle)
-// pair and one division. A FLAT bounce of procedural_mesh_scene(500) (32,014
-// triangles) at 256x192, 4 spp, is 196,608 rays x 32,014 rows, ~189 G ops,
-// 2.8 ms at the 67 TFLOP/s rate (5.6 ms at the no-FMA rate this build
-// retires at); its bytes (28 B a ray in and out, the 2.05 MB table once)
-// take ~2 us. chip_smoke.py computes both bounds from the launch's shapes.
+// What bounds it on an H100: the float work of every (ray, live row) pair.
+// A FLAT bounce of procedural_mesh_scene(500) (32,014 triangles) at
+// 256x192, 4 spp, is 196,608 rays x 32,014 rows; its bytes (40 B a ray in
+// and out, the 2.05 MB table once) take ~2 us. chip_smoke.py::k6_bound
+// prices each pair at the ops a test that decides dn and t first needs,
+// and beside it at tri_candidate's whole test.
 //
 // What the design does about it:
-// - one thread per ray, its running (t, tri, u, v) in registers; each block
-//   stages the table through shared memory in chunks of kChunk rows (32 KB
-//   of the 13 floats a row holds, as four float4s), so the 2.05 MB table of
-//   32k triangles streams through without an opt-in; every thread reads
-//   the same row at once, a shared-memory broadcast;
-// - padding rows (valid 0) are skipped with a branch that is uniform over
-//   the block: such a row is never a candidate, so the fold is unchanged;
-// - the ray planes are read coalesced, the results written once;
+// - rows that can never be a candidate are left out as the table is
+//   staged through shared memory (kChunk rows at a time, the survivors in
+//   row order): the padding (valid 0) and the degenerate triangles (n =
+//   (0, 0, 0), where dn is 0 or NaN for every ray: 8 of the 64 triangles
+//   of each tessellated ball, 12.6% of procedural_mesh_scene(500)'s rows),
+//   so the sweep has no padding test either. Every pair that is swept
+//   takes tri_candidate's whole test, the one K7 runs. A test that drops
+//   a pair on dn and t before q, u and v (a per-lane branch, or the tail
+//   skipped where a whole warp drops) gains only on coherent camera rays
+//   and loses 11-13% on bounce rays, whose warps run the tail on nearly
+//   every row (PERF.md, PR 15);
+// - kRays rays a thread: each row read from shared memory (v0/e1x, the
+//   rest of the edges, e2z/n: three float4 broadcasts) serves them all;
+//   13 KB of shared memory a block, so registers (70, 7 blocks or 28 warps
+//   an SM) set the occupancy;
+// - the launch fills the card: where its ray blocks would leave the
+//   blocks the card holds at once (the fill: the SMs times this kernel's
+//   occupancy, read once a device) partly idle, the rows are cut into
+//   ranges of whole chunks, one unit (a block) a (ray block, range): the
+//   fewest ranges whose units run in full-row waves within 5% of the ideal
+//   (make_plan). Each unit folds its rows in order with the strict < from
+//   (3e38, row 0) and writes a partial (t, row, u, v) a ray; the last unit
+//   of a ray block to finish (a counter a ray block, zeroed on the stream
+//   before the launch) folds the partials in range order with the strict
+//   <: the least t and, among equal ones, the earliest range's, whose own
+//   row is its first, so the sequential fold's winner for any cut
+//   (tests/test_torch_tri_split.py). With every pair tested whole, a later
+//   range does no more work than an uncut sweep of its rows;
 // - built with --fmad=false, so each op rounds as in the JAX kernel and in
 //   the plain version (ops/mesh_pallas.py::closest_tri_plain).
 //
-// Interface: a plain C function, loaded with ctypes. It launches on the
-// caller's stream, synchronises nothing and returns cudaGetLastError() of
-// the launch.
+// Interface: plain C functions, loaded with ctypes. The launch runs on the
+// caller's stream (a memset of the counters, then the kernel), synchronises
+// nothing, allocates nothing (the caller hands it scratch of the plan's
+// size) and returns the first cudaGetLastError().
+
+#include <algorithm>
 
 #include "tri.cuh"
 
@@ -48,73 +71,269 @@ namespace {
 
 using namespace smallpt;
 
-constexpr int kBlock = 128;
-constexpr int kChunk = 512;  // table rows staged in shared memory at once
+constexpr int kBlock = 128;                // threads a block
+constexpr int kRays = 2;                   // rays a thread
+constexpr int kBlockRays = kBlock * kRays;
+constexpr int kChunk = 2 * kBlock;         // table rows staged at once
+constexpr int kWarps = kBlock / 32;
+constexpr double kWaveSlack = 0.05;        // the plan's waves over ideal
 
 __global__ void __launch_bounds__(kBlock)
     closest_tri_kernel(const float* __restrict__ org,
                        const float* __restrict__ dir,
                        const float4* __restrict__ rows, float* t_out,
-                       int* tri_out, float* u_out, float* v_out, int n,
-                       int n_rows, float eps) {
-  __shared__ float4 s_row[4 * kChunk];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool ray = i < n;
-  // a thread past the last ray still stages rows; it traces a finite dummy
-  const float ox = ray ? org[i] : 0.0f;
-  const float oy = ray ? org[n + i] : 0.0f;
-  const float oz = ray ? org[2 * n + i] : 0.0f;
-  const float dx = ray ? dir[i] : 1.0f;
-  const float dy = ray ? dir[n + i] : 0.0f;
-  const float dz = ray ? dir[2 * n + i] : 0.0f;
-  float bt = kBig, bu = 0.0f, bv = 0.0f;
-  int bi = 0;
-  for (int base = 0; base < n_rows; base += kChunk) {
-    const int m = min(kChunk, n_rows - base);
+                       int* tri_out, float* u_out, float* v_out,
+                       float4* part, int* done, int n, int n_rows,
+                       int range_rows, float eps) {
+  __shared__ float4 s_a[kChunk], s_b[kChunk], s_c[kChunk];
+  __shared__ int s_idx[kChunk];
+  __shared__ int s_warp[2 * kWarps];
+  __shared__ int s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays];
+  float bt[kRays], bu[kRays], bv[kRays];
+  int bi[kRays];
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
+    // a ray past the last traces a finite dummy
+    const bool ray = i < n;
+    ox[j] = ray ? org[i] : 0.0f;
+    oy[j] = ray ? org[n + i] : 0.0f;
+    oz[j] = ray ? org[2 * n + i] : 0.0f;
+    dx[j] = ray ? dir[i] : 1.0f;
+    dy[j] = ray ? dir[n + i] : 0.0f;
+    dz[j] = ray ? dir[2 * n + i] : 0.0f;
+    bt[j] = kBig;
+    bu[j] = 0.0f;
+    bv[j] = 0.0f;
+    bi[j] = 0;
+  }
+  const int lo = blockIdx.y * range_rows;
+  const int hi = min(n_rows, lo + range_rows);
+  for (int base = lo; base < hi; base += kChunk) {
+    // stage the chunk's live rows in row order, two rows a thread, their
+    // places from the warps' ballots; a row is live where it is valid and
+    // its n is not (0, 0, 0): with n = 0, dn is 0 (or NaN) for every ray
+    bool live[2];
+    unsigned ball[2];
+    float4 cn[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = base + h * kBlock + threadIdx.x;
+      live[h] = false;
+      if (k < hi) {
+        cn[h] = __ldg(rows + 4 * k + 2);
+        live[h] =
+            __ldg(reinterpret_cast<const float*>(rows + 4 * k + 3)) > 0.5f &&
+            !(cn[h].y == 0.0f && cn[h].z == 0.0f && cn[h].w == 0.0f);
+      }
+      ball[h] = __ballot_sync(0xffffffffu, live[h]);
+    }
     __syncthreads();  // the previous chunk's readers are done
-    for (int k = threadIdx.x; k < 4 * m; k += blockDim.x)
-      s_row[k] = __ldg(rows + 4 * base + k);
+    if (lane == 0) {
+      s_warp[warp] = __popc(ball[0]);
+      s_warp[kWarps + warp] = __popc(ball[1]);
+    }
     __syncthreads();
-    for (int k = 0; k < m; ++k) {
-      const TriRow r = load_tri_row(s_row, k);
-      if (!(r.d.x > 0.5f)) continue;  // padding: never a candidate
-      float t, u, v;
-      if (tri_candidate(ox, oy, oz, dx, dy, dz, r, eps, t, u, v) && t < bt) {
-        bt = t;
-        bi = base + k;
-        bu = u;
-        bv = v;
+    int m = 0, off[2] = {0, 0};
+#pragma unroll
+    for (int e = 0; e < 2 * kWarps; ++e) {
+      if (e == warp) off[0] = m;
+      if (e == kWarps + warp) off[1] = m;
+      m += s_warp[e];
+    }
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (live[h]) {
+        const int k = base + h * kBlock + threadIdx.x;
+        const int at = off[h] + __popc(ball[h] & below);
+        s_a[at] = __ldg(rows + 4 * k);
+        s_b[at] = __ldg(rows + 4 * k + 1);
+        s_c[at] = cn[h];
+        s_idx[at] = k;
+      }
+    }
+    __syncthreads();
+    for (int q = 0; q < m; ++q) {
+      const TriRow r{s_a[q], s_b[q], s_c[q], make_float4(0.f, 0.f, 0.f, 0.f)};
+#pragma unroll
+      for (int j = 0; j < kRays; ++j) {
+        float t, u, v;
+        if (tri_candidate(ox[j], oy[j], oz[j], dx[j], dy[j], dz[j], r, eps, t,
+                          u, v) &&
+            t < bt[j]) {
+          bt[j] = t;
+          bi[j] = s_idx[q];
+          bu[j] = u;
+          bv[j] = v;
+        }
       }
     }
   }
-  if (ray) {
-    t_out[i] = bt;
-    tri_out[i] = bi;
-    u_out[i] = bu;
-    v_out[i] = bv;
+  if (gridDim.y == 1) {
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) {
+      const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
+      if (i < n) {
+        t_out[i] = bt[j];
+        tri_out[i] = bi[j];
+        u_out[i] = bu[j];
+        v_out[i] = bv[j];
+      }
+    }
+    return;
   }
+  // a range of several: this unit's partials, then the last unit of the
+  // ray block folds them all in range order
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
+    if (i < n)
+      part[(size_t)blockIdx.y * n + i] =
+          make_float4(bt[j], __int_as_float(bi[j]), bu[j], bv[j]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(done + blockIdx.x, 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
+    if (i >= n) continue;
+    float4 best = __ldcg(part + i);
+    for (int r = 1; r < (int)gridDim.y; ++r) {
+      const float4 p = __ldcg(part + (size_t)r * n + i);
+      if (p.x < best.x) best = p;
+    }
+    t_out[i] = best.x;
+    tri_out[i] = __float_as_int(best.y);
+    u_out[i] = best.z;
+    v_out[i] = best.w;
+  }
+}
+
+// The current device's SMs and the blocks of closest_tri_kernel each holds
+// at once, queried once a device.
+struct Fit {
+  int n_sm, per_sm;
+};
+
+inline cudaError_t device_fit(Fit* out) {
+  static Fit fits[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  Fit& fit = fits[dev & 63];
+  if (fit.n_sm == 0) {
+    int n_sm = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, closest_tri_kernel, kBlock, 0)) != cudaSuccess)
+      return err;
+    fit.per_sm = std::max(1, per_sm);
+    fit.n_sm = std::max(1, n_sm);
+  }
+  *out = fit;
+  return cudaSuccess;
+}
+
+// One launch's cut: its ray blocks, the ranges of rows each is cut into
+// (range_rows rows each, whole chunks, the last ragged), the fill (the
+// blocks the card holds at once) and the int32 words of scratch the
+// ranges need (a float4 partial a (range, ray), then a counter a ray
+// block; none for one range).
+struct Plan {
+  long long blocks, ranges, range_rows, fill, n_sm, per_sm, scratch_words;
+};
+
+inline Plan make_plan(int n, int n_rows, const Fit& fit) {
+  Plan p{};
+  p.n_sm = fit.n_sm;
+  p.per_sm = fit.per_sm;
+  p.fill = (long long)fit.n_sm * fit.per_sm;
+  p.blocks = (n + kBlockRays - 1) / kBlockRays;
+  const long long chunks = (n_rows + kChunk - 1) / kChunk;
+  // the fewest ranges r whose units' full-row waves, ceil(blocks * r /
+  // fill) / r, come within kWaveSlack of the ideal blocks / fill (every
+  // slot busy to the end); the best r up to one range a chunk if none does
+  long long ranges = 1;
+  if (p.blocks > 0) {
+    const double ideal = (double)p.blocks / (double)p.fill;
+    double best = 0.0;
+    for (long long r = 1; r <= std::max(1LL, chunks); ++r) {
+      const double cost =
+          (double)((p.blocks * r + p.fill - 1) / p.fill) / (double)r;
+      if (r == 1 || cost < best) {
+        best = cost;
+        ranges = r;
+      }
+      if (cost <= ideal * (1.0 + kWaveSlack)) break;
+    }
+  }
+  const long long per = std::max(1LL, (chunks + ranges - 1) / ranges);
+  p.range_rows = per * kChunk;
+  p.ranges = std::max(1LL, (chunks + per - 1) / per);
+  p.scratch_words = p.ranges > 1 ? 4 * p.ranges * n + p.blocks : 0;
+  return p;
 }
 
 }  // namespace
 
+// The plan smallpt_closest_tri makes on the current device for n rays over
+// n_rows rows: out, seven int64 {blocks, ranges, range_rows, fill, n_sm,
+// per_sm, scratch_words}. Returns a cudaError_t (the device query's).
+extern "C" int smallpt_closest_tri_plan(int n, int n_rows, void* out) {
+  if (n < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
+  Fit fit;
+  const cudaError_t err = device_fit(&fit);
+  if (err != cudaSuccess) return (int)err;
+  const Plan p = make_plan(n, n_rows, fit);
+  const long long v[7] = {p.blocks, p.ranges, p.range_rows, p.fill,
+                          p.n_sm, p.per_sm, p.scratch_words};
+  memcpy(out, v, sizeof(v));
+  return 0;
+}
+
 // The closest (t, tri, u, v) of iparams[0] rays over the first iparams[1]
 // table rows, rejecting t <= fparams[0]. org, dir: (3, N) f32 planes and
 // table: (rows, 16) f32 on the device; t, u, v: (N,) f32 and tri: (N,) i32
-// outputs; stream: a cudaStream_t. Returns the launch's cudaGetLastError().
+// outputs; scratch: iparams[2] int32 words on the device, at least the
+// plan's scratch_words (nothing in it is read before the launch writes
+// it); stream: a cudaStream_t. Returns the first cudaGetLastError().
 extern "C" int smallpt_closest_tri(const void* org, const void* dir,
                                    const void* table, void* t, void* tri,
-                                   void* u, void* v, const void* iparams,
-                                   const void* fparams, void* stream) {
-  int ip[2];
+                                   void* u, void* v, void* scratch,
+                                   const void* iparams, const void* fparams,
+                                   void* stream) {
+  int ip[3];
   float fp[1];
   memcpy(ip, iparams, sizeof(ip));
   memcpy(fp, fparams, sizeof(fp));
   const int n = ip[0], n_rows = ip[1];
   if (n < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const int grid = (n + kBlock - 1) / kBlock;
-  closest_tri_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+  Fit fit;
+  cudaError_t err = device_fit(&fit);
+  if (err != cudaSuccess) return (int)err;
+  const Plan p = make_plan(n, n_rows, fit);
+  if (ip[2] < p.scratch_words) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  float4* part = (float4*)scratch;
+  int* done = (int*)scratch + 4 * p.ranges * n;
+  if (p.ranges > 1 &&
+      (err = cudaMemsetAsync(done, 0, p.blocks * sizeof(int), s)) !=
+          cudaSuccess)
+    return (int)err;
+  const dim3 grid((unsigned)p.blocks, (unsigned)p.ranges);
+  closest_tri_kernel<<<grid, kBlock, 0, s>>>(
       (const float*)org, (const float*)dir, (const float4*)table, (float*)t,
-      (int*)tri, (float*)u, (float*)v, n, n_rows, fp[0]);
+      (int*)tri, (float*)u, (float*)v, part, done, n, n_rows,
+      (int)p.range_rows, fp[0]);
   return (int)cudaGetLastError();
 }

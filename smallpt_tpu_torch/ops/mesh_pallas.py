@@ -77,14 +77,39 @@ def build_tri_table(scene: MeshScene, device=None) -> torch.Tensor:
 
 
 def _kernel_lib():
-    """The entry point of the K6 library (built at first use)."""
+    """The entry points of the K6 library (built at first use): the launch
+    and its plan."""
     from smallpt_tpu_torch.utils.nvcc import load_library
 
-    fn = load_library(*LIBRARY).smallpt_closest_tri
+    lib = load_library(*LIBRARY)
+    fn, plan = lib.smallpt_closest_tri, lib.smallpt_closest_tri_plan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10
+        fn.argtypes = [ctypes.c_void_p] * 11
         fn.restype = ctypes.c_int
-    return fn
+        plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        plan.restype = ctypes.c_int
+    return fn, plan
+
+
+# the fields of K6's plan, as csrc/closest_tri.cu's smallpt_closest_tri_plan
+# writes them
+PLAN_FIELDS = ("blocks", "ranges", "range_rows", "fill", "n_sm", "per_sm",
+               "scratch_words")
+
+
+def closest_tri_plan(n: int, n_rows: int, device=None) -> dict:
+    """The cut K6 makes of a launch of n rays over n_rows rows on a CUDA
+    device (None: the current one), as its launcher makes it: the ray
+    blocks, the ranges of rows each is cut into and their rows, the fill
+    (the blocks the card holds at once: its SMs times the kernel's
+    occupancy) and the int32 words of scratch the launch takes."""
+    _, plan = _kernel_lib()
+    out = np.zeros(len(PLAN_FIELDS), np.int64)
+    with torch.cuda.device(device):
+        err = plan(int(n), int(n_rows), out.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"closest_tri_plan: CUDA error {err}")
+    return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
 
 
 def closest_tri(org: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
@@ -99,26 +124,32 @@ def closest_tri(org: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
     JAX kernel returns them.
 
     A CUDA tensor launches csrc/closest_tri.cu (and counts the launch in
-    ``closest_tri.launches``); a CPU tensor runs ``closest_tri_plain``."""
+    ``closest_tri.launches``), on scratch of its plan's size
+    (``closest_tri_plan``); a CPU tensor runs ``closest_tri_plain``."""
     n = _check_rays(org, dirs, table, 16)
     n_rows = table.shape[0] if n_rows is None else n_rows
     if not 0 <= n_rows <= table.shape[0]:
         raise ValueError(f"n_rows={n_rows} for a {table.shape[0]}-row table")
     if table.device.type == "cpu":
         return closest_tri_plain(org, dirs, table, n_rows, eps)
-    fn = _kernel_lib()
+    fn, _ = _kernel_lib()
     dev = table.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
     v = torch.empty((n,), dtype=torch.float32, device=dev)
-    ints = np.array([n, n_rows], np.int32)
+    words = closest_tri_plan(n, n_rows, dev)["scratch_words"]
+    # the partials and counters of a cut launch, written before they are
+    # read
+    scratch = torch.empty((max(1, words),), dtype=torch.int32, device=dev)
+    ints = np.array([n, n_rows, words], np.int32)
     floats = np.array([eps], np.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(org.data_ptr(), dirs.data_ptr(), table.data_ptr(),
                  t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-                 ints.ctypes.data, floats.ctypes.data, stream)
+                 scratch.data_ptr(), ints.ctypes.data, floats.ctypes.data,
+                 stream)
     if err != 0:
         raise RuntimeError(f"closest_tri launch failed: CUDA error {err}")
     closest_tri.launches += 1

@@ -123,6 +123,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     dfn = types.SimpleNamespace(argtypes=None, restype=None)
     hfn = types.SimpleNamespace(argtypes=None, restype=None)
     tfn = types.SimpleNamespace(argtypes=None, restype=None)
+    tpfn = types.SimpleNamespace(argtypes=None, restype=None)
     cfn = types.SimpleNamespace(argtypes=None, restype=None)
     bfn = types.SimpleNamespace(argtypes=None, restype=None)
     bwfn = types.SimpleNamespace(argtypes=None, restype=None)
@@ -134,6 +135,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
                             smallpt_stream_step=sfn,
                             smallpt_stream_dda=dfn, smallpt_closest_hit=hfn,
                             smallpt_closest_tri=tfn,
+                            smallpt_closest_tri_plan=tpfn,
                             smallpt_closest_tri_culled=cfn,
                             smallpt_stream_binned=bfn,
                             smallpt_stream_binned_scratch_words=bwfn,
@@ -154,9 +156,11 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert ip._kernel_lib() is hfn
     assert hfn.argtypes == [ctypes.c_void_p] * 7
     assert hfn.restype is ctypes.c_int
-    assert mp._kernel_lib() is tfn
-    assert tfn.argtypes == [ctypes.c_void_p] * 10
+    assert mp._kernel_lib() == (tfn, tpfn)
+    assert tfn.argtypes == [ctypes.c_void_p] * 11
     assert tfn.restype is ctypes.c_int
+    assert tpfn.argtypes == [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    assert tpfn.restype is ctypes.c_int
     assert mp._culled_lib() is cfn
     assert cfn.argtypes == [ctypes.c_void_p] * 13
     assert cfn.restype is ctypes.c_int

@@ -252,6 +252,18 @@ def cuda_ms(fn, reps: int, setup=None, skip_first: bool = False):
     return float(np.mean(times[1:] if skip_first else times)), out
 
 
+# cycles the card spins before a launch timed alone (about 1 ms), longer
+# than the host takes to enqueue the launch, so that its events time the
+# launch and not the host's enqueueing of it
+HOLD_CYCLES = 2_000_000
+
+
+def hold_card() -> None:
+    import torch
+
+    torch.cuda._sleep(HOLD_CYCLES)
+
+
 def rays_close(name: str, nk: int, np_: int) -> None:
     if abs(nk - np_) > max(64, 0.001 * np_):
         raise AssertionError(f"{name}: ray counts differ: {nk} vs {np_}")
@@ -1032,15 +1044,27 @@ def k3_hd(dev) -> dict:
 
 # float ops of one (ray, row) test of the closest-hit kernels, counted from
 # csrc/lane.cuh and csrc/tri.cuh (a square root or a division counts as
-# one op): K2's stable form (sphere_tt) 37 and the fold's compare 1; its
-# direct quadratic (sphere_tt_fast) 25 and the compare; the whole triangle
-# test (iq's formulation, the bounds and the fold, tri_candidate) 49, as
-# K7 and K6 run it on every pair they sweep; a skipped row (radius 0, or a
-# padding triangle) its one compare.
+# one op): the whole stable form (sphere_tt) 37 and the fold's compare 1;
+# the whole direct quadratic (sphere_tt_fast) 25 and the compare; the whole
+# triangle test (iq's formulation, the bounds and the fold, tri_candidate)
+# 49, as K7 and K6 run it on every pair they sweep; a skipped row (radius
+# 0, or a padding triangle) its one compare. K4 and K5 are priced at these,
+# K2 at the OPS_K2_* counts of its early-miss tests below.
 OPS_K2_STABLE = 38
 OPS_K2_FAST = 26
 OPS_K6_ROW = 49
 OPS_ROW_SKIP = 1
+# K2's bound prices each pair at what its early-miss tests
+# (csrc/closest_hit.cu: stable_tt, direct_tt, on the live rows it stages)
+# spend up to their decision: the stable form to det (23) and det >= 0
+# (24) for a miss, which skips the fold; the rest of the test (2 for s, 3
+# for |op|, 3 for cc, denom, its sign, the division, the two root tests)
+# and the fold's compare for a det >= 0 pair (38); the direct quadratic to
+# det with r * r staged once a row (16) and the compare (17) for a miss;
+# s, the two roots, their tests and the fold (24) for a det >= 0 pair. A
+# row left out as the table is staged (r not > 0) costs no op a pair.
+OPS_K2_STABLE_MISS, OPS_K2_STABLE_HIT = 24, 38
+OPS_K2_DIRECT_MISS, OPS_K2_DIRECT_HIT = 17, 24
 # K6's bound prices each pair at the ops a test that decides it on dn and
 # t first needs (tests/test_torch_tri_split.py emulates one): rov0 (3), dn
 # (5) and dn == 0 (1): 9 where dn is 0; then 1 / dn, t (7) and eps < t <
@@ -1052,19 +1076,148 @@ OPS_ROW_SKIP = 1
 OPS_K6_DN, OPS_K6_T, OPS_K6_FULL = 9, 19, 46
 
 
-def k2_bound(table, n_a: int, n_b: int, n_rays: int) -> dict:
-    """The least time of one K2 launch over n_rays rays: its operations
-    (every live row of part A in the stable form, of part B in the direct
-    quadratic, a compare per skipped row) at the float rate, and its bytes
-    (24 B of ray in and 8 B out a ray, the table's rows once) at the
-    memory rate."""
-    r = table[:n_a + n_b, 3].cpu()
-    live_a, live_b = int((r[:n_a] > 0).sum()), int((r[n_a:] > 0).sum())
-    dead = n_a + n_b - live_a - live_b
-    ops = n_rays * (OPS_K2_STABLE * live_a + OPS_K2_FAST * live_b
-                    + OPS_ROW_SKIP * dead)
+def k2_pairs(org, dirs, table, n_a: int, n_b: int) -> dict:
+    """The (ray, row) pairs of one K2 launch by where its early-miss tests
+    decide them, counted by a plain sweep of the launch's own rays ((3, N)
+    planes) over the live rows (r > 0) of [0, n_a + n_b), each in its form
+    and op for op as far as det: "stable_miss", "stable_hit" (det >= 0 in
+    the stable form), "direct_miss", "direct_hit"; "warp_rows" and
+    "warp_rows_tail", the (32 consecutive rays, row) pairs and those where
+    some ray goes on past det (a kernel warp's rays of one slot of its
+    threads); "live_a", "live_b" and "left_out", the rows the kernel
+    stages in each part and leaves out."""
+    import torch
+
+    rows = table[:n_a + n_b]
+    live = torch.nonzero(rows[:, 3] > 0.0)[:, 0]
+    n = org.shape[1]
+    lane = [x[:, None] for x in (*org, *dirs)]
+    ox, oy, oz, dx, dy, dz = lane
+    pad = (-n) % 32
+    out = dict(stable_miss=0, stable_hit=0, direct_miss=0, direct_hit=0,
+               warp_rows=0, warp_rows_tail=0,
+               live_a=int((live < n_a).sum()), live_b=int((live >= n_a).sum()),
+               left_out=n_a + n_b - live.numel())
+    per = max(1, (1 << 24) // max(n, 1))
+    for form, ids in (("stable", live[live < n_a]),
+                      ("direct", live[live >= n_a])):
+        for lo in range(0, ids.numel(), per):
+            c = rows.index_select(0, ids[lo:lo + per])
+            cx, cy, cz, r = (c[:, k][None, :] for k in range(4))
+            opx = cx - ox
+            opy = cy - oy
+            opz = cz - oz
+            b = opx * dx + opy * dy + opz * dz
+            if form == "stable":
+                fx = opx - b * dx
+                fy = opy - b * dy
+                fz = opz - b * dz
+                sp = torch.sqrt(fx * fx + fy * fy + fz * fz)
+                det = (r - sp) * (r + sp)
+            else:
+                det = b * b - (opx * opx + opy * opy + opz * opz) + r * r
+            go = det >= 0.0
+            hits = int(go.sum())
+            out[f"{form}_hit"] += hits
+            out[f"{form}_miss"] += go.numel() - hits
+            if pad:
+                go = torch.cat([go, go.new_zeros((pad, go.shape[1]))])
+            warp = go.view(-1, 32, go.shape[1]).any(dim=1)
+            out["warp_rows"] += warp.numel()
+            out["warp_rows_tail"] += int(warp.sum())
+    return out
+
+
+def k2_plan(org, dirs, table, n_a: int, n_b: int, forced: int = 0) -> dict:
+    """The plan K2's launcher makes of a launch on these arguments
+    (csrc/closest_hit.cu::smallpt_closest_hit_plan, on the card; forced >
+    0: with its rows forced into that many ranges), with its scratch in
+    MB."""
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    n, rows = org.shape[1], n_a + n_b
+    plan = (ip.read_plan(ip._kernel_lib()[1], table.device, n, rows, forced)
+            if forced else ip.closest_hit_plan(n, rows, table.device))
+    return dict(plan, scratch_mb=plan["scratch_words"] * 4 / 1e6)
+
+
+# K4's grids of a scene, built once a (scene, occ_target) for k2_walk
+_WALK_GRIDS: dict = {}
+
+
+def k2_walk(org, dirs, scene) -> dict | None:
+    """The ops a grid walk spends on the same rays ((3, N) planes) over the
+    same spheres: K4's walk (ops/dda.py), whose plain version counts its
+    work, on the scene's grid at each of DDA_OCC (k_max 128), the least of
+    them. Each sphere test is priced at its early miss's ops, the least a
+    test costs (OPS_K2_STABLE_MISS a part-A row, OPS_K2_DIRECT_MISS a
+    tested slot or overflow row), each cell at OPS_PER_STEP and each ray's
+    clip at OPS_PER_INIT. None where the scene takes no grid (no small
+    sphere)."""
+    from smallpt_tpu_torch.ops import dda
+
+    best = None
+    for occ in DDA_OCC:
+        key = (id(scene), occ, str(org.device))
+        if key not in _WALK_GRIDS:
+            try:
+                grid = dda.build_dda_grid(scene, occ_target=occ, k_max=128,
+                                          device=org.device)
+            except ValueError:
+                return None
+            _WALK_GRIDS[key] = (scene, grid)
+        cnt = {}
+        dda.closest_hit_dda_plain(org, dirs, _WALK_GRIDS[key][1], counts=cnt)
+        ops = (cnt["part_a_tests"] * OPS_K2_STABLE_MISS
+               + (cnt["overflow_tests"] + cnt["slot_tests"])
+               * OPS_K2_DIRECT_MISS
+               + cnt["walk_steps"] * OPS_PER_STEP
+               + org.shape[1] * OPS_PER_INIT)
+        if best is None or ops < best["ops"]:
+            best = dict(ops=ops, occ=occ, counts=cnt)
+    return best
+
+
+def k2_bound(org, dirs, table, n_a: int, n_b: int, scene=None) -> dict:
+    """The least time of one K2 launch on closest_hit's arguments: 24 B of
+    ray in and 8 B out a ray and the table's 32-B rows once, at the memory
+    rate, or the float work the function needs, whichever is longer. That
+    work is the lesser of two algorithms' counts:
+    - this kernel's staged sweep (``bound_ms_staged_sweep``): each (ray,
+      live row) pair at the ops the early-miss tests spend up to their
+      decision (k2_pairs: OPS_K2_STABLE_MISS / _HIT, OPS_K2_DIRECT_MISS /
+      _HIT; none for a row left out);
+    - a grid walk over the scene's spheres (k2_walk: ``bound_ms_grid_walk``),
+      counted where the sweep's ops outlast the bytes and scene (the
+      scene the table was built from) is given: on a few spheres the
+      sweep is no more work than a walk, and the bytes bound it anyway.
+    ``bound_algorithm`` names the one taken. Beside them, the bound of the
+    whole test on every row, as K2 was held to before its early miss
+    (``bound_ms_every_pair_full``): OPS_K2_STABLE a live part-A row,
+    OPS_K2_FAST a live part-B row, a compare a dead row, for every ray."""
+    n_rays = org.shape[1]
+    pairs = k2_pairs(org, dirs, table, n_a, n_b)
+    ops = (OPS_K2_STABLE_MISS * pairs["stable_miss"]
+           + OPS_K2_STABLE_HIT * pairs["stable_hit"]
+           + OPS_K2_DIRECT_MISS * pairs["direct_miss"]
+           + OPS_K2_DIRECT_HIT * pairs["direct_hit"])
     nbytes = n_rays * (24 + 8) + (n_a + n_b) * 32
-    return _bound(ops, nbytes, live_a=live_a, live_b=live_b, dead=dead)
+    full = _bound(n_rays * (OPS_K2_STABLE * pairs["live_a"]
+                            + OPS_K2_FAST * pairs["live_b"]
+                            + OPS_ROW_SKIP * pairs["left_out"]), nbytes)
+    sweep = _bound(ops, nbytes)
+    info = dict(pairs=pairs, bound_ms_staged_sweep=sweep["bound_ms"],
+                bound_ms_every_pair_full=full["bound_ms"],
+                bound_by_every_pair_full=full["bound_by"])
+    algorithm = "staged sweep"
+    if scene is not None and sweep["bound_ops_ms"] > sweep["bound_bytes_ms"]:
+        walk = k2_walk(org, dirs, scene)
+        if walk is not None:
+            info.update(walk=walk, bound_ms_grid_walk=_bound(
+                walk["ops"], nbytes)["bound_ms"])
+            if walk["ops"] < ops:
+                ops, algorithm = walk["ops"], "grid walk"
+    return _bound(ops, nbytes, bound_algorithm=algorithm, **info)
 
 
 def k6_pairs(org, dirs, table, n_rows=None, eps: float = 0.0) -> dict:
@@ -1228,13 +1381,14 @@ def exact(name, got, want) -> dict:
 
 def k2_vs_plain(name, scene, org, dirs, dev) -> dict:
     """K2 against closest_hit_plain on the same rays ((N, 3) each): t and
-    slot bit-equal."""
+    slot bit-equal; with the plan the launcher made (and its scratch)."""
     from smallpt_tpu_torch.ops import intersect_pallas as ip
 
     table, _, nbc, nsc = ip.build_sphere_table(scene, device=dev)
     o, d = org.T.contiguous(), dirs.T.contiguous()
     args = (o, d, table, 64 * nbc, 64 * nsc)
-    return exact(name, ip.closest_hit(*args), ip.closest_hit_plain(*args))
+    return dict(exact(name, ip.closest_hit(*args),
+                      ip.closest_hit_plain(*args)), plan=k2_plan(*args))
 
 
 def k6_vs_plain(name, scene, org, dirs, dev) -> dict:
@@ -1263,6 +1417,7 @@ def closest_hit_phases(dev) -> dict:
         cornell_box_scene, procedural_sphere_scene, scene_to,
     )
     from smallpt_tpu_torch.engine.renderer import make_intersect_fn
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
 
     leg = dict(camera_model=CameraModel.LEGACY, filter=Filter.TENT)
     key = rng.fold_in(rng.base_key(0), 1000)
@@ -1288,6 +1443,152 @@ def closest_hit_phases(dev) -> dict:
     if miss["hit_share"] != 0.0:
         raise AssertionError("all-miss rays hit")
     out["cornell_all_miss_77"] = miss
+    out["ptxas"] = ptxas_entry(ip.LIBRARY[0])
+    return out
+
+
+def k2_edge_launch(table, n_a: int, n_b: int):
+    """A launch of edge cases (tests/test_torch_hit_split.py's, on the
+    card) over a copy of a sphere table of n_a part-A and n_b part-B rows.
+    Rows n_a + 1 to n_a + 4 (part B) become a unit sphere at P = (-512,
+    -512, -512), away from the scene, a radius-5 sphere through P, a
+    sphere of NaN eps and one of infinite radius; rows 2 and 3 (part A) a
+    1e5 sphere whose top is 1 below P and one of infinite radius; 60 other
+    live rows get a NaN or a zero radius. Rays (P, a power of two, keeps
+    them exact): two along x tangent to the unit sphere (det exactly 0),
+    the one at y = -1 also to the 1e5 sphere, at the same t; rays from
+    inside the unit sphere and the 1e5 sphere; the test's origins (on and
+    inside the spheres, NaN and inf) in its directions (NaN among them);
+    inf directions. Returns (org, dirs, table): (3, N) planes and the
+    table."""
+    import torch
+
+    p = np.float32([-512.0, -512.0, -512.0])
+    tab = table.clone()
+    rng_ = np.random.default_rng(16)
+    rows = [(n_a + 1, (0, 0, 0), 1.0, 1e-4), (n_a + 2, (3, 4, 0), 5.0, 1e-4),
+            (n_a + 3, (0, 0, 10), 2.0, float("nan")),
+            (n_a + 4, (0, 0, 0), float("inf"), 1e-4),
+            (2, (0, -1e5 - 1, 0), 1e5, 0.05), (3, (0, 0, 0), float("inf"),
+                                                1e-4)]
+    for k, c, r, eps in rows:
+        tab[k, :3] = torch.from_numpy(p + np.float32(c))
+        tab[k, 3], tab[k, 4] = r, eps
+    live = torch.nonzero(tab[:n_a + n_b, 3] > 0)[:, 0].cpu().numpy()
+    dead = rng_.choice(live[~np.isin(live, [k for k, *_ in rows])], 60,
+                       replace=False)
+    tab[torch.from_numpy(dead[:30]).to(tab.device), 3] = float("nan")
+    tab[torch.from_numpy(dead[30:]).to(tab.device), 3] = 0.0
+    o = [(-5, 1, 0), (-5, 0, 0), (0, 0, 0), (1, 0, 0), (0.5, 0, 0),
+         (np.nan, 0, 0), (np.inf, 0, 0), (-5, 1e-20, 0), (0, 0, -1e5)]
+    d = [(1, 0, 0), (0, 1, 0), (-1, 0, 0), (0, 0, 1), (np.nan, 0, 0),
+         (0.6, 0.8, 0)]
+    org = [p + np.float32(a) for a in o for _ in d]
+    dirs = [np.float32(b) for _ in o for b in d]
+    # tangent to the unit sphere (op = (5, -y, 0), b = 5, det = 25 - 26 +
+    # 1); at y = -1 also to the 1e5 sphere's top, at the same t = 5
+    for y in (1, -1):
+        org.append(p + np.float32([-5, y, 0]))
+        dirs.append(np.float32([1, 0, 0]))
+    inside = rng_.uniform(-0.5, 0.5, (64, 3)).astype(np.float32)
+    below = rng_.uniform((-50, -60, -50), (50, -2, 50), (64, 3))
+    unit = rng_.normal(size=(192, 3))
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    org += list(p + inside) + list(p + below.astype(np.float32))
+    org += [p + np.float32([-5, 0, 0])] * 64
+    dirs += list(unit.astype(np.float32))
+    dirs[-64::8] = [np.float32([np.inf, 0, 0])] * 8
+    dirs[-63::8] = [np.float32([0, -np.inf, 0])] * 8
+    with np.errstate(all="ignore"):
+        o_t = torch.from_numpy(np.stack(org).T.copy()).to(tab.device)
+        d_t = torch.from_numpy(np.stack(dirs).T.copy()).to(tab.device)
+    return o_t.contiguous(), d_t.contiguous(), tab
+
+
+def k2_constructed_launches(dev) -> dict:
+    """K2 against its plain version (t and slot bit-equal) on launches built
+    to reach the edges of its plan and of its tests, each under the plan
+    its launcher makes and under forced cuts of its rows (1 range, 3, 7 and
+    one a 256-row chunk; ``intersect_pallas._launch``, uncounted), with the
+    plan, its scratch, the time (``hold_card`` before each call) and, on
+    the scene's own table, the bounds:
+    - 77 camera rays of procedural_sphere_scene(10000) over its 10,176
+      rows: one ray block, which the plan cuts the deepest;
+    - 3,072 rays from outside the scene pointing away: every pair a miss,
+      every range's partial (3e38, 0);
+    - the 16,384 first-bounce rays of the scene at 128x128;
+    - the scene's part B twice over (the copy after the original, as more
+      part-B rows) on the 16,384 camera rays: every part-B hit ties with
+      its copy in a later range, and the original must win;
+    - k2_edge_launch over the scene's table: tangent rays (det 0), origins
+      inside spheres, NaN and inf rays, NaN and zero radii among the live
+      rows, an infinite radius and a NaN eps."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import (
+        procedural_sphere_scene, scene_to,
+    )
+    from smallpt_tpu_torch.engine.renderer import make_intersect_fn
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    scene = procedural_sphere_scene(10000)
+    cfg = RenderConfig(width=128, height=128, camera_model=CameraModel.LEGACY,
+                       filter=Filter.TENT)
+    ds = scene_to(scene, dev)
+    (co, cd), (bo, bd) = camera_and_bounce_rays(
+        ds, cfg, smallpt_camera(), rng.fold_in(rng.base_key(0), 1003),
+        make_intersect_fn(ds, cfg), dev)
+    table, _, nbc, nsc = ip.build_sphere_table(scene, device=dev)
+    n_a, n_b = 64 * nbc, 64 * nsc
+    dup = torch.cat([table[:n_a + n_b], table[n_a:n_a + n_b]])
+    g = torch.Generator().manual_seed(16)
+    away = torch.nn.functional.normalize(torch.randn((3072, 3), generator=g),
+                                         dim=1)
+    away[:, 2] = away[:, 2].abs() + 1.0
+    away = torch.nn.functional.normalize(away, dim=1)
+    far = torch.tensor([[50.0, 40.0, 1e6]]).expand(3072, 3)
+    eo, ed, etab = k2_edge_launch(table, n_a, n_b)
+    chunks = -(-(n_a + n_b) // 256)
+    out = {}
+    for name, o, d, tab, nb in (
+            ("rays77_all_rows", co[:77].T, cd[:77].T, table, n_b),
+            ("all_miss_3072", far.to(dev).T, away.to(dev).T, table, n_b),
+            ("bounce_16384", bo.T, bd.T, table, n_b),
+            ("duplicate_part_b_camera", co.T, cd.T, dup, 2 * n_b),
+            ("edges", eo, ed, etab, n_b)):
+        args = (o.contiguous(), d.contiguous(), tab, n_a, nb)
+        want = ip.closest_hit_plain(*args)
+        hit = want[0] < 3e38
+        if name.startswith("all_miss") and bool(hit.any()):
+            raise AssertionError(f"{name}: {int(hit.sum())} rays hit")
+        if name.startswith("duplicate") and (
+                not bool(hit.any())
+                or bool((want[1][hit] >= n_a + n_b).any())):
+            raise AssertionError(f"{name}: a copy won a tie")
+        if name == "edges" and not bool(
+                torch.isin(want[1][hit], torch.tensor(
+                    [2, n_a + 1, n_a + 2], device=dev,
+                    dtype=torch.int32)).any()):
+            raise AssertionError(f"{name}: no edge sphere won")
+        cuts = {}
+        for forced in (0, 1, 3, 7, chunks):
+            def launch():
+                return (ip.closest_hit(*args) if forced == 0
+                        else ip._launch(*args, forced))
+            st = exact(f"{name} forced={forced}", launch(), want)
+            ms, _ = cuda_ms(launch, 3, setup=hold_card)
+            cuts["own_plan" if forced == 0 else f"forced_{forced}"] = dict(
+                st, kernel_ms=ms, plan=k2_plan(*args, forced=forced))
+        if len({c["plan"]["ranges"] for c in cuts.values()}) < 4:
+            raise AssertionError(f"{name}: cuts {cuts}")
+        out[name] = dict(cuts, **(k2_bound(*args, scene=ds) if tab is table
+                                  else {}))
+    if out["rays77_all_rows"]["own_plan"]["plan"]["ranges"] < 2:
+        raise AssertionError(f"77 rays: plan {out['rays77_all_rows']}")
+    out["ptxas"] = ptxas_entry(ip.LIBRARY[0])
     return out
 
 
@@ -1552,12 +1853,15 @@ def compare_images(name, img, rays, ref, ref_rays,
     return st
 
 
-def launches_vs_plain(name, kernel: str, fn, per_run: float) -> dict:
+def launches_vs_plain(name, kernel: str, fn, per_run: float,
+                      scene=None) -> dict:
     """The inputs of the first launch of the closest-hit kernel ``kernel``
     in a run of fn() and of one in its middle (per_run: the launches a run
     makes), captured from a further run: on each, the kernel against its
-    plain version (bit-equal), its CUDA-event time, the plain version's
-    host time and the launch's bound ("first", "middle")."""
+    plain version (bit-equal), its CUDA-event time (the card held busy
+    before each call: ``hold_card``), the plain version's host time and the
+    launch's bound ("first", "middle"; K2's with the sphere scene the run
+    renders, ``k2_bound``)."""
     import torch
 
     from smallpt_tpu_torch.ops import intersect_pallas as ip
@@ -1569,7 +1873,8 @@ def launches_vs_plain(name, kernel: str, fn, per_run: float) -> dict:
     for k, call in zip(("first", "middle"), kept):
         args, kw = call["a"], call["k"]
         n = args[2] if kernel == "closest_tri_culled" else args[0].shape[1]
-        k_ms, got = cuda_ms(lambda: getattr(mod, kernel)(*args, **kw), 5)
+        k_ms, got = cuda_ms(lambda: getattr(mod, kernel)(*args, **kw), 5,
+                            setup=hold_card)
         torch.cuda.synchronize()
         t = time.perf_counter()
         if kernel == "closest_tri_culled":
@@ -1581,12 +1886,13 @@ def launches_vs_plain(name, kernel: str, fn, per_run: float) -> dict:
             want = ip.closest_hit_plain(*args, **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t) * 1e3
-        bound = (k2_bound(args[2], args[3], args[4], n)
+        bound = (k2_bound(*args, **kw, scene=scene)
                  if kernel == "closest_hit" else k6_bound(*args, **kw)
                  if kernel == "closest_tri" else k7_bound(args, work))
-        if kernel == "closest_tri":
-            # the cut K6's launcher made of this launch, and its scratch
-            bound["plan"] = k6_plan(*args, **kw)
+        if kernel in ("closest_hit", "closest_tri"):
+            # the cut the launcher made of this launch, and its scratch
+            bound["plan"] = (k2_plan if kernel == "closest_hit"
+                             else k6_plan)(*args, **kw)
         launches[k] = dict(rays=n, kernel_ms=k_ms, plain_ms=plain_ms,
                            vs_plain=exact(name, got, want), **bound)
     return launches
@@ -1625,7 +1931,7 @@ def wavefront_path(name, scene, camera, cfg, dev, kernel: str,
         raise AssertionError(f"{name}: image not finite {img.shape}")
     per_pass = launched[kernel] / n_passes
     peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the path's own
-    launches = launches_vs_plain(name, kernel, r.step, per_pass)
+    launches = launches_vs_plain(name, kernel, r.step, per_pass, scene)
     ms = float(np.mean(pass_ms))
     kernel_ms = float(np.mean([v["kernel_ms"] for v in launches.values()]))
     return dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
@@ -2199,9 +2505,6 @@ def cli_mesh_phases(dev) -> dict:
 # misses (det < 0 or NaN, or a radius that is not positive) OPS_K8_MISS up
 # to that decision (the offset 3, b 5, the perpendicular 6, its square 5, a
 # square root, det 3, the two compares 2), any other OPS_PER_SPHERE.
-# cycles the card spins before a timed K8 launch (about 1 ms), longer than
-# the host takes to enqueue the launch
-K8_HOLD_CYCLES = 2_000_000
 OPS_K8_LANE = 30 + OPS_PER_BOUNCE
 OPS_K8_RESOLVE = 60
 OPS_K8_MISS = 25
@@ -2421,13 +2724,12 @@ def k8_vs_plain(name, cap, time_it: bool = False) -> dict:
         f, i = f0.clone(), i0.clone()
         a = list(args)
         a[3], a[4] = f, i
-        # the card is held busy (K8_HOLD_CYCLES) before each timed launch,
-        # so that the events time K8's kernels and not the host's enqueueing
-        # of them: a drain's last launches take less time on the card than
-        # the wrapper on the host
+        # the card is held busy (hold_card) before each timed launch: a
+        # drain's last launches take less time on the card than the
+        # wrapper on the host
         k_ms, _ = cuda_ms(lambda: mk.stream_step_binned(*a, **kw)[2], 6,
                           setup=lambda: (f.copy_(f0), i.copy_(i0),
-                                         torch.cuda._sleep(K8_HOLD_CYCLES)),
+                                         hold_card()),
                           skip_first=True)
         out.update(kernel_ms=k_ms, **k8_bound((f0, i0), args, kw))
     return out
@@ -3806,8 +4108,8 @@ def dda_main(dev) -> dict:
             lambda: ip.closest_hit(ot, dt, table, 64 * nbc, 64 * nsc), 6,
             skip_first=True)
         k2[n] = dict(ms=ms, t=t2, id=perm.index_select(0, slot.long()),
-                     bound_ms=k2_bound(table, 64 * nbc, 64 * nsc,
-                                       DDA_RAYS)["bound_ms"])
+                     bound_ms=k2_bound(ot, dt, table, 64 * nbc, 64 * nsc,
+                                       scene=dscene)["bound_ms"])
     out = dict(rays=DDA_RAYS, launches=launches, main_path_s=main_s,
                grids={int(occ): dict(nb=list(g.nb), cells=g.n_cells, k=g.k,
                                      n_local=g.n_local,
@@ -4011,8 +4313,8 @@ def mxu_main(dev) -> dict:
     stable, mxu, _, nbc5, nsc5, _, _ = tables
     st.update(k5_bound(stable, mxu, 64 * nbc5, 64 * nsc5, MXU_RAYS))
     st.update(kernel_ms=ms, k2_ms_same_rays=k2_ms,
-              k2_bound_ms=k2_bound(table, 64 * nbc, 64 * nsc,
-                                   MXU_RAYS)["bound_ms"],
+              k2_bound_ms=k2_bound(ot, dt, table, 64 * nbc, 64 * nsc,
+                                   scene=dscene)["bound_ms"],
               vs_k2=mxu_gates("procedural10000", h_k2, h),
               mrays_per_s=MXU_RAYS / ms / 1e3)
     return dict(st, rays=MXU_RAYS, launches=launches, main_path_s=main_s,
@@ -4949,6 +5251,8 @@ def main() -> int:
     # goldens and the AOV modes through the wavefront routes -----------------
     k2_stats = closest_hit_phases(dev)
     phase("closest_hit_vs_plain", **k2_stats)
+    k2_built = k2_constructed_launches(dev)
+    phase("k2_constructed_launches", **k2_built)
     k6_stats = closest_tri_phases(dev)
     phase("closest_tri_vs_plain", **k6_stats)
     k6_built = k6_constructed_launches(dev)
@@ -5057,7 +5361,8 @@ def main() -> int:
 
     def wf_kernel(name, path, entry, replaces, cmp_stats):
         launch = path["kernel"]["middle"]
-        errs = [st["max_abs_err"] for st in cmp_stats.values()]
+        errs = [st["max_abs_err"] for st in cmp_stats.values()
+                if isinstance(st, dict)]
         errs += [v["vs_plain"]["max_abs_err"] for v in path["kernel"].values()]
         return {
             "name": name, "route": "cuda", "source": entry,
@@ -5243,10 +5548,29 @@ def main() -> int:
             for k, v in g["kernel"].items()}
         k2["max_abs_err"] = max([k2["max_abs_err"]] + [
             v["vs_plain"]["max_abs_err"] for v in g["kernel"].values()])
-    wf_kernels[0]["ms_procedural10000"] = wf[
-        "regen_main_procedural10000_512x384"]["kernel"]["middle"]["kernel_ms"]
-    wf_kernels[0]["bound_ms_procedural10000"] = wf[
-        "regen_main_procedural10000_512x384"]["kernel"]["middle"]["bound_ms"]
+    # K2 on every launch it was held on: the plan its launcher made (with
+    # its scratch), the time and both bounds
+    k2_keys = ("rays", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+               "bound_algorithm", "bound_ms_staged_sweep",
+               "bound_ms_grid_walk", "bound_ms_every_pair_full", "pairs",
+               "plan")
+    k2["launch_by_path"] = {
+        n: {k: {x: v[x] for x in k2_keys if x in v}
+            for k, v in wf[n]["kernel"].items()}
+        for n in wf if "mesh500" not in n}
+    k2["constructed"] = {
+        n: {c: {x: v[c][x] for x in ("kernel_ms", "plan")}
+            for c in v if c.startswith(("own", "forced"))}
+        for n, v in k2_built.items() if n != "ptxas"}
+    k2["max_abs_err"] = max([k2["max_abs_err"]] + [
+        c["max_abs_err"] for n, v in k2_built.items() if n != "ptxas"
+        for k_, c in v.items() if k_.startswith(("own", "forced"))])
+    mid = wf["regen_main_procedural10000_512x384"]["kernel"]["middle"]
+    k2["ms_procedural10000"] = mid["kernel_ms"]
+    k2["bound_ms_procedural10000"] = mid["bound_ms"]
+    k2["bound_ms_staged_sweep_procedural10000"] = mid["bound_ms_staged_sweep"]
+    k2["bound_ms_every_pair_full"] = wf["regen_main_cornell_1024x768"][
+        "kernel"]["middle"]["bound_ms_every_pair_full"]
 
     def bound(k):
         ms_ = max(k["bound_ops_ms"], k["bound_bytes_ms"])

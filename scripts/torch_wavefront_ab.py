@@ -17,10 +17,18 @@ warm-up, then three):
 - ``regen_procedural10000_512x384``: the same on 10,000 spheres, max_depth
   24 (path 2);
 - ``flat_mesh500_256x192``: FLAT + K6 on procedural_mesh_scene(500), max_depth
-  12 (path 3); K6 is bit-equal to one plain version in every tree, so the
-  image's bits (``*_bits``) must be equal across the trees;
+  12 (path 3);
 - ``flat_split8_cornell_1024x768``: FLAT + K2 with split_budget 8, as path 1
   (path 4);
+  K2 and K6 are each bit-equal to one plain version in every tree, so the
+  image's bits after the timed passes (``*_bits``) must be equal across
+  the trees on paths 1 to 4. On paths 1, 2 and 4 every K2 launch of one
+  more pass is timed alone as K8's are below (the first, middle and last,
+  the sum: ``*_k2_pass_ms``; the first launch's first 77 rays alone:
+  ``*_k2_rays77_ms``), and the first change worker sums their bounds
+  (chip_smoke.py::k2_bound with the path's scene: ``*_k2_pass_bound_ms``,
+  and with every row at the whole test,
+  ``*_k2_pass_bound_every_pair_full_ms``);
 - ``mesh_stream_mesh500_256x192``: a ``WavefrontStreamingRenderer`` round
   (reset, step(n_bounces=24, add_samples=8), flush) on path 3's scene (path
   6), its accumulators' bits likewise. On both mesh paths every K6 launch
@@ -46,7 +54,9 @@ warm-up, then three):
   also sums each launch's bound (chip_smoke.py::k8_bound, from the change
   tree) over that pass (``*_k8_pass_bound_ms``).
 
---paths keeps only the named ones (all of them by default).
+--paths keeps only the named ones (all of them by default). Beside each
+worker's readings, the card's mean SM clock and power draw over the
+worker (nvidia-smi sampled every 100 ms: ``sm_clock_mhz``, ``power_w``).
 
 It prints one JSON line a worker, then the card's name and power limit and
 a summary line: each reading's mean a tree (over its workers) and the
@@ -58,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import functools
 import json
 import os
 import subprocess
@@ -200,46 +211,75 @@ def binned(only: set, bounds: bool) -> dict:
     return out
 
 
-def _k6_pass(run, bounds: bool) -> dict:
-    """Every K6 launch of one more run(), each timed alone (``_launch_ms``:
-    K6 writes only its outputs, so nothing is restored) and, with bounds,
-    bounded (chip_smoke.py::k6_bound from the change tree: the staged
-    test's ops, and every live pair at the whole test's): the first,
-    middle and last launch's ms, their sum and the bounds' sums."""
+def _kernel_pass(run, kernel: str, bounds: bool, scene=None) -> dict:
+    """Every launch of the closest-hit kernel ``kernel`` ("k2" or "k6") in
+    one more run(), each timed alone (``_launch_ms``: the kernel writes
+    only its outputs, so nothing is restored) and, with bounds, bounded
+    (chip_smoke.py::k2_bound, with the sphere scene rendered, or k6_bound,
+    from the change tree; beside each, every pair at the whole test's):
+    the first, middle and last launch's ms, their sum and the bounds'
+    sums; for K2 also the first launch's first 77 rays alone (one ray
+    block, ``rays77_ms``). Each key is prefixed with the kernel's name."""
     import torch
 
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
     from smallpt_tpu_torch.ops import mesh_pallas as mp
 
-    k6_bound = None
+    mod, name = (ip, "closest_hit") if kernel == "k2" else (mp,
+                                                             "closest_tri")
+    bound_fn = None
     if bounds:
         import chip_smoke
 
-        k6_bound = chip_smoke.k6_bound
-    real, ms, bound, full = mp.closest_tri, [], [], []
+        bound_fn = (functools.partial(chip_smoke.k2_bound, scene=scene)
+                    if kernel == "k2" else chip_smoke.k6_bound)
+    real, ms, bound, full, first = getattr(mod, name), [], [], [], []
 
     def spy(*a, **k):
         ms.append(_launch_ms(lambda: real(*a, **k), (), ()))
-        if k6_bound is not None:
-            b = k6_bound(*a, **k)
+        if not first:
+            first.append((a, k))
+        if bound_fn is not None:
+            b = bound_fn(*a, **k)
             bound.append(b["bound_ms"])
             full.append(b["bound_ms_every_pair_full"])
         return real(*a, **k)
 
     spy.launches = real.launches
-    mp.closest_tri = spy
+    setattr(mod, name, spy)
     try:
         run()
     finally:
-        mp.closest_tri = real
+        setattr(mod, name, real)
         real.launches = spy.launches
     torch.cuda.synchronize()
-    out = {"k6_first_launch_ms": ms[0], "k6_middle_launch_ms":
-           ms[len(ms) // 2], "k6_last_launch_ms": ms[-1],
-           "k6_pass_ms": float(np.sum(ms)), "k6_pass_launches": len(ms)}
+    out = {"first_launch_ms": ms[0], "middle_launch_ms": ms[len(ms) // 2],
+           "last_launch_ms": ms[-1], "pass_ms": float(np.sum(ms)),
+           "pass_launches": len(ms)}
+    if kernel == "k2":
+        (o, d, *rest), k = first[0]
+        o, d = o[:, :77].contiguous(), d[:, :77].contiguous()
+        out["rays77_ms"] = _launch_ms(lambda: real(o, d, *rest, **k), (),
+                                      ())
     if bound:
-        out.update(k6_pass_bound_ms=float(np.sum(bound)),
-                   k6_pass_bound_every_pair_full_ms=float(np.sum(full)))
-    return out
+        out.update(pass_bound_ms=float(np.sum(bound)),
+                   pass_bound_every_pair_full_ms=float(np.sum(full)))
+    return {f"{kernel}_{k}": v for k, v in out.items()}
+
+
+def _clock_means(samples: str) -> dict:
+    """The mean SM clock (MHz) and power draw (W) of nvidia-smi's
+    "clocks.sm, power.draw" lines."""
+    rows = []
+    for line in samples.splitlines():
+        try:
+            rows.append([float(x) for x in line.split(",")])
+        except ValueError:
+            continue
+    if not rows:
+        return {}
+    mhz, watts = np.mean(np.array(rows), axis=0)
+    return {"sm_clock_mhz": float(mhz), "power_w": float(watts)}
 
 
 def _bits(*arrays) -> str:
@@ -289,10 +329,10 @@ def worker(only: set, bounds: bool) -> dict:
         r = ProgressiveRenderer(scene, cam, cfg, seed=0, device=dev)
         out[name] = _times(r.step)
         out[name + "_mean"] = float(r.image.mean())
-        if scene is mesh:
-            out[name + "_bits"] = _bits(r.image)
-            out.update({f"{name}_{k}": v
-                        for k, v in _k6_pass(r.step, bounds).items()})
+        out[name + "_bits"] = _bits(r.image)
+        kernel = "k6" if scene is mesh else "k2"
+        out.update({f"{name}_{k}": v for k, v in _kernel_pass(
+            r.step, kernel, bounds, scene).items()})
         del r
     if only and "mesh_stream_mesh500_256x192" not in only:
         return out
@@ -308,7 +348,8 @@ def worker(only: set, bounds: bool) -> dict:
     out[name] = _times(round_)
     rad, w = s.accumulators()
     out[name + "_bits"] = _bits(rad.cpu().numpy(), w.cpu().numpy())
-    out.update({f"{name}_{k}": v for k, v in _k6_pass(round_, bounds).items()})
+    out.update({f"{name}_{k}": v
+                for k, v in _kernel_pass(round_, "k6", bounds).items()})
     return out
 
 
@@ -336,18 +377,29 @@ def main() -> int:
                              * args.blocks):
         tree = os.path.abspath(getattr(args, side))
         env = dict(os.environ, PYTHONPATH=tree)
-        # the K6 and K8 launches' bounds once, in the first change worker
+        # the K2, K6 and K8 launches' bounds once, in the first change
+        # worker
         extra = ["--bounds"] if n == 1 else []
-        res = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), args.parent,
-             args.change, "--worker", "--paths", args.paths, *extra],
-            env=env, capture_output=True, text=True, timeout=1800,
-            cwd=tree)
+        # the card's SM clock and power draw over the worker
+        smi_log = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True)
+        try:
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), args.parent,
+                 args.change, "--worker", "--paths", args.paths, *extra],
+                env=env, capture_output=True, text=True, timeout=1800,
+                cwd=tree)
+        finally:
+            smi_log.terminate()
+            samples, _ = smi_log.communicate(timeout=60)
         if res.returncode:
             print(res.stdout, res.stderr, file=sys.stderr)
             return res.returncode
         run = json.loads(res.stdout.strip().splitlines()[-1])
         run["side"] = side
+        run.update(_clock_means(samples))
         runs.append(run)
         print(json.dumps(run), flush=True)
     smi = subprocess.run(

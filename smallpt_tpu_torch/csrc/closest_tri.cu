@@ -47,14 +47,15 @@
 //   occupancy, read once a device) partly idle, the rows are cut into
 //   ranges of whole chunks, one unit (a block) a (ray block, range): the
 //   fewest ranges whose units run in full-row waves within 5% of the ideal
-//   (make_plan). Each unit folds its rows in order with the strict < from
-//   (3e38, row 0) and writes a partial (t, row, u, v) a ray; the last unit
-//   of a ray block to finish (a counter a ray block, zeroed on the stream
-//   before the launch) folds the partials in range order with the strict
-//   <: the least t and, among equal ones, the earliest range's, whose own
-//   row is its first, so the sequential fold's winner for any cut
-//   (tests/test_torch_tri_split.py). With every pair tested whole, a later
-//   range does no more work than an uncut sweep of its rows;
+//   (plan.cuh::make_plan, shared with K2). Each unit folds its rows in
+//   order with the strict < from (3e38, row 0) and writes a partial (t,
+//   row, u, v) a ray; the last unit of a ray block to finish (a counter a
+//   ray block, zeroed on the stream before the launch) folds the partials
+//   in range order with the strict <: the least t and, among equal ones,
+//   the earliest range's, whose own row is its first, so the sequential
+//   fold's winner for any cut (tests/test_torch_tri_split.py). With every
+//   pair tested whole, a later range does no more work than an uncut
+//   sweep of its rows;
 // - built with --fmad=false, so each op rounds as in the JAX kernel and in
 //   the plain version (ops/mesh_pallas.py::closest_tri_plain).
 //
@@ -63,9 +64,8 @@
 // nothing, allocates nothing (the caller hands it scratch of the plan's
 // size) and returns the first cudaGetLastError().
 
-#include <algorithm>
-
 #include "tri.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -76,7 +76,6 @@ constexpr int kRays = 2;                   // rays a thread
 constexpr int kBlockRays = kBlock * kRays;
 constexpr int kChunk = 2 * kBlock;         // table rows staged at once
 constexpr int kWarps = kBlock / 32;
-constexpr double kWaveSlack = 0.05;        // the plan's waves over ideal
 
 __global__ void __launch_bounds__(kBlock)
     closest_tri_kernel(const float* __restrict__ org,
@@ -217,72 +216,6 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-// The current device's SMs and the blocks of closest_tri_kernel each holds
-// at once, queried once a device.
-struct Fit {
-  int n_sm, per_sm;
-};
-
-inline cudaError_t device_fit(Fit* out) {
-  static Fit fits[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  Fit& fit = fits[dev & 63];
-  if (fit.n_sm == 0) {
-    int n_sm = 0, per_sm = 0;
-    if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, closest_tri_kernel, kBlock, 0)) != cudaSuccess)
-      return err;
-    fit.per_sm = std::max(1, per_sm);
-    fit.n_sm = std::max(1, n_sm);
-  }
-  *out = fit;
-  return cudaSuccess;
-}
-
-// One launch's cut: its ray blocks, the ranges of rows each is cut into
-// (range_rows rows each, whole chunks, the last ragged), the fill (the
-// blocks the card holds at once) and the int32 words of scratch the
-// ranges need (a float4 partial a (range, ray), then a counter a ray
-// block; none for one range).
-struct Plan {
-  long long blocks, ranges, range_rows, fill, n_sm, per_sm, scratch_words;
-};
-
-inline Plan make_plan(int n, int n_rows, const Fit& fit) {
-  Plan p{};
-  p.n_sm = fit.n_sm;
-  p.per_sm = fit.per_sm;
-  p.fill = (long long)fit.n_sm * fit.per_sm;
-  p.blocks = (n + kBlockRays - 1) / kBlockRays;
-  const long long chunks = (n_rows + kChunk - 1) / kChunk;
-  // the fewest ranges r whose units' full-row waves, ceil(blocks * r /
-  // fill) / r, come within kWaveSlack of the ideal blocks / fill (every
-  // slot busy to the end); the best r up to one range a chunk if none does
-  long long ranges = 1;
-  if (p.blocks > 0) {
-    const double ideal = (double)p.blocks / (double)p.fill;
-    double best = 0.0;
-    for (long long r = 1; r <= std::max(1LL, chunks); ++r) {
-      const double cost =
-          (double)((p.blocks * r + p.fill - 1) / p.fill) / (double)r;
-      if (r == 1 || cost < best) {
-        best = cost;
-        ranges = r;
-      }
-      if (cost <= ideal * (1.0 + kWaveSlack)) break;
-    }
-  }
-  const long long per = std::max(1LL, (chunks + ranges - 1) / ranges);
-  p.range_rows = per * kChunk;
-  p.ranges = std::max(1LL, (chunks + per - 1) / per);
-  p.scratch_words = p.ranges > 1 ? 4 * p.ranges * n + p.blocks : 0;
-  return p;
-}
-
 }  // namespace
 
 // The plan smallpt_closest_tri makes on the current device for n rays over
@@ -291,12 +224,9 @@ inline Plan make_plan(int n, int n_rows, const Fit& fit) {
 extern "C" int smallpt_closest_tri_plan(int n, int n_rows, void* out) {
   if (n < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
   Fit fit;
-  const cudaError_t err = device_fit(&fit);
+  const cudaError_t err = device_fit(closest_tri_kernel, kBlock, &fit);
   if (err != cudaSuccess) return (int)err;
-  const Plan p = make_plan(n, n_rows, fit);
-  const long long v[7] = {p.blocks, p.ranges, p.range_rows, p.fill,
-                          p.n_sm, p.per_sm, p.scratch_words};
-  memcpy(out, v, sizeof(v));
+  write_plan(make_plan(n, n_rows, 0, fit, kBlockRays, kChunk, 4), out);
   return 0;
 }
 
@@ -319,9 +249,9 @@ extern "C" int smallpt_closest_tri(const void* org, const void* dir,
   if (n < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   Fit fit;
-  cudaError_t err = device_fit(&fit);
+  cudaError_t err = device_fit(closest_tri_kernel, kBlock, &fit);
   if (err != cudaSuccess) return (int)err;
-  const Plan p = make_plan(n, n_rows, fit);
+  const Plan p = make_plan(n, n_rows, 0, fit, kBlockRays, kChunk, 4);
   if (ip[2] < p.scratch_words) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   float4* part = (float4*)scratch;

@@ -17,8 +17,9 @@ value). The kernel returns, per ray, the least t and the table slot that
 first attains it; ``perm`` maps the slot back to the sphere id.
 
 ``closest_hit`` launches K2 on a CUDA tensor (and counts the launch in
-``closest_hit.launches``) or raises; on a CPU tensor it runs
-``closest_hit_plain``, the same function in the kernel's op order.
+``closest_hit.launches``) or raises, on scratch of the size of the cut
+its launcher makes of the rows (``closest_hit_plan``); on a CPU tensor it
+runs ``closest_hit_plain``, the same function in the kernel's op order.
 ``intersect_spheres_pallas`` is the drop-in for ops/intersect.py's
 ``intersect_spheres`` that the wavefront schedulers call;
 ``intersect_spheres_hybrid_diff`` is its differentiable counterpart: K2
@@ -38,6 +39,7 @@ with ``_replay_winner`` in the unshifted frame.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -118,14 +120,55 @@ def _part_a(rows: np.ndarray, big: np.ndarray):
 
 
 def _kernel_lib():
-    """The entry point of the K2 library (built at first use)."""
+    """The entry points of the K2 library (built at first use): the launch
+    and its plan."""
     from smallpt_tpu_torch.utils.nvcc import load_library
 
-    fn = load_library(*LIBRARY).smallpt_closest_hit
+    lib = load_library(*LIBRARY)
+    fn, plan = lib.smallpt_closest_hit, lib.smallpt_closest_hit_plan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7
+        fn.argtypes = [ctypes.c_void_p] * 8
         fn.restype = ctypes.c_int
-    return fn
+        plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        plan.restype = ctypes.c_int
+    return fn, plan
+
+
+# the fields of K2's and K6's plans, as csrc/plan.cuh::write_plan writes
+# them
+PLAN_FIELDS = ("blocks", "ranges", "range_rows", "fill", "n_sm", "per_sm",
+               "scratch_words")
+
+
+def read_plan(plan, device, *ints) -> dict:
+    """The plan a closest-hit launcher makes (csrc/plan.cuh): its library's
+    plan entry point ``plan`` asked, on a CUDA device (None: the current
+    one), for the ints it takes; PLAN_FIELDS -> int."""
+    out = np.zeros(len(PLAN_FIELDS), np.int64)
+    with torch.cuda.device(device):
+        err = plan(*ints, out.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"{plan.__name__}: CUDA error {err}")
+    return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
+
+
+def closest_hit_plan(n: int, n_rows: int, device=None) -> dict:
+    """The cut K2 makes of a launch of n rays over n_rows table rows on a
+    CUDA device (None: the current one), as its launcher makes it: the ray
+    blocks, the ranges of rows each is cut into and their rows, the fill
+    (the blocks the card holds at once: its SMs times the kernel's
+    occupancy) and the int32 words of scratch the launch takes."""
+    device = torch.device("cuda" if device is None else device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return dict(_plan(int(n), int(n_rows), device))
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(n: int, n_rows: int, device: torch.device) -> tuple:
+    """closest_hit_plan's items, asked of the library once a shape: the
+    plan is a function of its arguments and of the device alone."""
+    return tuple(read_plan(_kernel_lib()[1], device, n, n_rows, 0).items())
 
 
 def _check_rays(org, dirs, table, width: int):
@@ -165,24 +208,46 @@ def closest_hit(org: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
     miss), exactly as the JAX kernel returns them.
 
     A CUDA tensor launches csrc/closest_hit.cu (and counts the launch in
-    ``closest_hit.launches``); a CPU tensor runs ``closest_hit_plain``."""
-    n = _check_rays(org, dirs, table, 8)
+    ``closest_hit.launches``), on scratch of its plan's size
+    (``closest_hit_plan``); a CPU tensor runs ``closest_hit_plain``."""
+    _check_rays(org, dirs, table, 8)
     if not (0 <= n_a and 0 <= n_b and n_a + n_b <= table.shape[0]):
         raise ValueError(f"n_a={n_a}, n_b={n_b} for a {table.shape[0]}-row "
                          "table")
     if table.device.type == "cpu":
         return closest_hit_plain(org, dirs, table, n_a, n_b)
-    fn = _kernel_lib()
-    t = torch.empty((n,), dtype=torch.float32, device=table.device)
-    slot = torch.empty((n,), dtype=torch.int32, device=table.device)
-    ints = np.array([n, n_a, n_b], np.int32)
-    with torch.cuda.device(table.device):
+    out = _launch(org, dirs, table, n_a, n_b)
+    closest_hit.launches += 1
+    return out
+
+
+def _launch(org, dirs, table, n_a: int, n_b: int, forced: int = 0):
+    """closest_hit's launch of K2 on checked CUDA arguments, uncounted.
+    forced > 0 cuts the rows into that many ranges in place of the plan's
+    own cut, which changes no bit of the result (chip_smoke.py checks the
+    merge so)."""
+    fn, plan = _kernel_lib()
+    dev, n = table.device, org.shape[1]
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    words = (read_plan(plan, dev, n, n_a + n_b, forced) if forced else
+             closest_hit_plan(n, n_a + n_b, dev))["scratch_words"]
+    if words >= 2 ** 31:
+        raise ValueError(f"{n} rays over {n_a + n_b} rows need {words} "
+                         "words of scratch")
+    # the partials and counters of a cut launch, written before they are
+    # read; an uncut launch takes none
+    scratch = (torch.empty((words,), dtype=torch.int32, device=dev)
+               if words else None)
+    ints = np.array([n, n_a, n_b, words, forced], np.int32)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(org.data_ptr(), dirs.data_ptr(), table.data_ptr(),
-                 t.data_ptr(), slot.data_ptr(), ints.ctypes.data, stream)
+                 t.data_ptr(), slot.data_ptr(),
+                 0 if scratch is None else scratch.data_ptr(),
+                 ints.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(f"closest_hit launch failed: CUDA error {err}")
-    closest_hit.launches += 1
     return t, slot
 
 
@@ -244,8 +309,9 @@ def closest_hit_plain(org: torch.Tensor, dirs: torch.Tensor,
     """The plain PyTorch version of K2: the same function in the kernel's
     op order (each sum written out left to right, each division tensor by
     tensor), swept over the rows in chunks so (rays x rows) never
-    materialises whole. Rows of radius 0 are skipped, as the kernel skips
-    them: they never win. Returns (t, slot) as ``closest_hit``."""
+    materialises whole. Rows whose radius is not positive are left out,
+    as the kernel leaves them out as it stages the table: they never win.
+    Returns (t, slot) as ``closest_hit``."""
     n = org.shape[1]
     lane = [v[:, None] for v in (*org, *dirs)]
     live = torch.nonzero(table[:n_a + n_b, 3] > 0.0)[:, 0]

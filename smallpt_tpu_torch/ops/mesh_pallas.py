@@ -43,7 +43,7 @@ import torch
 from smallpt_tpu_torch.core.scene import MeshScene
 from smallpt_tpu_torch.ops.intersect import Hit, complete_mesh_hit
 from smallpt_tpu_torch.ops.intersect_pallas import (
-    _check_rays, _chunk_rows, fold_rows,
+    _check_rays, _chunk_rows, fold_rows, read_plan,
 )
 from smallpt_tpu_torch.ops.megakernel import _BIG
 
@@ -91,25 +91,13 @@ def _kernel_lib():
     return fn, plan
 
 
-# the fields of K6's plan, as csrc/closest_tri.cu's smallpt_closest_tri_plan
-# writes them
-PLAN_FIELDS = ("blocks", "ranges", "range_rows", "fill", "n_sm", "per_sm",
-               "scratch_words")
-
-
 def closest_tri_plan(n: int, n_rows: int, device=None) -> dict:
     """The cut K6 makes of a launch of n rays over n_rows rows on a CUDA
     device (None: the current one), as its launcher makes it: the ray
     blocks, the ranges of rows each is cut into and their rows, the fill
     (the blocks the card holds at once: its SMs times the kernel's
     occupancy) and the int32 words of scratch the launch takes."""
-    _, plan = _kernel_lib()
-    out = np.zeros(len(PLAN_FIELDS), np.int64)
-    with torch.cuda.device(device):
-        err = plan(int(n), int(n_rows), out.ctypes.data)
-    if err != 0:
-        raise RuntimeError(f"closest_tri_plan: CUDA error {err}")
-    return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
+    return read_plan(_kernel_lib()[1], device, int(n), int(n_rows))
 
 
 def closest_tri(org: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,

@@ -122,6 +122,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     sfn = types.SimpleNamespace(argtypes=None, restype=None)
     dfn = types.SimpleNamespace(argtypes=None, restype=None)
     hfn = types.SimpleNamespace(argtypes=None, restype=None)
+    hpfn = types.SimpleNamespace(argtypes=None, restype=None)
     tfn = types.SimpleNamespace(argtypes=None, restype=None)
     tpfn = types.SimpleNamespace(argtypes=None, restype=None)
     cfn = types.SimpleNamespace(argtypes=None, restype=None)
@@ -134,6 +135,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
                             smallpt_mega_pass=fn, smallpt_mega_record=rfn,
                             smallpt_stream_step=sfn,
                             smallpt_stream_dda=dfn, smallpt_closest_hit=hfn,
+                            smallpt_closest_hit_plan=hpfn,
                             smallpt_closest_tri=tfn,
                             smallpt_closest_tri_plan=tpfn,
                             smallpt_closest_tri_culled=cfn,
@@ -153,9 +155,11 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert sd._dda_lib() is dfn
     assert dfn.argtypes == [ctypes.c_void_p] * 12
     assert dfn.restype is ctypes.c_int
-    assert ip._kernel_lib() is hfn
-    assert hfn.argtypes == [ctypes.c_void_p] * 7
+    assert ip._kernel_lib() == (hfn, hpfn)
+    assert hfn.argtypes == [ctypes.c_void_p] * 8
     assert hfn.restype is ctypes.c_int
+    assert hpfn.argtypes == [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    assert hpfn.restype is ctypes.c_int
     assert mp._kernel_lib() == (tfn, tpfn)
     assert tfn.argtypes == [ctypes.c_void_p] * 11
     assert tfn.restype is ctypes.c_int

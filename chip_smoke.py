@@ -29,7 +29,13 @@ the main paths through the kernels and times them:
   and its image is held to the classic route's on the same scene; then the
   config-5 shape (--procedural-hd): 1920x1080, 24 spp, launches capped at
   16 bounce iterations, whose launches are chained through the plain
-  version too and held to it;
+  version too and held to it; every K3 state held to the plain version's
+  is also held plane by plane, bit for bit (k3_strict), and K3 runs
+  constructed launches at the edges of its queue, its cap and its tables
+  (77 lanes, every lane idle, capped at 1 and 7 iterations, the overflow
+  tables, 1280x720 lanes, at least 3x the threads of the queue's first
+  wave), each reporting its plan, ptxas's registers and spills and the
+  lanes its queue handed out;
 - the wavefront schedulers through the closest-hit kernels
   (ProgressiveRenderer): REGEN with K2 on the Cornell box at 1024x768, 4
   spp a pass, max_depth 48, without and with NEE, and on
@@ -319,14 +325,55 @@ def state_gate(name, cfg, fk, ik, fp, ip, drained: bool,
     return out
 
 
+def k3_strict(name, cfg, fk, ik, fp, ip, check: bool = True) -> dict:
+    """K3's state (fk, ik) against the plain version's (fp, ip), both from
+    the same state and key, strictly: every f32 plane compared as int32
+    and every i32 plane, on every lane of the planes, except depth and sup
+    on lanes idle (alive 0) in both. Returns the lanes that differ a plane
+    that differs anywhere (``planes``), their sum (``lanes_differ``) and
+    the depth and sup differences left out on idle lanes; raises unless
+    lanes_differ is 0 (check)."""
+    import torch
+
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
+    fnames = (mk._F_PLANES + sd._F_WALK
+              + (sd._F_NEE if cfg.nee_lights else ()))
+    inames = mk._I_PLANES + sd._I_WALK_PLANES
+    torch.cuda.synchronize()
+    fk_, fp_ = (t.reshape(len(fnames), -1).view(torch.int32) for t in (fk,
+                                                                       fp))
+    ik_, ip_ = (t.reshape(len(inames), -1) for t in (ik, ip))
+    idle = (ik_[inames.index("alive")] == 0) & (
+        ip_[inames.index("alive")] == 0)
+    planes, idle_diff = {}, {}
+    for names, a, b in ((fnames, fk_, fp_), (inames, ik_, ip_)):
+        for k, plane in enumerate(names):
+            differ = a[k] != b[k]
+            if plane in ("depth", "sup"):
+                idle_diff[plane] = int((differ & idle).sum())
+                differ = differ & ~idle
+            if bool(differ.any()):
+                planes[plane] = int(differ.sum())
+    out = dict(planes=planes, lanes_differ=sum(planes.values()),
+               idle_depth_sup_diff=idle_diff, lanes=int(ik_.shape[1]))
+    if check and out["lanes_differ"]:
+        raise AssertionError(f"{name}: K3's planes differ from the plain "
+                             f"version's: {planes}")
+    return out
+
+
 def chain(cfg, launches, init, kernel_step, plain_step, n_rows=None,
-          gate_at=None) -> dict:
+          gate_at=None, strict=None) -> dict:
     """Run the same launches ((budget, n_iters) pairs) through a streaming
     kernel (kernel_step(f, i, budget, n_iters) -> rays) and its plain
     version (plain_step(f, i, n_iters) -> rays) from one fresh state
     (init() -> (f, i), the kernel's, updated in place); gate the launch's
     rays after each launch, and the states after each launch in gate_at
-    (None: every one) and after the last, which must drain."""
+    (None: every one) and after the last, which must drain; strict, when
+    given (k3_strict), holds each gated state to the plain version's bit
+    for bit as well."""
     import torch
 
     from smallpt_tpu_torch.ops import megakernel as mk
@@ -347,6 +394,8 @@ def chain(cfg, launches, init, kernel_step, plain_step, n_rows=None,
         st = state_gate(f"launch {n}", cfg, fk, ik, fp, ip, drained=last,
                         n_rows=n_rows)
         st.update(launch_rays_kernel=int(rk), launch_rays_plain=int(rp))
+        if strict is not None:
+            st["strict"] = strict(f"launch {n}", cfg, fk, ik, fp, ip)
         out[f"launch{n}"] = st
     if mk.stream_pending(ik) != (0, 0):
         raise AssertionError("the last launch did not drain")
@@ -377,7 +426,8 @@ def dda_chain(tables, camv, cfg, key, launches, state=None, counts=None,
               gate_at=None) -> dict:
     """chain() through the DDA kernel (stream_step_dda) and
     stream_step_dda_plain, from state (the kernel's (f, i), updated in
-    place; None: a fresh one); counts gains the plain version's work."""
+    place; None: a fresh one), each gated state also under k3_strict;
+    counts gains the plain version's work."""
     from smallpt_tpu_torch.core import rng
     from smallpt_tpu_torch.ops import stream_dda as sd
 
@@ -390,7 +440,7 @@ def dda_chain(tables, camv, cfg, key, launches, state=None, counts=None,
                                               b, n)[2],
         lambda f, i, n: sd.stream_step_dda_plain(
             tables, camv, cfg, k0, k1, f, i, n, counts=counts)[2],
-        gate_at=gate_at)
+        gate_at=gate_at, strict=k3_strict)
 
 
 def compare_pass(name, rad_k, rays_k, rad_p, rays_p) -> dict:
@@ -817,38 +867,93 @@ def k3_vs_plain_phases(dev) -> dict:
                               "n_always": tables.n_always,
                               "n_overflow": tables.n_overflow},
                      **dda_chain(tables, camv, cfg, rng.base_key(seed),
-                                 launches)}
+                                 launches),
+                     "queue_launch": k3_queue_launch(
+                         tables, camv, cfg, rng.base_key(seed),
+                         *launches[0])[3]}
     return out
 
 
 def k3_bound(counts: dict, n_lanes: int, nf: int, tables) -> dict:
     """The least time of one DDA launch for the work that the plain version
     counted on the same inputs (counts: its sphere tests in cells and of
-    the always table, walk steps, inits, shadow rays; the kernel's lanes
-    do the same work): its operations at the float rate, its bytes (the
-    tables and the state read once, the state written once) at the memory
-    rate, and the bytes of the cell slots its walk steps read (32 B a
-    tested slot, from L2)."""
-    slot_tests, always_tests, walk_steps, inits, shadow = (
-        counts[k] for k in ("slot_tests", "always_tests", "walk_steps",
-                            "inits", "shadow_rays"))
+    the always table and those of them past det, walk steps, inits, shadow
+    rays; the kernel's lanes do the same work): its operations at the
+    float rate, each sphere test priced at what K3's early-miss test
+    (csrc/stream_dda.cu::stable_tt) spends up to its decision,
+    OPS_K2_STABLE_MISS for a miss at det and OPS_K2_STABLE_HIT for a test
+    past det; its bytes (the tables the kernel reads, its slots' geometry
+    and counts, the ids, the always and scene tables, and the state read
+    once, the state written once) at the memory rate. Beside it the same
+    with every test at the whole test's OPS_PER_SPHERE
+    (``bound_ms_every_slot_full``, the count the kernel before the early
+    miss was held to), and the bytes of the cell slots its walk steps read
+    from L1 and L2: 16 B a tested slot (``slot_bytes``), 32 B as the cell
+    table holds them (``slot_bytes_cells``)."""
+    slot_tests, slot_past, always_tests, always_past, walk_steps, inits, \
+        shadow = (counts[k] for k in (
+            "slot_tests", "slot_tests_det_ge0", "always_tests",
+            "always_tests_det_ge0", "walk_steps", "inits", "shadow_rays"))
     rays = inits - shadow
-    ops = ((slot_tests + always_tests) * OPS_PER_SPHERE
-           + walk_steps * OPS_PER_STEP + inits * OPS_PER_INIT
-           + rays * OPS_PER_BOUNCE + shadow * OPS_PER_CONE)
-    nbytes = (4 * (tables.cells.numel() + tables.always_tbl.numel()
-                   + tables.scene_tbl.numel() + 16)
+    tests, past = slot_tests + always_tests, slot_past + always_past
+    rest = (walk_steps * OPS_PER_STEP + inits * OPS_PER_INIT
+            + rays * OPS_PER_BOUNCE + shadow * OPS_PER_CONE)
+    ops = ((tests - past) * OPS_K2_STABLE_MISS + past * OPS_K2_STABLE_HIT
+           + rest)
+    full_ops = tests * OPS_PER_SPHERE + rest
+    n_cells, k = tables.cells.shape[:2]
+    nbytes = (tables.slot_geom.numel() * 4 + tables.slot_count.numel() * 4
+              + n_cells * k * 4
+              + 4 * (tables.always_tbl.numel() + tables.scene_tbl.numel()
+                     + 16)
               + n_lanes * 4 * (nf + 9) * 2)
     ops_ms, bytes_ms = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return dict(slot_tests=slot_tests, always_tests=always_tests,
+    full_ms = max(full_ops / PEAK_FP32_OPS * 1e3, bytes_ms)
+    return dict(slot_tests=slot_tests, slot_tests_det_ge0=slot_past,
+                always_tests=always_tests, always_tests_det_ge0=always_past,
                 walk_steps=walk_steps, inits=inits, shadow_rays=shadow,
-                ops=ops, bytes=nbytes, bound_ops_ms=ops_ms,
-                bound_bytes_ms=bytes_ms,
+                ops=ops, ops_every_slot_full=full_ops, bytes=nbytes,
+                bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
                 bound_nofma_ms=ops / PEAK_FP32_NOFMA * 1e3,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                slot_bytes=32 * slot_tests,
-                slot_bytes_ms=32 * slot_tests / PEAK_BYTES * 1e3)
+                bound_ms_every_slot_full=full_ms,
+                slot_bytes=16 * slot_tests,
+                slot_bytes_ms=16 * slot_tests / PEAK_BYTES * 1e3,
+                slot_bytes_cells=32 * slot_tests)
+
+
+def k3_launch_info(tables, n_lanes: int, queue=None) -> dict:
+    """K3's launch of n_lanes lanes over the tables: its plan
+    (stream_dda.dda_plan: the blocks, the threads of its first wave, the
+    blocks an SM holds, the shared memory a block), ptxas's registers,
+    stack and spills, and, from a launch's queue (stream_dda._launch), the
+    lanes handed out, which must be every lane once, and the lanes that
+    had work."""
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
+    out = dict(plan=sd.dda_plan(n_lanes, tables.n_always,
+                                bool(tables.light_rows)),
+               ptxas=ptxas_entry(sd.LIBRARY[0]))
+    if queue is not None:
+        q = dict(zip(sd.QUEUE_FIELDS, (int(x) for x in queue.tolist())))
+        if q["handed"] != n_lanes:
+            raise AssertionError(f"K3's queue handed out {q['handed']} of "
+                                 f"{n_lanes} lanes")
+        out["queue"] = q
+    return out
+
+
+def k3_queue_launch(tables, camv, cfg, key, budget: int, n_iters: int):
+    """One uncounted K3 launch (stream_dda._launch) from a fresh state of
+    the given budget: (f, i, rays, k3_launch_info with its queue)."""
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
+    f, i = sd.init_stream_dda_state(cfg, device=tables.device)
+    mk.set_sample_budget(i, budget, cfg)
+    rays, queue = sd._launch(tables, camv, cfg, key, f, i, n_iters)
+    return f, i, rays, k3_launch_info(tables, f.shape[1] * mk._SUB, queue)
 
 
 def k3_main(name, cfg, dev, n_rounds=3) -> dict:
@@ -940,14 +1045,20 @@ def k3_main(name, cfg, dev, n_rounds=3) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
     cmp = state_gate(name, cfg, f, i, fp, ip, drained=True)
+    cmp["strict"] = k3_strict(name, cfg, f, i, fp, ip)
     n_rays = int(rk)
     rays_close(name, n_rays, int(rp))
+    fq, iq, rq, info = k3_queue_launch(tables, camv, cfg, key, 4,
+                                       10_000_000)
+    if not (torch.equal(fq, f) and torch.equal(iq, i)
+            and int(rq) == n_rays):
+        raise AssertionError(f"{name}: the queue's launch differs")
     kernel = dict(kernel_ms=k_ms, rays=n_rays,
                   mrays_per_s=n_rays / k_ms / 1e3, plain_ms=plain_ms,
                   plain_counts=counts,
                   **k3_bound(counts, f0.shape[1] * 8, sd._nf_d(cfg),
                              tables),
-                  vs_plain=cmp)
+                  vs_plain=cmp, **info)
     return {"main": main, "kernel": kernel}
 
 
@@ -1028,6 +1139,10 @@ def k3_hd(dev) -> dict:
     if rk != r.stats.rays:
         raise AssertionError(f"config-5 shape: one launch traced {rk} rays, "
                              f"the round {r.stats.rays}")
+    fq, iq, rq, info = k3_queue_launch(r._dda, r._cam, cfg, r.key, cfg.spp,
+                                       10_000_000)
+    if not (torch.equal(fq, f) and torch.equal(iq, i) and int(rq) == rk):
+        raise AssertionError("config-5 shape: the queue's launch differs")
     return dict(width=cfg.width, height=cfg.height, spp=cfg.spp,
                 launch_iters=16,
                 launches=launches, round_ms=ms, rays=r.stats.rays,
@@ -1039,7 +1154,87 @@ def k3_hd(dev) -> dict:
                 kernel=dict(kernel_ms=k_ms, rays=rk,
                             mrays_per_s=rk / k_ms / 1e3,
                             **k3_bound(counts, f0.shape[1] * 8,
-                                       sd._nf_d(cfg), r._dda)))
+                                       sd._nf_d(cfg), r._dda), **info))
+
+
+def k3_constructed_launches(dev) -> dict:
+    """K3 against its plain version on launches built to reach the edges
+    of its queue, its cap and its tables, each from a fresh state through
+    stream_dda._launch (uncounted), held by k3_strict (every plane bit for
+    bit) and its rays exactly, with the launch's plan, queue and time
+    (hold_card before each call):
+    - 77 lanes (11 x 7 pixels; the state's one 8,192-lane tile), 10,000
+      spheres, budget 2, drained;
+    - a launch whose every lane is idle (budget 0): no ray, no lane with
+      work, the state unchanged;
+    - 10,000 spheres at 128x96, budget 4, capped at 1 iteration and at 7
+      (the lanes stop mid-walk), and at 7 with NEE on sphere 8;
+    - the overflow tables (procedural_sphere_scene(300), nb=(2, 2, 2),
+      k_max=32) at 64x48, budget 3, drained;
+    - 10,000 spheres at 1280x720, budget 1, capped at 24 iterations: its
+      lanes at least 3x the threads of the queue's first wave."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_sphere_scene
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
+    leg = dict(camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+               spp_per_cell=1)
+    s10k, s300 = procedural_sphere_scene(10000), procedural_sphere_scene(300)
+    c128 = RenderConfig(width=128, height=96, max_depth=24, **leg)
+    cases = {
+        "lanes77": (s10k, c128.replace(width=11, height=7), {}, 2,
+                    10_000_000),
+        "all_idle": (s10k, c128, {}, 0, 10_000_000),
+        "capped_1": (s10k, c128, {}, 4, 1),
+        "capped_7": (s10k, c128, {}, 4, 7),
+        "capped_7_nee": (s10k, c128.replace(nee_lights=(8,)), {}, 4, 7),
+        "overflow_nb222_k32": (s300, c128.replace(width=64, height=48,
+                                                  max_depth=12),
+                               dict(nb=(2, 2, 2), k_max=32), 3, 10_000_000),
+        "queue_3x_1280x720": (s10k, c128.replace(width=1280, height=720),
+                              {}, 1, 24),
+    }
+    out = {}
+    for n, (name, (scene, cfg, build, budget, n_iters)) in enumerate(
+            cases.items()):
+        tables = sd.build_stream_dda_tables(scene, cfg, device=dev, **build)
+        camv = mk.build_camera_vec(smallpt_camera(), cfg, dev)
+        key = rng.base_key(1700 + n)
+        fk, ik, rk, info = k3_queue_launch(tables, camv, cfg, key, budget,
+                                           n_iters)
+        f0, i0 = sd.init_stream_dda_state(cfg, device=dev)
+        mk.set_sample_budget(i0, budget, cfg)
+        fp, ip_ = f0.clone(), i0.clone()
+        rp = sd.stream_step_dda_plain(tables, camv, cfg, *rng.key_words(key),
+                                      fp, ip_, n_iters)[2]
+        st = k3_strict(name, cfg, fk, ik, fp, ip_)
+        if int(rk) != int(rp):
+            raise AssertionError(f"{name}: rays {int(rk)} vs {int(rp)}")
+        q, lanes = info["queue"], info["plan"]["threads"]
+        if name == "all_idle" and (int(rk) or q["worked"] or not (
+                torch.equal(fk, f0) and torch.equal(ik, i0))):
+            raise AssertionError(f"{name}: an idle launch did work: {q}")
+        if name.startswith("queue_3x") and q["handed"] < 3 * lanes:
+            raise AssertionError(f"{name}: {q['handed']} lanes for {lanes} "
+                                 "threads")
+        f, i = fk.clone(), ik.clone()
+        ms, _ = cuda_ms(lambda: sd._launch(tables, camv, cfg, key, f, i,
+                                           n_iters), 3,
+                        setup=lambda: (f.copy_(f0), i.copy_(i0),
+                                       hold_card()))
+        out[name] = dict(strict=st, rays=int(rk), budget=budget,
+                         n_iters=n_iters, kernel_ms=ms,
+                         width=cfg.width, height=cfg.height,
+                         lanes_per_thread=q["handed"] / lanes,
+                         max_abs_err=0.0, **info)
+        del tables
+        torch.cuda.empty_cache()
+    return out
 
 
 # float ops of one (ray, row) test of the closest-hit kernels, counted from
@@ -1056,7 +1251,8 @@ OPS_K6_ROW = 49
 OPS_ROW_SKIP = 1
 # K2's bound prices each pair at what its early-miss tests
 # (csrc/closest_hit.cu: stable_tt, direct_tt, on the live rows it stages)
-# spend up to their decision: the stable form to det (23) and det >= 0
+# spend up to their decision (K3's bound prices its slot and always tests
+# at the stable form's two counts: its own stable_tt is the same test): the stable form to det (23) and det >= 0
 # (24) for a miss, which skips the fold; the rest of the test (2 for s, 3
 # for |op|, 3 for cc, denom, its sign, the division, the two root tests)
 # and the fold's compare for a det >= 0 pair (38); the direct quadratic to
@@ -3416,16 +3612,17 @@ def record_bound(n_rays: int, n_spheres: int, g: int, depth: int) -> dict:
 
 
 def ptxas_entry(lib: str, symbol: str = "") -> list:
-    """ptxas's register lines, from this process's build of library lib,
-    of the entries whose mangled name holds symbol (the shared-memory
-    instance of K1b, say; every entry by default)."""
+    """ptxas's register lines and its stack and spill lines, from this
+    process's build of library lib, of the entries whose mangled name holds
+    symbol (the shared-memory instance of K1b, say; every entry by
+    default)."""
     from smallpt_tpu_torch.utils import nvcc
 
     out, inside = [], not symbol
     for ln in nvcc.builds.get(lib, {}).get("ptxas", "").splitlines():
         if "Compiling entry" in ln:
             inside = symbol in ln
-        elif inside and "registers" in ln:
+        elif inside and ("registers" in ln or "spill" in ln):
             out.append(ln.strip())
     return out
 
@@ -4423,7 +4620,7 @@ def shard_stream_vs_plain(name, call, dda: bool) -> dict:
     """A captured sharded streaming launch (capture_calls with the state
     copied before it) against stream_step_plain or stream_step_dda_plain
     from that state on the same band, key and budget (state_gate, drained
-    when the kernel's launch drained)."""
+    when the kernel's launch drained; K3 also under k3_strict)."""
     from smallpt_tpu_torch.core import rng
     from smallpt_tpu_torch.ops import megakernel as mk
     from smallpt_tpu_torch.ops import stream_dda as sd
@@ -4446,6 +4643,8 @@ def shard_stream_vs_plain(name, call, dda: bool) -> dict:
     rays_close(name, int(rk), int(rp))
     st = state_gate(name, cfg, fk, ik, fp, ip_,
                     drained=mk.stream_pending(ik) == (0, 0), n_rows=n_rows)
+    if dda:
+        st["strict"] = k3_strict(name, cfg, fk, ik, fp, ip_)
     return dict(st, launch_rays_kernel=int(rk), launch_rays_plain=int(rp),
                 n_iters=a["n_iters"], budget=a["sample_budget"], **band)
 
@@ -5238,6 +5437,8 @@ def main() -> int:
         phase(f"dda_main_{name}", **k3[name])
     hd = k3_hd(dev)
     phase("dda_main_procedural10000_1920x1080", **hd)
+    k3_built = k3_constructed_launches(dev)
+    phase("k3_constructed_launches", **k3_built)
     k3_kernel = k3["procedural10000_512x384"]["kernel"]
     k3_nee_kernel = k3["procedural10000_512x384_nee"]["kernel"]
     k3_errs = [st["max_abs_err"] for case in k3_stats.values()
@@ -5245,6 +5446,7 @@ def main() -> int:
     k3_errs += [k3[n]["kernel"]["vs_plain"]["max_abs_err"] for n in k3]
     k3_errs += [st["max_abs_err"] for key_, st in hd["vs_plain"].items()
                 if key_.startswith("launch")]
+    k3_errs += [c["max_abs_err"] for c in k3_built.values()]
     ptxas = ptxas_entry(sd.LIBRARY[0])
 
     # ---- 18-21. the closest-hit kernels against their plain versions, the
@@ -5644,6 +5846,17 @@ def main() -> int:
         "round_ms": k3["procedural10000_512x384"]["main"]["ms_per_round"],
         "round_ms_nee": k3["procedural10000_512x384_nee"]["main"][
             "ms_per_round"],
+        "bound_ms_every_slot_full": k3_kernel["bound_ms_every_slot_full"],
+        "ms_hd": hd["kernel"]["kernel_ms"],
+        "bound_ms_hd": hd["kernel"]["bound_ms"],
+        "round_ms_hd": hd["round_ms"],
+        "plan": k3_kernel["plan"],
+        "queue": k3_kernel["queue"],
+        "constructed_ms": {n: c["kernel_ms"] for n, c in k3_built.items()},
+        "strict_lanes_differ": max(
+            [k3_kernel["vs_plain"]["strict"]["lanes_differ"],
+             k3_nee_kernel["vs_plain"]["strict"]["lanes_differ"]]
+            + [c["strict"]["lanes_differ"] for c in k3_built.values()]),
         "ptxas": ptxas,
         "library_ms": None,
     }, *wf_kernels]

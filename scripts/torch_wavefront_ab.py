@@ -1,16 +1,16 @@
-"""Paired A/B of the PyTorch port's wavefront and binned paths between two
-source trees, on one CUDA card.
+"""Paired A/B of the PyTorch port's wavefront, binned and DDA paths between
+two source trees, on one CUDA card.
 
     python scripts/torch_wavefront_ab.py PARENT_TREE CHANGE_TREE \
-        [--paths NAME,...] [--blocks N] [--out wavefront_ab.json]
+        [--paths NAME,...] [--blocks N] [--strict] [--out wavefront_ab.json]
 
 Each tree is a checkout (or ``git archive`` unpack) holding
 ``smallpt_tpu_torch/``. The script runs its worker in blocks of four, each
 in a fresh process with ``PYTHONPATH`` set to one tree, in the order
 parent, change, change, parent, so that a drift of the host over the call
 falls on both sides alike (--blocks, 1 by default). A worker builds the
-closest-hit kernels of its own tree and times, with CUDA events (one
-warm-up, then three):
+kernels of its own tree and times, with CUDA events (one warm-up, then
+three):
 
 - ``regen_cornell_1024x768``: REGEN + K2, Cornell, 4 spp, max_depth 48, a
   ``ProgressiveRenderer`` pass (path 1 of PERF.md section 4);
@@ -52,7 +52,23 @@ warm-up, then three):
   kernels and not the host's enqueueing of them): the first, middle and
   last launch and their sum (``*_k8_pass_ms``); the first change worker
   also sums each launch's bound (chip_smoke.py::k8_bound, from the change
-  tree) over that pass (``*_k8_pass_bound_ms``).
+  tree) over that pass (``*_k8_pass_bound_ms``);
+- the DDA paths through K3 on procedural_sphere_scene(10000), seeded
+  1000: ``dda_procedural10000_512x384`` and ``*_nee`` (NEE on sphere 8), a
+  ``StreamingRenderer`` round as chip_smoke.py::k3_main runs it (reset,
+  step(spp * max_depth + 16 iterations, 4 samples), flush; bench.py
+  --procedural and --procedural-nee), and ``dda_procedural10000_1920x1080``,
+  one round as chip_smoke.py::k3_hd runs it (24 spp, launches capped at 16
+  bounce iterations; bench.py --procedural-hd). K3 is bit-equal to one
+  plain version in every tree, so the accumulators' bits (``*_bits``) and
+  the state planes' (``*_state_bits``) must be equal across the trees. At
+  512x384, K3 alone on one launch that drains a budget of 4 from a fresh
+  state (key fold_in(base_key(0), 1000)), timed as K8's launches are
+  (``*_k3_launch_ms``), its planes' bits (``*_k3_launch_bits``); with
+  --strict the first parent and the first change worker also hold that
+  launch's planes to the plain version's (chip_smoke.py::k3_strict, not
+  raising: the lanes that differ a plane, ``*_k3_strict``, and their sum,
+  ``*_k3_strict_lanes_differ``).
 
 --paths keeps only the named ones (all of them by default). Beside each
 worker's readings, the card's mean SM clock and power draw over the
@@ -79,6 +95,8 @@ import numpy as np
 N_TIMED = 3
 BINNED_SEED = 1000
 HOLD_CYCLES = 2_000_000  # the card's spin before a timed launch, ~1 ms
+DDA = ("dda_procedural10000_512x384", "dda_procedural10000_512x384_nee",
+       "dda_procedural10000_1920x1080")
 BINNED = ("binned_drain_procedural10000_512x384",
           "binned_drain_procedural10000_512x384_nee",
           "binned_stream_procedural10000_512x384",
@@ -211,6 +229,84 @@ def binned(only: set, bounds: bool) -> dict:
     return out
 
 
+def dda(only: set, strict: bool) -> dict:
+    """The DDA paths (see the module's docstring)."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_sphere_scene
+    from smallpt_tpu_torch.engine.streaming import StreamingRenderer
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
+    k3_strict = None
+    if strict:
+        import chip_smoke
+
+        k3_strict = chip_smoke.k3_strict
+    dev = torch.device("cuda")
+    scene = procedural_sphere_scene(10000)
+    leg = dict(camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+               spp_per_cell=1)
+    base = RenderConfig(width=512, height=384, max_depth=24, **leg)
+    out = {}
+    for name in DDA:
+        if only and name not in only:
+            continue
+        hd = "_1920x1080" in name
+        cfg = (RenderConfig(width=1920, height=1080, max_depth=24,
+                            **dict(leg, spp_per_cell=6)) if hd
+               else base.replace(nee_lights=(8,)) if name.endswith("_nee")
+               else base)
+        r = StreamingRenderer(scene, smallpt_camera(), cfg, seed=BINNED_SEED,
+                              device=dev)
+        if hd:
+            r.max_launch_iters = 16
+
+        def round_():
+            r.reset()
+            r.step(n_iters=cfg.spp * cfg.max_depth + 16, add_samples=cfg.spp)
+            r.flush()
+
+        out[name] = _times(round_)
+        rad, w = r.accumulators()
+        out[name + "_bits"] = _bits(rad.cpu().numpy(), w.cpu().numpy())
+        out[name + "_state_bits"] = _bits(r.f.cpu().numpy(),
+                                          r.i.cpu().numpy())
+        if hd:
+            del r
+            torch.cuda.empty_cache()
+            continue
+        key = rng.fold_in(rng.base_key(0), 1000)
+        f0, i0 = sd.init_stream_dda_state(cfg, device=dev)
+        mk.set_sample_budget(i0, 4, cfg)
+        f, i = f0.clone(), i0.clone()
+
+        def launch():
+            sd.stream_step_dda(r._dda, r._cam, cfg, key, f, i, None,
+                               10_000_000)
+
+        out[name + "_k3_launch_ms"] = _launch_ms(launch, (f, i), (f0, i0))
+        f.copy_(f0)
+        i.copy_(i0)
+        launch()
+        out[name + "_k3_launch_bits"] = _bits(f.cpu().numpy(),
+                                              i.cpu().numpy())
+        if k3_strict is not None:
+            fp, ip = f0.clone(), i0.clone()
+            sd.stream_step_dda_plain(r._dda, r._cam, cfg,
+                                     *rng.key_words(key), fp, ip,
+                                     10_000_000)
+            st = k3_strict(name, cfg, f, i, fp, ip, check=False)
+            out[name + "_k3_strict"] = st["planes"]
+            out[name + "_k3_strict_lanes_differ"] = st["lanes_differ"]
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_pass(run, kernel: str, bounds: bool, scene=None) -> dict:
     """Every launch of the closest-hit kernel ``kernel`` ("k2" or "k6") in
     one more run(), each timed alone (``_launch_ms``: the kernel writes
@@ -287,7 +383,7 @@ def _bits(*arrays) -> str:
         np.ascontiguousarray(a).tobytes() for a in arrays)).hexdigest()[:16]
 
 
-def worker(only: set, bounds: bool) -> dict:
+def worker(only: set, bounds: bool, strict: bool) -> dict:
     import torch
 
     from smallpt_tpu_torch.config import (
@@ -302,6 +398,10 @@ def worker(only: set, bounds: bool) -> dict:
     )
     from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
 
+    # the bounds and the strict check come from the chip_smoke.py beside
+    # this script; the package from the worker's tree, first on the path
+    sys.path.append(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     dev = torch.device("cuda")
     cam = smallpt_camera()
     leg = dict(camera_model=CameraModel.LEGACY, filter=Filter.TENT,
@@ -322,7 +422,7 @@ def worker(only: set, bounds: bool) -> dict:
             cornell, c1.replace(scheduler=Scheduler.FLAT, split_budget=8)),
     }
     out = {"tree": os.environ.get("PYTHONPATH", ""),
-           **binned(only, bounds)}
+           **dda(only, strict), **binned(only, bounds)}
     for name, (scene, cfg) in passes.items():
         if only and name not in only:
             continue
@@ -360,6 +460,9 @@ def main() -> int:
     p.add_argument("--paths", default="")
     p.add_argument("--blocks", type=int, default=1)
     p.add_argument("--bounds", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--strict", action="store_true",
+                   help="hold K3's launch to the plain version in the first "
+                   "worker of each tree")
     p.add_argument("--out", default="wavefront_ab.json")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args()
@@ -370,7 +473,8 @@ def main() -> int:
         return 1
     if args.worker:
         only = set(filter(None, args.paths.split(",")))
-        print(json.dumps(worker(only, args.bounds)), flush=True)
+        print(json.dumps(worker(only, args.bounds, args.strict)),
+              flush=True)
         return 0
     runs = []
     for n, side in enumerate(("parent", "change", "change", "parent")
@@ -378,8 +482,9 @@ def main() -> int:
         tree = os.path.abspath(getattr(args, side))
         env = dict(os.environ, PYTHONPATH=tree)
         # the K2, K6 and K8 launches' bounds once, in the first change
-        # worker
-        extra = ["--bounds"] if n == 1 else []
+        # worker; K3 against the plain version once a tree
+        extra = (["--bounds"] if n == 1 else []) + (
+            ["--strict"] if args.strict and n < 2 else [])
         # the card's SM clock and power draw over the worker
         smi_log = subprocess.Popen(
             ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
@@ -408,7 +513,7 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     summary, same = {}, True
     for name in {k: 0 for r in runs for k in r}:
-        if name in ("tree", "side") or name.endswith("_mean"):
+        if name in ("tree", "side") or name.endswith(("_mean", "_strict")):
             continue
         if name.endswith("_bits"):
             same &= len({r[name] for r in runs}) == 1

@@ -40,15 +40,21 @@ for its one-hot MXU gather (``cells3``); they sum back to plain f32 values,
 which the port keeps as one f32 table laid out for a thread that reads the
 slots of one cell: ``cells`` is (C, K, 8), slot q of cell c holding
 [cx cy cz r id 0 0 0], one 32-byte sector, filled from the front and padded
-with r = 0, id = 3e38. The payload of the winner (emission, albedo, refl,
-centre) is one indexed load from the scene table by id, which holds the
-same f32 values as the JAX cells and always rows. The always table keeps
-the JAX layout, (A_pad, 16) rows of build_scene_table's columns, bit for
-bit, its eps column included.
+with r = 0, id = 3e38. Two tables derived from it serve the kernel's slot
+sweep: ``slot_count`` (C,) int32, the filled slots of each cell, and
+``slot_geom`` (C, K, 4) f32, each slot's [cx cy cz r] (one float4); the
+kernel reads a slot's id from ``cells`` only for a candidate that improves
+on or ties its thread's best. The payload of the winner (emission, albedo, refl, centre) is one
+indexed load from the scene table by id, which holds the same f32 values as
+the JAX cells and always rows. The always table keeps the JAX layout,
+(A_pad, 16) rows of build_scene_table's columns, bit for bit, its eps
+column included.
 
 ``stream_step_dda`` launches csrc/stream_dda.cu on CUDA tensors and counts
 the launch; on CPU tensors it runs ``stream_step_dda_plain``, the same
-iteration vectorized over lanes in PyTorch.
+iteration vectorized over lanes in PyTorch. The kernel runs the lanes from
+a queue on as many threads as the card holds at once (``dda_plan``); a
+lane's result does not depend on the thread that runs it.
 """
 
 from __future__ import annotations
@@ -109,6 +115,9 @@ class StreamDDATables:
                  eps_local, n_always, n_local, n_overflow, light_rows=()):
         self.always_tbl = always_tbl  # (A_pad, 16) f32, scene-table rows
         self.cells = cells            # (C, K, 8) f32 [cx cy cz r id 0 0 0]
+        # derived from cells: the filled slots of each cell, (C,) int32,
+        # and each slot's [cx cy cz r], (C, K, 4) f32
+        self.slot_count, self.slot_geom = slot_tables(cells)
         self.scene_tbl = scene_tbl    # (S_pad, 16) f32, the payload by id
         self.k = k
         self.nb = nb
@@ -128,6 +137,19 @@ class StreamDDATables:
     @property
     def device(self) -> torch.device:
         return self.cells.device
+
+
+def slot_tables(cells: torch.Tensor):
+    """(slot_count (C,) int32, slot_geom (C, K, 4) f32) of a (C, K, 8) cell
+    table, on its device: the filled slots of each cell (id below 3e38)
+    and each slot's [cx cy cz r]. Raises unless every cell's slots fill
+    from the front, as bin_local_spheres fills them."""
+    filled = cells[..., 4] < _BIGID
+    count = filled.sum(dim=1, dtype=torch.int32)
+    slot = torch.arange(cells.shape[1], device=cells.device)
+    if not torch.equal(filled, slot[None, :] < count[:, None]):
+        raise ValueError("every cell's slots must fill from the front")
+    return count, cells[..., :4].contiguous()
 
 
 def build_stream_dda_tables(scene: SphereScene, config: RenderConfig,
@@ -276,16 +298,42 @@ def _dda_args(tables: StreamDDATables, light_row):
 
 # (library name, csrc/ source) of the kernel of this module
 LIBRARY = ("smallpt_stream_dda", "stream_dda.cu")
+# the fields of the kernel's launch plan (csrc/stream_dda.cu::
+# smallpt_stream_dda_plan) and of its queue's scratch after a launch
+PLAN_FIELDS = ("blocks", "threads", "n_sm", "per_sm", "smem")
+QUEUE_FIELDS = ("next", "handed", "worked")
 
 
 def _dda_lib():
+    """(smallpt_stream_dda, smallpt_stream_dda_plan) of the built library."""
     from smallpt_tpu_torch.utils.nvcc import load_library
 
-    fn = load_library(*LIBRARY).smallpt_stream_dda
+    lib = load_library(*LIBRARY)
+    fn, plan = lib.smallpt_stream_dda, lib.smallpt_stream_dda_plan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12
+        fn.argtypes = [ctypes.c_void_p] * 15
         fn.restype = ctypes.c_int
-    return fn
+        plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        plan.restype = ctypes.c_int
+    return fn, plan
+
+
+def dda_plan(n_lanes: int, n_always: int, nee: bool, device=None) -> dict:
+    """The launch K3 makes of n_lanes lanes over n_always always rows, with
+    NEE or without, on a CUDA device (None: the current one): its blocks
+    and their threads (the first wave; the queue hands out the other
+    lanes), the SMs, the blocks an SM holds (the kernel's occupancy at its
+    shared memory) and the shared memory a block; PLAN_FIELDS -> int."""
+    device = torch.device("cuda" if device is None else device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    out = np.zeros(len(PLAN_FIELDS), np.int64)
+    with torch.cuda.device(device):
+        err = _dda_lib()[1](int(n_lanes), int(n_always), int(bool(nee)),
+                            out.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"smallpt_stream_dda_plan: CUDA error {err}")
+    return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
 
 
 def stream_step_dda(tables: StreamDDATables, cam: torch.Tensor,
@@ -308,16 +356,43 @@ def stream_step_dda(tables: StreamDDATables, cam: torch.Tensor,
     A CUDA tensor launches csrc/stream_dda.cu (and counts the launch in
     ``stream_step_dda.launches``); a CPU tensor runs
     ``stream_step_dda_plain``."""
-    light_row = _check(tables, cam, config, f, i, n_rows)
+    _check(tables, cam, config, f, i, n_rows)
     if sample_budget is not None:
         mk.set_sample_budget(i, sample_budget, config, n_rows)
-    k0, k1 = prng.key_words(key)
-    n_rows, _, _, n_cols = mk._stream_geometry(config, n_rows)
     if tables.device.type == "cpu":
+        k0, k1 = prng.key_words(key)
+        n_rows = mk._stream_geometry(config, n_rows)[0]
         return stream_step_dda_plain(tables, cam, config, k0, k1, f, i,
                                      n_iters, ip_offset, row_offset, n_rows)
-    fn = _dda_lib()
+    rays, _ = _launch(tables, cam, config, key, f, i, n_iters, ip_offset,
+                      row_offset, n_rows)
+    stream_step_dda.launches += 1
+    return f, i, rays
+
+
+stream_step_dda.launches = 0
+
+
+def _launch(tables: StreamDDATables, cam, config: RenderConfig, key, f, i,
+            n_iters: int, ip_offset: int = 0, row_offset: int = 0,
+            n_rows: int | None = None):
+    """stream_step_dda's launch of K3 on CUDA tensors, uncounted; the
+    budget plane as it stands. Returns (rays, queue): the 0-d int64 count
+    of rays traced, and the queue's (3,) int32 scratch after the launch
+    (QUEUE_FIELDS: the counter past the first wave, the lanes handed out,
+    the lanes that had work)."""
+    light_row = _check(tables, cam, config, f, i, n_rows)
+    if not tables.eps_local >= 0.0:
+        # the kernel orders its candidates' t > eps as int32 bits
+        raise ValueError(f"the DDA kernel needs eps_local >= 0, got "
+                         f"{tables.eps_local}")
+    k0, k1 = prng.key_words(key)
+    n_cols = mk._stream_geometry(config, n_rows)[3]
+    fn = _dda_lib()[0]
     rays = torch.zeros((), dtype=torch.int64, device=f.device)
+    # the queue's counters, zeroed by the launch on its stream
+    queue = torch.empty((len(QUEUE_FIELDS),), dtype=torch.int32,
+                        device=f.device)
     ints, floats = mk._launch_args(config, mk._SUB * n_cols,
                                    tables.scene_tbl.shape[0], k0, k1,
                                    ip_offset, row_offset, 0, max_it=n_iters)
@@ -325,17 +400,28 @@ def stream_step_dda(tables: StreamDDATables, cam: torch.Tensor,
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(tables.always_tbl.data_ptr(), tables.cells.data_ptr(),
+                 tables.slot_geom.data_ptr(), tables.slot_count.data_ptr(),
                  tables.scene_tbl.data_ptr(), cam.data_ptr(), f.data_ptr(),
-                 i.data_ptr(), rays.data_ptr(), ints.ctypes.data,
-                 floats.ctypes.data, dints.ctypes.data, dfloats.ctypes.data,
-                 stream)
+                 i.data_ptr(), rays.data_ptr(), queue.data_ptr(),
+                 ints.ctypes.data, floats.ctypes.data, dints.ctypes.data,
+                 dfloats.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(f"stream_dda launch failed: CUDA error {err}")
-    stream_step_dda.launches += 1
-    return f, i, rays
+    return rays, queue
 
 
-stream_step_dda.launches = 0
+def _past_det(ox, oy, oz, dx, dy, dz, scx, scy, scz, sr):
+    """Where the stable sphere test (mk._sphere_tt) goes past its det: det
+    >= 0 and r > 0, det in the test's own op order."""
+    opx = scx - ox
+    opy = scy - oy
+    opz = scz - oz
+    b = opx * dx + opy * dy + opz * dz
+    fx = opx - b * dx
+    fy = opy - b * dy
+    fz = opz - b * dz
+    sp = torch.sqrt(fx * fx + fy * fy + fz * fz)
+    return ((sr - sp) * (sr + sp) >= 0.0) & (sr > 0.0)
 
 
 def stream_step_dda_plain(tables: StreamDDATables, cam: torch.Tensor,
@@ -352,10 +438,11 @@ def stream_step_dda_plain(tables: StreamDDATables, cam: torch.Tensor,
 
     counts: None, or a dict that gains "iterations", "walk_steps" (lane
     steps through a cell), "slot_tests" (sphere tests in those cells, their
-    empty slots not counted), "cell_bytes" (the 32-byte slots those tests
-    read), "inits", "always_tests" (always-table sphere tests, one per
-    row per init), "resolves" and "shadow_rays": the work of the run, for
-    the kernel's bound."""
+    empty slots not counted), "slot_tests_det_ge0" (those whose test goes
+    past det: det >= 0 and r > 0), "cell_bytes" (the 32-byte slots those
+    tests read), "inits", "always_tests" (always-table sphere tests, one
+    per row per init), "always_tests_det_ge0", "resolves" and
+    "shadow_rays": the work of the run, for the kernel's bound."""
     light_row = _check(tables, cam, config, f, i, n_rows)
     nee = light_row is not None
     n_rows, g, _, _ = mk._stream_geometry(config, n_rows)
@@ -402,8 +489,9 @@ def stream_step_dda_plain(tables: StreamDDATables, cam: torch.Tensor,
     bigid = torch.full((g,), _BIGID, dtype=f32, device=dev)
     w = lambda m, a, b: tuple(torch.where(m, x, y)  # noqa: E731
                               for x, y in zip(a, b))
-    cnt = {k_: 0 for k_ in ("walk_steps", "slot_tests", "inits",
-                            "always_tests", "resolves", "shadow_rays")}
+    cnt = {k_: 0 for k_ in ("walk_steps", "slot_tests", "slot_tests_det_ge0",
+                            "inits", "always_tests", "always_tests_det_ge0",
+                            "resolves", "shadow_rays")}
 
     s = st
     o = (s["ox"], s["oy"], s["oz"])
@@ -451,8 +539,13 @@ def stream_step_dda_plain(tables: StreamDDATables, cam: torch.Tensor,
                               _BIGID).min(dim=1).values
             m_all[sel] = mc
             idc_all[sel] = idc
-            used = int((slots[..., 4] < _BIGID).sum())
-            cnt["slot_tests"] += used
+            used = slots[..., 4] < _BIGID
+            cnt["slot_tests"] += int(used.sum())
+            if counts is not None:
+                cnt["slot_tests_det_ge0"] += int((_past_det(
+                    *(v[sel, None] for v in o + wd), slots[..., 0],
+                    slots[..., 1], slots[..., 2], slots[..., 3])
+                    & used).sum())
         cnt["walk_steps"] += int(stepping.sum())
         upd = stepping & (m_all < _BIG) & (
             (m_all < bt) | ((m_all == bt) & (idc_all < bid)))
@@ -578,6 +671,10 @@ def stream_step_dda_plain(tables: StreamDDATables, cam: torch.Tensor,
             aid = torch.where(tt == am[:, None], aids[None, :],
                               _BIGID).min(dim=1).values
             hitm = am < _BIG
+            if counts is not None:
+                cnt["always_tests_det_ge0"] += int(_past_det(
+                    *(v[sel, None] for v in o + idir),
+                    *(acols[None, :, q] for q in range(4))).sum())
             abt, abid = big.clone(), bigid.clone()
             abt[sel] = torch.where(hitm, am, _BIG)
             abid[sel] = torch.where(hitm, aid, _BIGID)

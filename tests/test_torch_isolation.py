@@ -121,6 +121,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     rfn = types.SimpleNamespace(argtypes=None, restype=None)
     sfn = types.SimpleNamespace(argtypes=None, restype=None)
     dfn = types.SimpleNamespace(argtypes=None, restype=None)
+    dpfn = types.SimpleNamespace(argtypes=None, restype=None)
     hfn = types.SimpleNamespace(argtypes=None, restype=None)
     hpfn = types.SimpleNamespace(argtypes=None, restype=None)
     tfn = types.SimpleNamespace(argtypes=None, restype=None)
@@ -134,7 +135,9 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
                         lambda name, src: types.SimpleNamespace(
                             smallpt_mega_pass=fn, smallpt_mega_record=rfn,
                             smallpt_stream_step=sfn,
-                            smallpt_stream_dda=dfn, smallpt_closest_hit=hfn,
+                            smallpt_stream_dda=dfn,
+                            smallpt_stream_dda_plan=dpfn,
+                            smallpt_closest_hit=hfn,
                             smallpt_closest_hit_plan=hpfn,
                             smallpt_closest_tri=tfn,
                             smallpt_closest_tri_plan=tpfn,
@@ -152,9 +155,11 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert mk._stream_lib() is sfn
     assert sfn.argtypes == [ctypes.c_void_p] * 8
     assert sfn.restype is ctypes.c_int
-    assert sd._dda_lib() is dfn
-    assert dfn.argtypes == [ctypes.c_void_p] * 12
+    assert sd._dda_lib() == (dfn, dpfn)
+    assert dfn.argtypes == [ctypes.c_void_p] * 15
     assert dfn.restype is ctypes.c_int
+    assert dpfn.argtypes == [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    assert dpfn.restype is ctypes.c_int
     assert ip._kernel_lib() == (hfn, hpfn)
     assert hfn.argtypes == [ctypes.c_void_p] * 8
     assert hfn.restype is ctypes.c_int

@@ -22,7 +22,13 @@ the main paths through the kernels and times them:
   pass, max_depth 48;
 - streaming (bench.py's headline configuration): StreamingRenderer on the
   same scene and size, max_depth 48, 24 spp in one launch that drains,
-  without and with NEE on the light (sphere 8);
+  without and with NEE on the light (sphere 8); every K1a and K1c launch
+  held to the plain version is also held on every lane, bit for bit
+  (k1_strict), with the bound at K1's own sphere test (k1_bound) and the
+  lane utilisation of one thread a lane (lane_utilisation), and K1a and
+  K1c run constructed launches at the edges of their queue, their cap
+  and their sphere test (1 and 127 lanes, caps cutting lanes mid-path,
+  lanes with no budget among working ones, origins on a wall);
 - big sphere scenes, streaming (bench.py --procedural and --procedural-nee):
   StreamingRenderer auto-routes procedural_sphere_scene(10000) to the DDA
   kernel at 512x384, 4 spp, max_depth 24, seed 1000, without and with NEE,
@@ -177,11 +183,19 @@ PEAK_BYTES = 3.35e12
 OPS_PER_SPHERE = 38
 OPS_PER_BOUNCE = 150
 # float and integer ops of one NEE shadow ray besides its sweep, counted
-# from the NEE block of trace_lane: the light vector and shell test (10),
+# from the NEE block of bounce(): the light vector and shell test (10),
 # the cone bound (5), PCG4D and two uniforms (~54 integer ops), the cone
 # sample and its frame (~45), the direction (25) and the lit contribution
 # (22). The sweep adds OPS_PER_SPHERE per sphere, the light's own included.
 OPS_PER_CONE = 160
+# K1a's and K1c's bound prices each (ray, sphere) test of their sweeps the
+# way their own test (csrc/megakernel.cu::k1_tt) takes it, by the class the
+# plain version counts (ops/megakernel.py::_count_pairs): a miss decided at
+# det 24 ops (the stable form to det 23 and its test, K2's and K3's
+# count), the inside path 36 (the whole test without opn's square root and
+# the division), any other test the whole test's OPS_PER_SPHERE. The NEE
+# cone's own test of the light stays whole (lane.cuh::sphere_tt).
+OPS_K1_MISS, OPS_K1_INSIDE = 24, 36
 # float ops of the DDA kernel's own work besides its sphere tests, counted
 # from csrc/stream_dda.cu: a walk step (the exit t, the axis choice, three
 # divisions for the cell widths, the advance and the in-grid test) ~30; a
@@ -325,22 +339,16 @@ def state_gate(name, cfg, fk, ik, fp, ip, drained: bool,
     return out
 
 
-def k3_strict(name, cfg, fk, ik, fp, ip, check: bool = True) -> dict:
-    """K3's state (fk, ik) against the plain version's (fp, ip), both from
-    the same state and key, strictly: every f32 plane compared as int32
-    and every i32 plane, on every lane of the planes, except depth and sup
-    on lanes idle (alive 0) in both. Returns the lanes that differ a plane
-    that differs anywhere (``planes``), their sum (``lanes_differ``) and
-    the depth and sup differences left out on idle lanes; raises unless
-    lanes_differ is 0 (check)."""
+def _strict_planes(fnames, inames, fk, ik, fp, ip) -> dict:
+    """A streaming state (fk, ik) against another (fp, ip), plane by plane
+    (fnames and inames their f32 and i32 planes): every f32 plane compared
+    as int32 and every i32 plane, on every lane of the planes, except depth
+    and sup on lanes idle (alive 0) in both. Returns the lanes that differ
+    a plane that differs anywhere (``planes``), their sum
+    (``lanes_differ``) and the depth and sup differences left out on idle
+    lanes."""
     import torch
 
-    from smallpt_tpu_torch.ops import megakernel as mk
-    from smallpt_tpu_torch.ops import stream_dda as sd
-
-    fnames = (mk._F_PLANES + sd._F_WALK
-              + (sd._F_NEE if cfg.nee_lights else ()))
-    inames = mk._I_PLANES + sd._I_WALK_PLANES
     torch.cuda.synchronize()
     fk_, fp_ = (t.reshape(len(fnames), -1).view(torch.int32) for t in (fk,
                                                                        fp))
@@ -356,12 +364,76 @@ def k3_strict(name, cfg, fk, ik, fp, ip, check: bool = True) -> dict:
                 differ = differ & ~idle
             if bool(differ.any()):
                 planes[plane] = int(differ.sum())
-    out = dict(planes=planes, lanes_differ=sum(planes.values()),
-               idle_depth_sup_diff=idle_diff, lanes=int(ik_.shape[1]))
+    return dict(planes=planes, lanes_differ=sum(planes.values()),
+                idle_depth_sup_diff=idle_diff, lanes=int(ik_.shape[1]))
+
+
+def k3_strict(name, cfg, fk, ik, fp, ip, check: bool = True) -> dict:
+    """K3's state (fk, ik) against the plain version's (fp, ip), both from
+    the same state and key, strictly (_strict_planes); raises unless
+    lanes_differ is 0 (check)."""
+    from smallpt_tpu_torch.ops import megakernel as mk
+    from smallpt_tpu_torch.ops import stream_dda as sd
+
+    fnames = (mk._F_PLANES + sd._F_WALK
+              + (sd._F_NEE if cfg.nee_lights else ()))
+    out = _strict_planes(fnames, mk._I_PLANES + sd._I_WALK_PLANES, fk, ik,
+                         fp, ip)
     if check and out["lanes_differ"]:
         raise AssertionError(f"{name}: K3's planes differ from the plain "
-                             f"version's: {planes}")
+                             f"version's: {out['planes']}")
     return out
+
+
+# the lanes_differ of every K1a and K1c launch held by k1_strict in this
+# run, by wrapper
+K1_STRICT = {"mega_pass": [], "stream_step": []}
+
+
+def k1_strict(name, cfg, fk, ik, fp, ip, check: bool = True) -> dict:
+    """K1a's or K1c's output against the plain version's on the same
+    inputs, strictly, on every lane. Per pass (ik a (G,) rays plane; cfg
+    unused): fk and fp the (G, 3) radiance, compared as int32, and the
+    rays. Streaming (ik a state's i32 planes): every plane
+    (_strict_planes), depth and sup aside on lanes idle in both, as the
+    design comment of csrc/megakernel.cu allows. Returns the lanes that
+    differ a plane (``planes``) and their sum (``lanes_differ``); raises
+    unless that is 0 (check)."""
+    import torch
+
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    if ik.dim() == 1:
+        torch.cuda.synchronize()
+        rad = (fk.view(torch.int32) != fp.view(torch.int32)).any(dim=1)
+        planes = {k: int(v.sum()) for k, v in (("radiance", rad),
+                                              ("rays", ik != ip))
+                  if bool(v.any())}
+        out = dict(planes=planes, lanes_differ=sum(planes.values()),
+                   lanes=int(ik.shape[0]))
+        K1_STRICT["mega_pass"].append(out["lanes_differ"])
+    else:
+        out = _strict_planes(mk._F_PLANES, mk._I_PLANES, fk, ik, fp, ip)
+        K1_STRICT["stream_step"].append(out["lanes_differ"])
+    if check and out["lanes_differ"]:
+        raise AssertionError(f"{name}: K1's output differs from the plain "
+                             f"version's: {out['planes']}")
+    return out
+
+
+def lane_utilisation(rays) -> float:
+    """The share of a warp's lane slots that issue work when one thread
+    runs one lane to its end (K1a before its lane queue): the lanes'
+    iterations (a per-pass launch's rays plane: one ray an iteration)
+    over 32 times the sum over warps (32 consecutive lanes, the last one
+    padded with idle lanes) of their longest lane's."""
+    import torch
+
+    r = torch.as_tensor(rays).reshape(-1).to(torch.int64).cpu()
+    pad = (-r.shape[0]) % 32
+    w = torch.cat([r, r.new_zeros(pad)]).reshape(-1, 32)
+    issued = 32 * int(w.max(dim=1).values.sum())
+    return int(r.sum()) / issued if issued else 1.0
 
 
 def chain(cfg, launches, init, kernel_step, plain_step, n_rows=None,
@@ -406,7 +478,7 @@ def stream_chain(table, camv, cfg, key, ns, launches, ip_offset=0,
                  row_offset=0, n_rows=None) -> dict:
     """chain() through the classic streaming kernel (stream_step) and
     stream_step_plain, on a band of n_rows rows from row_offset with the
-    samples from ip_offset."""
+    samples from ip_offset, each gated state also under k1_strict."""
     from smallpt_tpu_torch.core import rng
     from smallpt_tpu_torch.ops import megakernel as mk
 
@@ -419,7 +491,7 @@ def stream_chain(table, camv, cfg, key, ns, launches, ip_offset=0,
                                           n_spheres=ns, **band)[2],
         lambda f, i, n: mk.stream_step_plain(table, camv, cfg, k0, k1, f, i,
                                              n, n_spheres=ns, **band)[2],
-        n_rows)
+        n_rows, strict=k1_strict)
 
 
 def dda_chain(tables, camv, cfg, key, launches, state=None, counts=None,
@@ -459,14 +531,15 @@ def compare_pass(name, rad_k, rays_k, rad_p, rays_p) -> dict:
 
 def pass_vs_plain(name, table, camv, cfg, key, ns, **band) -> dict:
     """One per-pass launch (mega_pass) against render_pass_plain on the
-    same inputs (compare_pass)."""
+    same inputs (compare_pass, and k1_strict)."""
     from smallpt_tpu_torch.core import rng
     from smallpt_tpu_torch.ops import megakernel as mk
 
-    return compare_pass(
-        name, *mk.mega_pass(table, camv, cfg, key, n_spheres=ns, **band),
-        *mk.render_pass_plain(table, camv, cfg, *rng.key_words(key),
-                              n_spheres=ns, **band))
+    got = mk.mega_pass(table, camv, cfg, key, n_spheres=ns, **band)
+    want = mk.render_pass_plain(table, camv, cfg, *rng.key_words(key),
+                                n_spheres=ns, **band)
+    return dict(compare_pass(name, *got, *want),
+                strict=k1_strict(name, cfg, *got, *want))
 
 
 def gate_shallow(img: np.ndarray, ref: np.ndarray) -> dict:
@@ -505,12 +578,13 @@ def device_ms_by_name(prof) -> dict:
 
 
 # each wrapper's kernels as the profiler names them (demangled), one
-# event each a wrapper call: K1a and K1b are mega_pass_kernel<kGlobal,
-# kRecord>; K6 launches one kernel (a memset, no kernel, zeroes its
-# counters first when it cuts its rows); K8 launches four kernels in turn
+# event each a wrapper call: K1a is mega_pass_kernel<kGlobal, kNee>, K1b
+# mega_record_kernel<kGlobal>; K6 launches one kernel (a memset, no
+# kernel, zeroes its counters first when it cuts its rows); K8 launches
+# four kernels in turn
 KERNEL_EVENT = {name: tuple(re.compile(p) for p in pats) for name, pats in (
-    ("mega_pass", (r"\bmega_pass_kernel<\w+, false>",)),
-    ("mega_record", (r"\bmega_pass_kernel<\w+, true>",)),
+    ("mega_pass", (r"\bmega_pass_kernel<",)),
+    ("mega_record", (r"\bmega_record_kernel<",)),
     ("stream_step", (r"\bstream_step_kernel\b",)),
     ("stream_step_dda", (r"\bstream_dda_kernel\b",)),
     ("closest_hit", (r"\bclosest_hit_kernel\b",)),
@@ -669,20 +743,17 @@ def stream_full_width(name, scene, cfg, ref_mean, dev, n_rounds=3) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
     cmp = state_gate(name, cfg, f, i, fp, ip, drained=True)
-    n_rays, shadow = int(rk), counts.get("shadow_rays", 0)
+    cmp["strict"] = k1_strict(name, cfg, f, i, fp, ip)
+    n_rays = int(rk)
     rays_close(name, n_rays, int(rp))
-    ops = (n_rays * (OPS_PER_SPHERE * ns + OPS_PER_BOUNCE)
-           + shadow * (OPS_PER_SPHERE * ns + OPS_PER_CONE))
     lanes = f0.shape[1] * 8
     nbytes = (ns * 16 * 4 + camv.numel() * 4 + lanes * 4 * (14 + 6)
               + lanes * 4 * (14 + 5))
-    ops_ms, bytes_ms = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    kernel = dict(kernel_ms=k_ms, rays=n_rays, shadow_rays=shadow,
-                  plain_iterations=counts.get("iterations"),
+    kernel = dict(kernel_ms=k_ms, plain_iterations=counts.get("iterations"),
                   mrays_per_s=n_rays / k_ms / 1e3, plain_ms=plain_ms,
-                  ops=ops, bytes=nbytes, bound_ops_ms=ops_ms,
-                  bound_bytes_ms=bytes_ms,
-                  bound_nofma_ms=ops / PEAK_FP32_NOFMA * 1e3, vs_plain=cmp)
+                  **k1_bound(counts, n_rays, ns, nbytes),
+                  plan=mk.mega_plan(lanes, ns, len(cfg.nee_lights), True),
+                  vs_plain=cmp)
     return {"main": main, "kernel": kernel}
 
 
@@ -805,6 +876,163 @@ def big_classic_phases(dev) -> dict:
     return out
 
 
+def k1_queue(name, queue, n_lanes: int, worked: int) -> dict:
+    """A K1a or K1c launch's queue (mk.QUEUE_FIELDS): the lanes handed
+    out, which must be every lane once (n_lanes), and the lanes that had
+    work, which must be the launch's (worked)."""
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    q = dict(zip(mk.QUEUE_FIELDS, (int(x) for x in queue.tolist())))
+    if q["handed"] != n_lanes or q["worked"] != worked:
+        raise AssertionError(f"{name}: K1's queue handed out {q['handed']} "
+                             f"of {n_lanes} lanes, {q['worked']} with work "
+                             f"of {worked}")
+    return q
+
+
+def k1_working_lanes(i) -> int:
+    """The lanes of a streaming state (i its i32 planes) that a K1c launch
+    works on: alive, or with a sample of their budget left."""
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    ii = i.reshape(len(mk._I_PLANES), -1)
+    alive, s_idx, budget = (ii[mk._I_PLANES.index(k)]
+                            for k in ("alive", "s_idx", "budget"))
+    return int(((alive != 0) | (s_idx < budget - 1)).sum())
+
+
+def k1_constructed_launches(dev) -> dict:
+    """K1a and K1c against their plain version on launches built to reach
+    the edges of their queue, their cap and their sphere test, each held by
+    k1_strict (every lane, bit for bit) and its rays exactly, with the
+    launch's plan and its queue (every lane handed out once), through the
+    uncounted launches mk._pass_launch and mk._stream_launch:
+    - one lane (1x1 pixels) and one lane short of a block (127x1), per
+      pass (4 samples) and streaming (budget 4; the state's one tile of
+      8,192 lanes, the rest idle), with NEE on the light;
+    - Cornell at 128x96, budget 4, launches capped at 3 and at 5
+      iterations (lanes cut mid-path), then chained to the drain, without
+      and with NEE;
+    - launches whose lanes are more than three first waves (the main
+      path's Cornell at 1024x768), so that threads take lanes from the
+      queue: a 4-sample pass, and streaming budget 4 capped at 5 and at 5
+      iterations (each thread's count restarting at every lane it takes),
+      then drained, without and with NEE;
+    - lanes with no budget among working ones (budgets 0-4 drawn from a
+      seed, a third of them 0), capped at 6, then drained;
+    - a camera whose rays start exactly on the left wall (origin (1, 40.8,
+      81.6), the wall's centre 1e5 away on x, push 0), so that K1's inside
+      guard meets q within an ulp of r*r, per pass and streaming."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import LegacyCamera, smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    leg = dict(camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+               spp_per_cell=1)
+    scene = cornell_box_scene()
+    ns = scene.n_spheres
+    d = np.array([1.0, 0.0, -1.0], np.float32)
+    on_wall = LegacyCamera(
+        origin=torch.tensor([1.0, 40.8, 81.6]),
+        direction=torch.tensor(d / np.linalg.norm(d)),
+        fov_scale=torch.tensor(0.5135), push_forward=torch.tensor(0.0))
+    c128 = RenderConfig(width=128, height=96, max_depth=24, **leg)
+    main = RenderConfig(width=1024, height=768, max_depth=48, **leg)
+    out = {}
+
+    def refills(name, res, lanes):
+        """Record the launch's first wave (a lane a thread); where name
+        says the queue must refill, hold it to at least three waves."""
+        wave = res["plan"]["threads"]
+        res["first_wave"] = wave
+        if "refill" in name and lanes < 3 * wave:
+            raise AssertionError(f"{name}: {lanes} lanes for a first wave "
+                                 f"of {wave}")
+
+    def one_pass(name, cfg, cam, seed):
+        table = mk.build_scene_table(scene, cfg, dev)
+        camv = mk.build_camera_vec(cam, cfg, dev)
+        k0, k1 = rng.key_words(rng.base_key(seed))
+        rad, rays, queue = mk._pass_launch(table, camv, cfg, k0, k1, 0, 0,
+                                           cfg.height, cfg.spp, ns)
+        want = mk.render_pass_plain(table, camv, cfg, k0, k1, n_spheres=ns)
+        out[name] = dict(
+            strict=k1_strict(name, cfg, rad, rays, *want),
+            rays=int(rays.sum()), lanes=cfg.n_pixels,
+            queue=k1_queue(name, queue, cfg.n_pixels, cfg.n_pixels),
+            plan=mk.mega_plan(cfg.n_pixels, ns, len(cfg.nee_lights), False))
+        refills(name, out[name], cfg.n_pixels)
+
+    def stream(name, cfg, cam, seed, launches):
+        """launches: (budget, n_iters) pairs from a fresh state, each held
+        to the plain version's from the same state."""
+        table = mk.build_scene_table(scene, cfg, dev)
+        camv = mk.build_camera_vec(cam, cfg, dev)
+        k0, k1 = rng.key_words(rng.base_key(seed))
+        f, i = mk.init_stream_state(cfg, device=dev)
+        n_cols = f.shape[1]
+        lanes = mk._SUB * n_cols
+        res = {}
+        for n, (budget, n_iters) in enumerate(launches):
+            if budget is not None:
+                mk.set_sample_budget(i, budget, cfg)
+            fp, ip_ = f.clone(), i.clone()
+            worked = k1_working_lanes(i)
+            rk, queue = mk._stream_launch(table, camv, cfg, k0, k1, f, i,
+                                          n_iters, 0, 0, n_cols, ns)
+            rp = mk.stream_step_plain(table, camv, cfg, k0, k1, fp, ip_,
+                                      n_iters, n_spheres=ns)[2]
+            if int(rk) != int(rp):
+                raise AssertionError(f"{name} launch {n}: rays {int(rk)} vs "
+                                     f"{int(rp)}")
+            res[f"launch{n}"] = dict(
+                strict=k1_strict(f"{name} launch {n}", cfg, f, i, fp, ip_),
+                rays=int(rk), n_iters=n_iters,
+                queue=k1_queue(name, queue, lanes, worked),
+                pending=mk.stream_pending(i))
+        if mk.stream_pending(i) != (0, 0):
+            raise AssertionError(f"{name}: the last launch did not drain")
+        res["plan"] = mk.mega_plan(lanes, ns, len(cfg.nee_lights), True)
+        refills(name, res, lanes)
+        out[name] = res
+
+    drain = 10_000_000
+    for w in (1, 127):
+        cfg = c128.replace(width=w, height=1, nee_lights=(8,))
+        one_pass(f"pass_lanes{w}_nee", cfg, smallpt_camera(), 1800 + w)
+        stream(f"stream_lanes{w}_nee", cfg, smallpt_camera(), 1800 + w,
+               ((4, drain),))
+    for nee in ((), (8,)):
+        tag = "_nee" if nee else ""
+        stream(f"capped_3_5{tag}", c128.replace(nee_lights=nee),
+               smallpt_camera(), 1810, ((4, 3), (None, 5), (None, drain)))
+    one_pass("pass_refill_1024x768", main, smallpt_camera(), 1813)
+    for nee in ((), (8,)):
+        tag = "_nee" if nee else ""
+        stream(f"refill_capped_5_5_1024x768{tag}",
+               main.replace(nee_lights=nee), smallpt_camera(), 1813,
+               ((4, 5), (None, 5), (None, drain)))
+    budgets = np.random.default_rng(1811).integers(0, 5, c128.n_pixels)
+    budgets[::3] = 0
+    stream("no_budget_among_working", c128, smallpt_camera(), 1811,
+           ((budgets, 6), (None, drain)))
+    wall = c128.replace(width=64, height=48)
+    one_pass("on_wall_pass", wall.replace(spp_per_cell=2), on_wall, 1812)
+    stream("on_wall_stream", wall, on_wall, 1812, ((2, 5), (None, drain)))
+    # the origins on the wall: their inside guard against r*r
+    table = mk.build_scene_table(scene, wall, dev)
+    camv = mk.build_camera_vec(on_wall, wall, dev).reshape(-1).cpu()
+    out["on_wall_origin"] = [float(x) for x in camv[9:12]]
+    out["on_wall_push"] = float(camv[12])
+    del table
+    torch.cuda.empty_cache()
+    return out
+
+
 def golden_phases(dev) -> dict:
     """The two stored goldens no other phase uses: the thin lens
     (golden_dof_32x24, the 2% gate) and shallow Cornell
@@ -872,6 +1100,33 @@ def k3_vs_plain_phases(dev) -> dict:
                          tables, camv, cfg, rng.base_key(seed),
                          *launches[0])[3]}
     return out
+
+
+def k1_bound(counts: dict, n_rays: int, n_spheres: int, nbytes: int) -> dict:
+    """The least time of one K1a or K1c launch for the work the plain
+    version counted on the same inputs (counts: the shadow rays and each
+    sweep's sphere tests by class; n_rays the launch's rays): its
+    operations at the float rate, each test at its class's price
+    (OPS_K1_*), each ray's bounce at OPS_PER_BOUNCE and each shadow ray's
+    cone sample and light test at OPS_PER_CONE + OPS_PER_SPHERE; nbytes
+    at the memory rate. Beside it the count before K1's own test: every
+    ray and shadow ray at the whole test on every sphere
+    (``bound_ms_every_test_full``, and its no-FMA time)."""
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    shadow = counts.get("shadow_rays", 0)
+    price = dict(miss=OPS_K1_MISS, inside=OPS_K1_INSIDE, full=OPS_PER_SPHERE)
+    tests = {f"{p}pairs_{c}": counts.get(f"{p}pairs_{c}", 0)
+             for p in ("", "shadow_") for c in mk.PAIR_CLASSES}
+    ops = (n_rays * OPS_PER_BOUNCE + shadow * (OPS_PER_CONE + OPS_PER_SPHERE)
+           + sum(price[k.rsplit("_", 1)[1]] * v for k, v in tests.items()))
+    full_ops = (n_rays * (OPS_PER_SPHERE * n_spheres + OPS_PER_BOUNCE)
+                + shadow * (OPS_PER_SPHERE * n_spheres + OPS_PER_CONE))
+    full = _bound(full_ops, nbytes)
+    return _bound(ops, nbytes, rays=n_rays, shadow_rays=shadow, **tests,
+                  ops_every_test_full=full_ops,
+                  bound_ms_every_test_full=full["bound_ms"],
+                  bound_nofma_ms_every_test_full=full["bound_nofma_ms"])
 
 
 def k3_bound(counts: dict, n_lanes: int, nf: int, tables) -> dict:
@@ -4558,7 +4813,7 @@ def shard_mega(dev) -> dict:
     max_depth 48 (each shard one K1a launch over its band and sample
     slice), against the single-device pass on the same key; the last
     shard's launch (rows 384-767, samples 2-3) against the plain version
-    on its own inputs (compare_pass)."""
+    on its own inputs (compare_pass, k1_strict)."""
     import torch
 
     from smallpt_tpu_torch.core import rng
@@ -4582,10 +4837,13 @@ def shard_mega(dev) -> dict:
     a = call["args"]
     band = {k: a[k] for k in ("ip_offset", "row_offset", "n_rows",
                               "k_samples")}
+    want = mk.render_pass_plain(
+        a["table"], a["cam"], a["config"], *rng.key_words(a["key"]),
+        n_spheres=a["n_spheres"], **band)
     vs_plain = dict(compare_pass(
-        "shard_mega shard (1, 1)", *call["out"], *mk.render_pass_plain(
-            a["table"], a["cam"], a["config"], *rng.key_words(a["key"]),
-            n_spheres=a["n_spheres"], **band)), **band)
+        "shard_mega shard (1, 1)", *call["out"], *want), **band,
+        strict=k1_strict("shard_mega shard (1, 1)", a["config"],
+                         *call["out"], *want))
     ref, rays = render_with_stats(scene, cam, cfg, key, device=dev)
     ms, _ = cuda_ms(lambda: render_sharded(scene, cam, cfg, key, mesh), 3,
                     skip_first=True)
@@ -4620,7 +4878,8 @@ def shard_stream_vs_plain(name, call, dda: bool) -> dict:
     """A captured sharded streaming launch (capture_calls with the state
     copied before it) against stream_step_plain or stream_step_dda_plain
     from that state on the same band, key and budget (state_gate, drained
-    when the kernel's launch drained; K3 also under k3_strict)."""
+    when the kernel's launch drained; also under k3_strict or
+    k1_strict)."""
     from smallpt_tpu_torch.core import rng
     from smallpt_tpu_torch.ops import megakernel as mk
     from smallpt_tpu_torch.ops import stream_dda as sd
@@ -4643,8 +4902,8 @@ def shard_stream_vs_plain(name, call, dda: bool) -> dict:
     rays_close(name, int(rk), int(rp))
     st = state_gate(name, cfg, fk, ik, fp, ip_,
                     drained=mk.stream_pending(ik) == (0, 0), n_rows=n_rows)
-    if dda:
-        st["strict"] = k3_strict(name, cfg, fk, ik, fp, ip_)
+    st["strict"] = (k3_strict if dda else k1_strict)(name, cfg, fk, ik, fp,
+                                                     ip_)
     return dict(st, launch_rays_kernel=int(rk), launch_rays_plain=int(rp),
                 n_iters=a["n_iters"], budget=a["sample_budget"], **band)
 
@@ -5361,16 +5620,23 @@ def main() -> int:
                                          *rng.key_words(key), n_spheres=ns)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
-    cmp_stats["cornell_1024x768_main"] = compare_pass(
-        "cornell_1024x768_main", rad_k, rays_k, rad_p, rays_p)
-    ops = n_rays * (OPS_PER_SPHERE * ns + OPS_PER_BOUNCE)
+    cmp_stats["cornell_1024x768_main"] = dict(
+        compare_pass("cornell_1024x768_main", rad_k, rays_k, rad_p, rays_p),
+        strict=k1_strict("cornell_1024x768_main", cfg, rad_k, rays_k, rad_p,
+                         rays_p))
+    # the plain version again, counting its sphere tests for the bound
+    k1_counts = {}
+    mk.render_pass_plain(table, camv, cfg, *rng.key_words(key),
+                         n_spheres=ns, counts=k1_counts)
     nbytes = (ns * 16 * 4 + camv.numel() * 4 + cfg.n_pixels * 16)
-    ops_ms, bytes_ms = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    phase("kernel_timing", kernel_ms=k_ms, rays=n_rays,
-          mrays_per_s=n_rays / k_ms / 1e3, plain_ms=plain_ms, ops=ops,
-          bytes=nbytes, bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
-          bound_nofma_ms=ops / PEAK_FP32_NOFMA * 1e3,
-          vs_plain=cmp_stats["cornell_1024x768_main"])
+    k1a = dict(kernel_ms=k_ms, mrays_per_s=n_rays / k_ms / 1e3,
+               plain_ms=plain_ms, **k1_bound(k1_counts, n_rays, ns, nbytes),
+               lane_utilisation_one_lane_a_thread=lane_utilisation(rays_k),
+               rays_per_lane_mean=n_rays / cfg.n_pixels,
+               rays_per_lane_max=int(rays_k.max()),
+               plan=mk.mega_plan(cfg.n_pixels, ns, 0, False),
+               vs_plain=cmp_stats["cornell_1024x768_main"])
+    phase("kernel_timing", **k1a)
 
     # ---- 7. streaming kernel vs plain, small: two partial launches and a
     # drain --------------------------------------------------------------------
@@ -5419,6 +5685,8 @@ def main() -> int:
     # 2048 spheres, and the two goldens no phase above uses --------------------
     phase("branches_vs_plain", **branch_phases(dev))
     phase("big_classic_vs_plain", **big_classic_phases(dev))
+    k1_built = k1_constructed_launches(dev)
+    phase("k1_constructed_launches", **k1_built)
     phase("goldens", **golden_phases(dev))
 
     # ---- 14. the DDA kernel against its plain version, small ---------------
@@ -5700,7 +5968,7 @@ def main() -> int:
         "ms": launch["kernel_ms"], "plain_ms": launch["plain_ms"],
         "bound_ms": launch["bound_ms"], "bound_by": launch["bound_by"],
         "rays": launch["rays"], "ptxas": ptxas_entry(
-            mk.LIBRARY[0], "mega_pass_kernelILb0ELb1E"),
+            mk.LIBRARY[0], "mega_record_kernelILb0E"),
         "library_ms": None,
     })
     k4_main = [v for n, v in k4.items() if n.startswith("occ")]
@@ -5774,12 +6042,6 @@ def main() -> int:
     k2["bound_ms_every_pair_full"] = wf["regen_main_cornell_1024x768"][
         "kernel"]["middle"]["bound_ms_every_pair_full"]
 
-    def bound(k):
-        ms_ = max(k["bound_ops_ms"], k["bound_bytes_ms"])
-        by = ("operations" if k["bound_ops_ms"] >= k["bound_bytes_ms"]
-              else "bytes")
-        return ms_, by
-
     stream_cmp = {f"{case}/{launch}": st["frac_div"]
                   for case, chain_ in stream_stats.items()
                   for launch, st in chain_.items()}
@@ -5796,6 +6058,9 @@ def main() -> int:
     mega_cmp = dict(cmp_stats, shard_mega_1_1=shards["mega"][
         "shard_vs_plain"])
 
+    k1_keys = ("bound_ms_every_test_full", "bound_nofma_ms",
+               "bound_nofma_ms_every_test_full", "plan")
+    k1_ptxas = ptxas_entry(mk.LIBRARY[0])
     kernels = [{
         "name": "mega_pass",
         "route": "cuda",
@@ -5806,8 +6071,16 @@ def main() -> int:
         "frac_div": {k: s["frac_div"] for k, s in mega_cmp.items()},
         "ms": k_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms": k1a["bound_ms"],
+        "bound_by": k1a["bound_by"],
+        **{k: k1a[k] for k in k1_keys},
+        "lane_utilisation_one_lane_a_thread": k1a[
+            "lane_utilisation_one_lane_a_thread"],
+        "strict_launches": len(K1_STRICT["mega_pass"]),
+        "strict_lanes_differ": max(K1_STRICT["mega_pass"]),
+        "constructed": {n: v for n, v in k1_built.items()
+                        if n.startswith(("pass", "on_wall_pass"))},
+        "ptxas": k1_ptxas,
         "library_ms": None,
     }, {
         "name": "stream_step",
@@ -5820,13 +6093,24 @@ def main() -> int:
         "frac_div": stream_cmp,
         "ms": stream_kernel["kernel_ms"],
         "plain_ms": stream_kernel["plain_ms"],
-        "bound_ms": bound(stream_kernel)[0],
-        "bound_by": bound(stream_kernel)[1],
+        "bound_ms": stream_kernel["bound_ms"],
+        "bound_by": stream_kernel["bound_by"],
+        **{k: stream_kernel[k] for k in k1_keys},
         "ms_nee": nee_kernel["kernel_ms"],
         "plain_ms_nee": nee_kernel["plain_ms"],
-        "bound_ms_nee": bound(nee_kernel)[0],
+        "bound_ms_nee": nee_kernel["bound_ms"],
+        **{f"{k}_nee": nee_kernel[k] for k in k1_keys},
         "round_ms": full["cornell_1024x768"]["main"]["ms_per_round"],
         "round_ms_nee": full["cornell_1024x768_nee"]["main"]["ms_per_round"],
+        "kernel_round_ms": full["cornell_1024x768"]["main"][
+            "kernel_round_ms"],
+        "kernel_round_ms_nee": full["cornell_1024x768_nee"]["main"][
+            "kernel_round_ms"],
+        "strict_launches": len(K1_STRICT["stream_step"]),
+        "strict_lanes_differ": max(K1_STRICT["stream_step"]),
+        "constructed": {n: v for n, v in k1_built.items()
+                        if not n.startswith(("pass", "on_wall_pass",
+                                             "on_wall_o"))},
         "library_ms": None,
     }, {
         "name": "stream_step_dda",

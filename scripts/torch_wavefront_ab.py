@@ -70,6 +70,21 @@ three):
   raising: the lanes that differ a plane, ``*_k3_strict``, and their sum,
   ``*_k3_strict_lanes_differ``).
 
+- the K1 paths on the Cornell box at 1024x768, max_depth 48, seed 0:
+  ``mega_cornell_1024x768``, a ``ProgressiveRenderer`` pass on the default
+  route (4 spp; K1a), and ``stream_cornell_1024x768`` and ``*_nee`` (NEE on
+  sphere 8), a ``StreamingRenderer`` round of 24 spp in one launch that
+  drains, as chip_smoke.py::stream_full_width runs it (K1c). K1a and K1c
+  are bit-equal to one plain version in every tree, so the image's or the
+  accumulators' bits (``*_bits``) must be equal across the trees. K1 alone
+  on one launch (key fold_in(base_key(0), 1000)), timed as K8's launches
+  are: K1a over the whole frame (``*_k1_launch_ms``), K1c draining a
+  budget of 4 from a fresh state; their outputs' bits
+  (``*_k1_launch_bits``); with --strict the first parent and the first
+  change worker also hold that launch to the plain version
+  (chip_smoke.py::k1_strict, not raising: ``*_k1_strict``,
+  ``*_k1_strict_lanes_differ``).
+
 --paths keeps only the named ones (all of them by default). Beside each
 worker's readings, the card's mean SM clock and power draw over the
 worker (nvidia-smi sampled every 100 ms: ``sm_clock_mhz``, ``power_w``).
@@ -97,6 +112,8 @@ BINNED_SEED = 1000
 HOLD_CYCLES = 2_000_000  # the card's spin before a timed launch, ~1 ms
 DDA = ("dda_procedural10000_512x384", "dda_procedural10000_512x384_nee",
        "dda_procedural10000_1920x1080")
+K1 = ("mega_cornell_1024x768", "stream_cornell_1024x768",
+      "stream_cornell_1024x768_nee")
 BINNED = ("binned_drain_procedural10000_512x384",
           "binned_drain_procedural10000_512x384_nee",
           "binned_stream_procedural10000_512x384",
@@ -307,6 +324,97 @@ def dda(only: set, strict: bool) -> dict:
     return out
 
 
+def k1(only: set, strict: bool) -> dict:
+    """The K1 paths (see the module's docstring)."""
+    import torch
+
+    from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene
+    from smallpt_tpu_torch.engine.progressive import ProgressiveRenderer
+    from smallpt_tpu_torch.engine.streaming import StreamingRenderer
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    k1_strict = None
+    if strict:
+        import chip_smoke
+
+        k1_strict = chip_smoke.k1_strict
+    dev = torch.device("cuda")
+    scene, cam = cornell_box_scene(), smallpt_camera()
+    ns = scene.n_spheres
+    base = RenderConfig(width=1024, height=768, spp_per_cell=1,
+                        max_depth=48, camera_model=CameraModel.LEGACY,
+                        filter=Filter.TENT)
+    key = rng.fold_in(rng.base_key(0), 1000)
+    k0, k1_ = rng.key_words(key)
+    out = {}
+    for name in K1:
+        if only and name not in only:
+            continue
+        cfg = base.replace(nee_lights=(8,)) if name.endswith("_nee") \
+            else base
+        table = mk.build_scene_table(scene, cfg, dev)
+        camv = mk.build_camera_vec(cam, cfg, dev)
+        if name.startswith("mega_"):
+            r = ProgressiveRenderer(scene, cam, cfg, seed=0, device=dev)
+            n0 = mk.mega_pass.launches
+            out[name] = _times(r.step)
+            if mk.mega_pass.launches - n0 != 1 + N_TIMED:
+                raise AssertionError(f"{name}: not the K1a route")
+            out[name + "_bits"] = _bits(r.image)
+            got = []
+
+            def launch():
+                got[:] = mk.mega_pass(table, camv, cfg, key, n_spheres=ns)
+
+            out[name + "_k1_launch_ms"] = _launch_ms(launch, (), ())
+            out[name + "_k1_launch_bits"] = _bits(*(t.cpu().numpy()
+                                                    for t in got))
+            if k1_strict is not None:
+                want = mk.render_pass_plain(table, camv, cfg, k0, k1_,
+                                            n_spheres=ns)
+                st = k1_strict(name, cfg, *got, *want, check=False)
+        else:
+            spp = 24
+            r = StreamingRenderer(scene, cam, cfg, seed=0, device=dev)
+
+            def round_():
+                r.reset()
+                r.step(n_iters=10_000_000, add_samples=spp)
+
+            out[name] = _times(round_)
+            rad, w = r.accumulators()
+            out[name + "_bits"] = _bits(rad.cpu().numpy(), w.cpu().numpy())
+            f0, i0 = mk.init_stream_state(cfg, device=dev)
+            mk.set_sample_budget(i0, 4, cfg)
+            f, i = f0.clone(), i0.clone()
+
+            def launch():
+                mk.stream_step(table, camv, cfg, key, f, i, None,
+                               10_000_000, n_spheres=ns)
+
+            out[name + "_k1_launch_ms"] = _launch_ms(launch, (f, i),
+                                                     (f0, i0))
+            f.copy_(f0)
+            i.copy_(i0)
+            launch()
+            out[name + "_k1_launch_bits"] = _bits(f.cpu().numpy(),
+                                                  i.cpu().numpy())
+            if k1_strict is not None:
+                fp, ip = f0.clone(), i0.clone()
+                mk.stream_step_plain(table, camv, cfg, k0, k1_, fp, ip,
+                                     10_000_000, n_spheres=ns)
+                st = k1_strict(name, cfg, f, i, fp, ip, check=False)
+        if k1_strict is not None:
+            out[name + "_k1_strict"] = st["planes"]
+            out[name + "_k1_strict_lanes_differ"] = st["lanes_differ"]
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_pass(run, kernel: str, bounds: bool, scene=None) -> dict:
     """Every launch of the closest-hit kernel ``kernel`` ("k2" or "k6") in
     one more run(), each timed alone (``_launch_ms``: the kernel writes
@@ -421,7 +529,7 @@ def worker(only: set, bounds: bool, strict: bool) -> dict:
         "flat_split8_cornell_1024x768": (
             cornell, c1.replace(scheduler=Scheduler.FLAT, split_budget=8)),
     }
-    out = {"tree": os.environ.get("PYTHONPATH", ""),
+    out = {"tree": os.environ.get("PYTHONPATH", ""), **k1(only, strict),
            **dda(only, strict), **binned(only, bounds)}
     for name, (scene, cfg) in passes.items():
         if only and name not in only:
@@ -461,8 +569,8 @@ def main() -> int:
     p.add_argument("--blocks", type=int, default=1)
     p.add_argument("--bounds", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--strict", action="store_true",
-                   help="hold K3's launch to the plain version in the first "
-                   "worker of each tree")
+                   help="hold K1's and K3's launches to the plain version "
+                   "in the first worker of each tree")
     p.add_argument("--out", default="wavefront_ab.json")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args()
@@ -482,7 +590,7 @@ def main() -> int:
         tree = os.path.abspath(getattr(args, side))
         env = dict(os.environ, PYTHONPATH=tree)
         # the K2, K6 and K8 launches' bounds once, in the first change
-        # worker; K3 against the plain version once a tree
+        # worker; K1 and K3 against the plain version once a tree
         extra = (["--bounds"] if n == 1 else []) + (
             ["--strict"] if args.strict and n < 2 else [])
         # the card's SM clock and power draw over the worker

@@ -2,11 +2,15 @@
 (PyTorch port of ``_mega_kernel`` in smallpt_tpu/ops/megakernel.py, in its
 per-pass, recording and streaming uses, with next-event estimation).
 
-One kernel body (csrc/megakernel.cu) serves all three. Each thread owns one
-pixel lane and loops on its own: regenerate a camera ray when its path has
-died and it still has samples, sweep the sphere table for the closest hit,
-pick up emission, sample the NEE lights at diffuse vertices, shade
-(DIFF/SPEC/REFR with Russian roulette) and continue.
+One bounce body (csrc/megakernel.cu) serves all three. A lane loops on its
+own: regenerate a camera ray when its path has died and it still has
+samples, sweep the sphere table for the closest hit, pick up emission,
+sample the NEE lights at diffuse vertices, shade (DIFF/SPEC/REFR with
+Russian roulette) and continue. The per-pass and streaming kernels (K1a,
+K1c) run on as many threads as the card holds at once, each taking pixel
+lanes from a queue as its lanes finish (``mega_plan``); the recorder (K1b)
+runs one thread a lane. A lane's result does not depend on the thread that
+runs it.
 
 - Per-pass mode, ``mega_pass`` (the JAX ``render_pass_megakernel``): every
   lane starts dead with a budget of k_samples, and only the summed radiance
@@ -230,14 +234,49 @@ def _launch_args(config: RenderConfig, n_lanes, n_spheres, k0, k1,
 LIBRARY = ("smallpt_megakernel", "megakernel.cu")
 
 
+# K1a's and K1c's launch (smallpt_mega_plan) and their queue's scratch after
+# a launch (the counter past the first wave, the lanes handed out, the lanes
+# that had work)
+PLAN_FIELDS = ("blocks", "threads", "n_sm", "per_sm", "smem", "global",
+               "nee")
+QUEUE_FIELDS = ("next", "handed", "worked")
+
+
 def _kernel_lib():
     """The per-pass entry point of the kernel library (built at first use)."""
-    return _entry("smallpt_mega_pass", 7)
+    return _entry("smallpt_mega_pass", 8)
 
 
 def _stream_lib():
     """The streaming entry point of the same library."""
-    return _entry("smallpt_stream_step", 8)
+    return _entry("smallpt_stream_step", 9)
+
+
+def _plan_lib():
+    """The launch plan of K1a and K1c, in the same library."""
+    return _entry("smallpt_mega_plan", 5, [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
+
+
+def mega_plan(n_lanes: int, n_spheres: int, n_lights: int,
+              streaming: bool, device=None) -> dict:
+    """The launch K1a (streaming False) or K1c makes of n_lanes lanes over
+    n_spheres spheres with n_lights NEE lights, on a CUDA device (None: the
+    current one): its blocks and their threads (the first wave; the queue
+    hands out the other lanes), the SMs, the blocks an SM holds (the
+    instance's occupancy at its shared memory), the shared memory a block,
+    and the instance (the sweep from global memory, NEE); PLAN_FIELDS ->
+    int."""
+    device = torch.device("cuda" if device is None else device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    out = np.zeros(len(PLAN_FIELDS), np.int64)
+    with torch.cuda.device(device):
+        err = _plan_lib()(int(n_lanes), int(n_spheres), int(n_lights),
+                          int(bool(streaming)), out.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"smallpt_mega_plan: CUDA error {err}")
+    return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
 
 
 def _record_lib():
@@ -245,12 +284,12 @@ def _record_lib():
     return _entry("smallpt_mega_record", 8)
 
 
-def _entry(name: str, n_args: int):
+def _entry(name: str, n_args: int, argtypes=None):
     from smallpt_tpu_torch.utils.nvcc import load_library
 
     fn = getattr(load_library(*LIBRARY), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_args
+        fn.argtypes = argtypes or [ctypes.c_void_p] * n_args
         fn.restype = ctypes.c_int
     return fn
 
@@ -278,24 +317,38 @@ def mega_pass(table: torch.Tensor, cam: torch.Tensor, config: RenderConfig,
         return render_pass_plain(table, cam, config, k0, k1, ip_offset,
                                  row_offset, n_rows, k_samples,
                                  n_spheres=n_spheres)
-    fn = _kernel_lib()
-    g = n_rows * config.width
-    rad = torch.empty((g, 3), dtype=torch.float32, device=table.device)
-    rays = torch.empty((g,), dtype=torch.int32, device=table.device)
-    ints, floats = _launch_args(config, g, n_spheres, k0, k1,
-                                ip_offset, row_offset, k_samples)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), cam.data_ptr(), rad.data_ptr(),
-                 rays.data_ptr(), ints.ctypes.data, floats.ctypes.data,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    rad, rays, _ = _pass_launch(table, cam, config, k0, k1, ip_offset,
+                                row_offset, n_rows, k_samples, n_spheres)
     mega_pass.launches += 1
     return rad, rays
 
 
 mega_pass.launches = 0
+
+
+def _pass_launch(table, cam, config: RenderConfig, k0: int, k1: int,
+                 ip_offset: int, row_offset: int, n_rows: int,
+                 k_samples: int, n_spheres: int):
+    """mega_pass's launch of K1a on CUDA tensors, uncounted; the caller
+    has checked the inputs. Returns (radiance, rays, queue): the queue's
+    (3,) int32 scratch after the launch (QUEUE_FIELDS)."""
+    fn = _kernel_lib()
+    g = n_rows * config.width
+    rad = torch.empty((g, 3), dtype=torch.float32, device=table.device)
+    rays = torch.empty((g,), dtype=torch.int32, device=table.device)
+    # the queue's counters, zeroed by the launch on its stream
+    queue = torch.empty((len(QUEUE_FIELDS),), dtype=torch.int32,
+                        device=table.device)
+    ints, floats = _launch_args(config, g, n_spheres, k0, k1,
+                                ip_offset, row_offset, k_samples)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table.data_ptr(), cam.data_ptr(), rad.data_ptr(),
+                 rays.data_ptr(), queue.data_ptr(), ints.ctypes.data,
+                 floats.ctypes.data, stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    return rad, rays, queue
 
 
 def mega_record(table: torch.Tensor, cam: torch.Tensor, config: RenderConfig,
@@ -530,22 +583,37 @@ def stream_step(table: torch.Tensor, cam: torch.Tensor, config: RenderConfig,
         return stream_step_plain(table, cam, config, k0, k1, f, i, n_iters,
                                  ip_offset, row_offset, n_rows,
                                  n_spheres=n_spheres)
-    fn = _stream_lib()
-    rays = torch.zeros((), dtype=torch.int64, device=table.device)
-    ints, floats = _launch_args(config, _SUB * n_cols, n_spheres, k0, k1,
-                                ip_offset, row_offset, 0, max_it=n_iters)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), cam.data_ptr(), f.data_ptr(),
-                 i.data_ptr(), rays.data_ptr(), ints.ctypes.data,
-                 floats.ctypes.data, stream)
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    rays, _ = _stream_launch(table, cam, config, k0, k1, f, i, n_iters,
+                             ip_offset, row_offset, n_cols, n_spheres)
     stream_step.launches += 1
     return f, i, rays
 
 
 stream_step.launches = 0
+
+
+def _stream_launch(table, cam, config: RenderConfig, k0: int, k1: int, f, i,
+                   n_iters: int, ip_offset: int, row_offset: int,
+                   n_cols: int, n_spheres: int):
+    """stream_step's launch of K1c on CUDA tensors, uncounted; the caller
+    has checked the inputs, and the budget plane is read as it stands.
+    Returns (rays, queue): the 0-d int64 count of rays traced, and the
+    queue's (3,) int32 scratch after the launch (QUEUE_FIELDS)."""
+    fn = _stream_lib()
+    rays = torch.zeros((), dtype=torch.int64, device=table.device)
+    # the queue's counters, zeroed by the launch on its stream
+    queue = torch.empty((len(QUEUE_FIELDS),), dtype=torch.int32,
+                        device=table.device)
+    ints, floats = _launch_args(config, _SUB * n_cols, n_spheres, k0, k1,
+                                ip_offset, row_offset, 0, max_it=n_iters)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table.data_ptr(), cam.data_ptr(), f.data_ptr(),
+                 i.data_ptr(), rays.data_ptr(), queue.data_ptr(),
+                 ints.ctypes.data, floats.ctypes.data, stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    return rays, queue
 
 
 def _normalize3(x, y, z):
@@ -687,8 +755,11 @@ def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
     Runs while any lane is alive or can regenerate, at most max_it
     iterations. streaming selects the (pixel, ip) keying and the moment
     update at regeneration; otherwise samples are keyed by
-    pixel * spp + ip. counts: None, or a dict whose "shadow_rays" entry
-    gains the NEE shadow rays traced (for the kernel's op bound). rec:
+    pixel * spp + ip. counts: None, or a dict that gains the NEE shadow rays
+    traced ("shadow_rays"), the iterations run ("iterations") and the
+    (ray, sphere) tests of the sweeps by the class K1a's and K1c's sphere
+    test puts them in (``_count_pairs``), for the kernel's op bound; it only
+    counts, on the side. rec:
     None, or a (max_depth, N) int32 tensor prefilled with -1 that receives
     each live lane's winner (table row) at its depth."""
     dev = table.device
@@ -754,6 +825,8 @@ def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
 
         # ---- closest-hit sphere sweep (strict <: the first id wins ties) ---
         bt, bi = _sweep(ox, oy, oz, dx, dy, dz, cols)
+        if counts is not None:
+            _count_pairs(counts, "", (ox, oy, oz, dx, dy, dz), cols, alive)
         win = table[bi.clamp(min=0)]
         hit = bt < _BIG
         live_hit = alive & hit
@@ -812,6 +885,9 @@ def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
             if counts is not None:
                 counts["shadow_rays"] = (counts.get("shadow_rays", 0)
                                          + int(sampled.sum()))
+                _count_pairs(counts, "shadow_", (nox, noy, noz, *ld), cols,
+                             sampled & (t_light < _BIG), skip=li,
+                             t_stop=t_light)
 
         ox = torch.where(parent, nox, ox)
         oy = torch.where(parent, noy, oy)
@@ -829,6 +905,62 @@ def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
     st.update(depth=depth, s_idx=s_idx, alive=alive, rays=nrays, sup=sup)
     if counts is not None:
         counts["iterations"] = counts.get("iterations", 0) + it
+
+
+# The classes of a (ray, sphere) test in K1a's and K1c's own sphere test
+# (csrc/megakernel.cu::k1_tt): a miss decided at det, the inside path, the
+# whole test.
+PAIR_CLASSES = ("miss", "inside", "full")
+
+
+def _k1_classes(ox, oy, oz, dx, dy, dz, scx, scy, scz, sr, seps):
+    """(miss, inside) of K1's sphere test for every (lane, sphere), in the
+    test's own op order: miss where !(det >= 0 and r > 0); inside where not
+    a miss and b*b + pp < r*r with eps >= 0; every other test is whole."""
+    opx = scx - ox
+    opy = scy - oy
+    opz = scz - oz
+    b = opx * dx + opy * dy + opz * dz
+    fx = opx - b * dx
+    fy = opy - b * dy
+    fz = opz - b * dz
+    pp = fx * fx + fy * fy + fz * fz
+    sp = torch.sqrt(pp)
+    det = (sr - sp) * (sr + sp)
+    miss = ~((det >= 0.0) & (sr > 0.0))
+    inside = ~miss & (b * b + pp < sr * sr) & (seps >= 0.0)
+    return miss, inside
+
+
+def _count_pairs(counts: dict, prefix: str, ray, cols, mask, skip=None,
+                 t_stop=None) -> None:
+    """Add to counts[prefix + "pairs_" + class] the sphere tests the kernel
+    makes for the lanes in mask, each by its class (PAIR_CLASSES): every
+    row of cols for a closest-hit sweep; for a shadow sweep (skip: the
+    light's row, which it does not test; t_stop: the light's t) the rows
+    in order up to the first one nearer than t_stop, where the kernel's
+    sweep stops."""
+    n_rows = cols.shape[0]
+    sel = mask.nonzero().squeeze(1)
+    chunk = max(1, (1 << 22) // max(n_rows, 1))
+    row = torch.arange(n_rows, device=cols.device)[None, :]
+    c = [cols[:, k][None, :] for k in range(5)]
+    for lo in range(0, sel.shape[0], chunk):
+        idx = sel[lo:lo + chunk]
+        lanes = [v[idx][:, None] for v in ray]
+        miss, inside = _k1_classes(*lanes, *c)
+        tested = torch.ones_like(miss)
+        if skip is not None:
+            tested[:, skip] = False
+        if t_stop is not None:
+            nearer = (_sphere_tt(*lanes, *c) < t_stop[idx][:, None]) & tested
+            first = torch.where(nearer.any(dim=1),
+                                nearer.to(torch.int32).argmax(dim=1), n_rows)
+            tested &= row <= first[:, None]
+        for name, m in zip(PAIR_CLASSES,
+                           (miss, inside, ~(miss | inside))):
+            key = f"{prefix}pairs_{name}"
+            counts[key] = counts.get(key, 0) + int((m & tested).sum())
 
 
 # -- the per-lane formulas of the plain versions, shared by _plain_lanes and

@@ -118,6 +118,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     from smallpt_tpu_torch.ops import stream_dda as sd
 
     fn = types.SimpleNamespace(argtypes=None, restype=None)
+    mpfn = types.SimpleNamespace(argtypes=None, restype=None)
     rfn = types.SimpleNamespace(argtypes=None, restype=None)
     sfn = types.SimpleNamespace(argtypes=None, restype=None)
     dfn = types.SimpleNamespace(argtypes=None, restype=None)
@@ -133,7 +134,8 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     xfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
                         lambda name, src: types.SimpleNamespace(
-                            smallpt_mega_pass=fn, smallpt_mega_record=rfn,
+                            smallpt_mega_pass=fn, smallpt_mega_plan=mpfn,
+                            smallpt_mega_record=rfn,
                             smallpt_stream_step=sfn,
                             smallpt_stream_dda=dfn,
                             smallpt_stream_dda_plan=dpfn,
@@ -147,13 +149,16 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
                             smallpt_dda=kfn,
                             smallpt_closest_hit_mxu=xfn))
     assert mk._kernel_lib() is fn
-    assert fn.argtypes == [ctypes.c_void_p] * 7
+    assert fn.argtypes == [ctypes.c_void_p] * 8
     assert fn.restype is ctypes.c_int
+    assert mk._plan_lib() is mpfn
+    assert mpfn.argtypes == [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    assert mpfn.restype is ctypes.c_int
     assert mk._record_lib() is rfn
     assert rfn.argtypes == [ctypes.c_void_p] * 8
     assert rfn.restype is ctypes.c_int
     assert mk._stream_lib() is sfn
-    assert sfn.argtypes == [ctypes.c_void_p] * 8
+    assert sfn.argtypes == [ctypes.c_void_p] * 9
     assert sfn.restype is ctypes.c_int
     assert sd._dda_lib() == (dfn, dpfn)
     assert dfn.argtypes == [ctypes.c_void_p] * 15

@@ -94,14 +94,20 @@ the main paths through the kernels and times them:
 - scene gradients (bench.py --diff, BASELINE config 4): sgd_train_step on
   the Cornell box at 512x512, 4 spp, max_depth 16 through the replay
   differentiator, whose record is the recording megakernel K1b (one
-  launch per in-pixel sample), with diff_remat on and off, its parts and
-  peak memory; one step of the scan differentiator through K2 beside it,
-  and the record above MEGA_MAX_SPHERES (the flat wavefront over K2),
-  each with its first and middle K2 launch held to the plain version;
-  K1b held to its plain version bit for bit (Cornell, the thin lens and
-  the environment light, 2,048 spheres, one config-4 launch), the record's
-  image to K1a's pass, and the gradients on the card at 12x12 to the
-  CPU's, with the finite-difference gates of tests/test_torch_grad*.py;
+  launch a step over the pixels' 4 samples), with diff_remat on and off,
+  its parts and peak memory; one step of the scan differentiator through
+  K2 beside it, and the record above MEGA_MAX_SPHERES (the flat wavefront
+  over K2), each with its first and middle K2 launch held to the plain
+  version; every K1b launch held to its plain version on every lane, bit
+  for bit (record_strict: Cornell, the thin lens and the environment
+  light, 2,048 spheres, the config-4 launch and one sample's, the shard
+  replay's last launch, and constructed launches: 1, 127 and 254 lanes,
+  786,432 lanes past several first waves, 12,000 spheres swept from
+  global memory, NEE with 1 and 3 lights, an on-wall camera), each with
+  its queue and plan, the config-4 launch with its bound at K1's own
+  sphere test (k1_bound); the record's image to K1a's pass, and the
+  gradients on the card at 12x12 to the CPU's, with the
+  finite-difference gates of tests/test_torch_grad*.py;
 - the per-ray DDA closest hit (scripts/bench_dda_tpu.py's stage 2):
   intersect_spheres_dda on procedural_sphere_scene(10000), 196,608 bounce
   and 196,608 camera rays, grids at occ_target 16, 28 and 48, K4 held bit
@@ -385,9 +391,9 @@ def k3_strict(name, cfg, fk, ik, fp, ip, check: bool = True) -> dict:
     return out
 
 
-# the lanes_differ of every K1a and K1c launch held by k1_strict in this
-# run, by wrapper
-K1_STRICT = {"mega_pass": [], "stream_step": []}
+# the lanes_differ of every K1a and K1c launch held by k1_strict, and of
+# every K1b launch held by record_strict, in this run, by wrapper
+K1_STRICT = {"mega_pass": [], "stream_step": [], "mega_record": []}
 
 
 def k1_strict(name, cfg, fk, ik, fp, ip, check: bool = True) -> dict:
@@ -579,7 +585,7 @@ def device_ms_by_name(prof) -> dict:
 
 # each wrapper's kernels as the profiler names them (demangled), one
 # event each a wrapper call: K1a is mega_pass_kernel<kGlobal, kNee>, K1b
-# mega_record_kernel<kGlobal>; K6 launches one kernel (a memset, no
+# mega_record_kernel<kGlobal, kNee>; K6 launches one kernel (a memset, no
 # kernel, zeroes its counters first when it cuts its rows); K8 launches
 # four kernels in turn
 KERNEL_EVENT = {name: tuple(re.compile(p) for p in pats) for name, pats in (
@@ -752,7 +758,8 @@ def stream_full_width(name, scene, cfg, ref_mean, dev, n_rounds=3) -> dict:
     kernel = dict(kernel_ms=k_ms, plain_iterations=counts.get("iterations"),
                   mrays_per_s=n_rays / k_ms / 1e3, plain_ms=plain_ms,
                   **k1_bound(counts, n_rays, ns, nbytes),
-                  plan=mk.mega_plan(lanes, ns, len(cfg.nee_lights), True),
+                  plan=mk.mega_plan(lanes, ns, len(cfg.nee_lights),
+                                    "stream"),
                   vs_plain=cmp)
     return {"main": main, "kernel": kernel}
 
@@ -920,14 +927,13 @@ def k1_constructed_launches(dev) -> dict:
       then drained, without and with NEE;
     - lanes with no budget among working ones (budgets 0-4 drawn from a
       seed, a third of them 0), capped at 6, then drained;
-    - a camera whose rays start exactly on the left wall (origin (1, 40.8,
-      81.6), the wall's centre 1e5 away on x, push 0), so that K1's inside
-      guard meets q within an ulp of r*r, per pass and streaming."""
+    - a camera whose rays start exactly on the left wall (on_wall_camera),
+      per pass and streaming."""
     import torch
 
     from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
     from smallpt_tpu_torch.core import rng
-    from smallpt_tpu_torch.core.camera import LegacyCamera, smallpt_camera
+    from smallpt_tpu_torch.core.camera import smallpt_camera
     from smallpt_tpu_torch.core.scene import cornell_box_scene
     from smallpt_tpu_torch.ops import megakernel as mk
 
@@ -935,11 +941,7 @@ def k1_constructed_launches(dev) -> dict:
                spp_per_cell=1)
     scene = cornell_box_scene()
     ns = scene.n_spheres
-    d = np.array([1.0, 0.0, -1.0], np.float32)
-    on_wall = LegacyCamera(
-        origin=torch.tensor([1.0, 40.8, 81.6]),
-        direction=torch.tensor(d / np.linalg.norm(d)),
-        fov_scale=torch.tensor(0.5135), push_forward=torch.tensor(0.0))
+    on_wall = on_wall_camera()
     c128 = RenderConfig(width=128, height=96, max_depth=24, **leg)
     main = RenderConfig(width=1024, height=768, max_depth=48, **leg)
     out = {}
@@ -964,7 +966,7 @@ def k1_constructed_launches(dev) -> dict:
             strict=k1_strict(name, cfg, rad, rays, *want),
             rays=int(rays.sum()), lanes=cfg.n_pixels,
             queue=k1_queue(name, queue, cfg.n_pixels, cfg.n_pixels),
-            plan=mk.mega_plan(cfg.n_pixels, ns, len(cfg.nee_lights), False))
+            plan=mk.mega_plan(cfg.n_pixels, ns, len(cfg.nee_lights), "pass"))
         refills(name, out[name], cfg.n_pixels)
 
     def stream(name, cfg, cam, seed, launches):
@@ -996,7 +998,7 @@ def k1_constructed_launches(dev) -> dict:
                 pending=mk.stream_pending(i))
         if mk.stream_pending(i) != (0, 0):
             raise AssertionError(f"{name}: the last launch did not drain")
-        res["plan"] = mk.mega_plan(lanes, ns, len(cfg.nee_lights), True)
+        res["plan"] = mk.mega_plan(lanes, ns, len(cfg.nee_lights), "stream")
         refills(name, res, lanes)
         out[name] = res
 
@@ -2281,7 +2283,8 @@ def capture_calls(mod, name: str, fn, which, state=()) -> list:
 
     # the wrapper counts its launches on the name it is bound to in its
     # own module: the spy carries the count while it stands there
-    home = sys.modules[real.__module__] is mod
+    home = (sys.modules[real.__module__] is mod
+            and hasattr(real, "launches"))
     if home:
         spy.launches = real.launches
     setattr(mod, name, spy)
@@ -3855,17 +3858,6 @@ def grad_config(**kw):
     return RenderConfig(**base)
 
 
-def record_bound(n_rays: int, n_spheres: int, g: int, depth: int) -> dict:
-    """The least time of one K1b launch: K1a's operations for the same
-    rays (OPS_PER_SPHERE a sphere of the sweep, OPS_PER_BOUNCE the rest of
-    a bounce) at the float rate; the sphere table and camera read once, 16
-    B a lane (radiance, rays) and the D x G winner plane written once, at
-    the memory rate."""
-    ops = n_rays * (OPS_PER_SPHERE * n_spheres + OPS_PER_BOUNCE)
-    nbytes = n_spheres * 64 + 64 + g * 16 + depth * g * 4
-    return _bound(ops, nbytes)
-
-
 def ptxas_entry(lib: str, symbol: str = "") -> list:
     """ptxas's register lines and its stack and spill lines, from this
     process's build of library lib, of the entries whose mangled name holds
@@ -3882,20 +3874,52 @@ def ptxas_entry(lib: str, symbol: str = "") -> list:
     return out
 
 
-def record_exact(name, got, want) -> dict:
-    """One K1b launch against its plain version: radiance, rays and the
-    winner plane bit-equal."""
+def record_strict(name, got, want, check: bool = True) -> dict:
+    """One K1b launch's (radiance, rays, winners) against its plain
+    version's on the same inputs, strictly, on every lane: the radiance
+    compared as int32, the rays, and the lane's winner at every depth.
+    Returns the lanes that differ an output (``planes``) and their sum
+    (``lanes_differ``), the lanes, rays and hit entries, and the
+    radiance's max_abs_err; raises unless lanes_differ is 0 (check)."""
     import torch
 
     torch.cuda.synchronize()
-    for what, a, b in zip(("radiance", "rays", "winners"), got, want):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{name}: {what} differs on "
-                                 f"{int((a != b).sum())} of {a.numel()}")
-    rec = got[2]
-    return dict(lanes=rec.shape[1], rays=int(got[1].sum()),
-                hit_entries=int((rec >= 0).sum()), equal=True,
-                max_abs_err=0.0)
+    rad, rays, rec = got[:3]
+    prad, prays, prec = want[:3]
+    differ = (("radiance", (rad.view(torch.int32)
+                            != prad.view(torch.int32)).any(dim=1)),
+              ("rays", rays != prays), ("winners", (rec != prec).any(dim=0)))
+    planes = {k: int(v.sum()) for k, v in differ if bool(v.any())}
+    out = dict(planes=planes, lanes_differ=sum(planes.values()),
+               lanes=int(rays.shape[0]), rays=int(rays.sum()),
+               hit_entries=int((rec >= 0).sum()),
+               max_abs_err=float((rad - prad).abs().max()))
+    K1_STRICT["mega_record"].append(out["lanes_differ"])
+    if check and out["lanes_differ"]:
+        raise AssertionError(f"{name}: K1b's output differs from the plain "
+                             f"version's: {planes}")
+    return out
+
+
+def record_launch_vs_plain(name, table, camv, cfg, key, ns,
+                           k_samples: int = 1, ip_offset: int = 0) -> dict:
+    """One K1b launch over the frame's k_samples in-pixel samples from
+    ip_offset (mk._record_launch, uncounted) against the plain version
+    (record_strict), with its queue (k1_queue: every lane handed out once,
+    each with work) and its plan."""
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    k0, k1 = rng.key_words(key)
+    rad, rays, rec, queue = mk._record_launch(table, camv, cfg, k0, k1,
+                                              ip_offset, 0, cfg.height, ns,
+                                              k_samples)
+    want = mk.record_pass_plain(table, camv, cfg, k0, k1, ip_offset,
+                                n_spheres=ns, k_samples=k_samples)
+    n = int(rays.shape[0])
+    return dict(strict=record_strict(name, (rad, rays, rec), want),
+                queue=k1_queue(name, queue, n, n),
+                plan=mk.mega_plan(n, ns, len(cfg.nee_lights), "record"))
 
 
 def record_vs_plain_small(dev) -> dict:
@@ -3932,17 +3956,26 @@ def record_vs_plain_small(dev) -> dict:
             want = mk.record_pass_plain(table, camv, cfg,
                                         *rng.key_words(key), s,
                                         n_spheres=scene.n_spheres)
-            out[f"{name}/s{s}"] = record_exact(f"{name}/s{s}", got, want)
+            out[f"{name}/s{s}"] = record_strict(f"{name}/s{s}", got, want)
     return out
 
 
 def record_vs_mega(dev) -> dict:
-    """At config 4: the record's image (render_record_megakernel, 4 K1b
-    launches) against K1a's pass on the same key under
-    tests/test_megakernel.py::_compare's gate (rays within max(64, 0.1%));
-    one K1b launch (sample 0) alone against its plain version, bit-equal,
-    its CUDA-event time (mean of 5), the plain version's host time and the
-    launch's bound."""
+    """At config 4: the record's image (render_record_megakernel, one K1b
+    launch over the 4 in-pixel samples) against K1a's pass on the same key
+    under tests/test_megakernel.py::_compare's gate (rays within max(64,
+    0.1%)), its winners against the same launch made alone. Then K1b alone
+    on the main path's launch (1,048,576 lanes, each pixel's 4 samples) and
+    on one sample's (262,144 lanes, mega_record's: the launch the record
+    made a sample before), each against its plain version
+    (record_launch_vs_plain: every lane, its queue and plan), its CUDA-event
+    time (the mean of five, the card held busy before each), the plain
+    version's host time, and its bound (k1_bound: at K1's own sphere test
+    from the plain version's counts of the tests by class, and with every
+    test whole; the sphere table and camera read once, 16 B a lane and the
+    D x G winner plane written once); on the one-sample launch, the lane
+    utilisation one thread a lane to its end gives (lane_utilisation, the
+    design before the queue)."""
     import torch
 
     from smallpt_tpu_torch.core import rng
@@ -3964,22 +3997,128 @@ def record_vs_mega(dev) -> dict:
     table = mk.build_scene_table(scene, cfg, dev)
     camv = mk.build_camera_vec(cam, cfg, dev)
     ns = scene.n_spheres
-    k_ms, got = cuda_ms(lambda: mk.mega_record(table, camv, cfg, key, 0,
-                                               n_spheres=ns), 5)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    want = mk.record_pass_plain(table, camv, cfg, *rng.key_words(key), 0,
-                                n_spheres=ns)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t) * 1e3
-    launch = record_exact("record_launch_512x512", got, want)
-    launch.update(kernel_ms=k_ms, plain_ms=plain_ms,
-                  **record_bound(launch["rays"], ns, cfg.n_pixels,
-                                 cfg.max_depth))
-    return dict(image_vs_k1a=st, rays_record=int(rays_r),
-                rays_k1a=int(rays_m),
-                hit_share=float((winners >= 0).float().mean()),
-                launch=launch)
+    k0, k1 = rng.key_words(key)
+    out = dict(image_vs_k1a=st, rays_record=int(rays_r),
+               rays_k1a=int(rays_m),
+               hit_share=float((winners >= 0).float().mean()))
+    for name, k in (("launch", cfg.spp), ("one_sample", 1)):
+        k_ms, got = cuda_ms(lambda: mk._record_launch(
+            table, camv, cfg, k0, k1, 0, 0, cfg.height, ns, k), 6,
+            setup=hold_card, skip_first=True)
+        if k == cfg.spp and not torch.equal(got[2], winners):
+            raise AssertionError("record_vs_mega: the record's winners "
+                                 "differ from its launch's")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mk.record_pass_plain(table, camv, cfg, k0, k1, n_spheres=ns,
+                             k_samples=k)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        res = record_launch_vs_plain(f"record_{name}_512x512", table, camv,
+                                     cfg, key, ns, k)
+        counts = {}
+        mk.record_pass_plain(table, camv, cfg, k0, k1, n_spheres=ns,
+                             k_samples=k, counts=counts)
+        n, n_rays = res["strict"]["lanes"], res["strict"]["rays"]
+        nbytes = (ns * 16 * 4 + camv.numel() * 4 + n * 16
+                  + cfg.max_depth * n * 4)
+        res.update(kernel_ms=k_ms, plain_ms=plain_ms,
+                   **k1_bound(counts, n_rays, ns, nbytes),
+                   rays_per_lane_mean=n_rays / n,
+                   rays_per_lane_max=int(got[1].max()),
+                   lane_utilisation_one_lane_a_thread=lane_utilisation(
+                       got[1]))
+        res.update(share=res["bound_ms"] / k_ms,
+                   share_every_test_full=res["bound_ms_every_test_full"]
+                   / k_ms)
+        out[name] = res
+    return out
+
+
+def on_wall_camera():
+    """A camera whose rays start exactly on the Cornell box's left wall
+    (origin (1, 40.8, 81.6), the wall's centre 1e5 away on x, push 0), so
+    that K1's inside guard meets q within an ulp of r*r."""
+    import torch
+
+    from smallpt_tpu_torch.core.camera import LegacyCamera
+
+    d = np.array([1.0, 0.0, -1.0], np.float32)
+    return LegacyCamera(
+        origin=torch.tensor([1.0, 40.8, 81.6]),
+        direction=torch.tensor(d / np.linalg.norm(d)),
+        fov_scale=torch.tensor(0.5135), push_forward=torch.tensor(0.0))
+
+
+def k1b_constructed_launches(dev) -> dict:
+    """K1b against its plain version on launches built to reach the edges
+    of its queue, its instances and its sphere test, each through the
+    uncounted mk._record_launch and held by record_launch_vs_plain (every
+    lane: the radiance as int32, the rays, the winners; the queue handing
+    out every lane once; the launch's plan):
+    - one lane (1x1 pixels), one lane short of a block (127x1), and 127
+      pixels' two samples (254 lanes);
+    - lanes past several first waves: Cornell at 1024x768, depth 16, one
+      sample a lane (786,432 lanes, held to at least three first waves);
+    - procedural_sphere_scene(12000) at 64x48, depth 8, whose sweep
+      columns (240 KB) do not fit the card's shared memory: the instance
+      that sweeps from global memory;
+    - the NEE instance with one light (8) and with three (8, 3, 6), Cornell
+      128x96, two samples a lane;
+    - the thin lens and the environment light, Cornell 128x96, 4 samples;
+    - the camera on the left wall (on_wall_camera), 64x48, 2 samples."""
+    import torch
+
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, procedural_sphere_scene,
+    )
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    c128 = grad_config(width=128, height=96)
+    cases = {
+        "lanes1": (cornell_box_scene(), c128.replace(width=1, height=1), 1),
+        "lanes127": (cornell_box_scene(), c128.replace(width=127, height=1),
+                     1),
+        "lanes254_two_samples": (cornell_box_scene(), c128.replace(
+            width=127, height=1), 2),
+        "refill_1024x768": (cornell_box_scene(), grad_config(
+            width=1024, height=768), 1),
+        "procedural12000_global_sweep": (procedural_sphere_scene(12000),
+                                         grad_config(width=64, height=48,
+                                                     max_depth=8), 1),
+        "nee_1_light": (cornell_box_scene(), c128.replace(nee_lights=(8,)),
+                        2),
+        "nee_3_lights": (cornell_box_scene(), c128.replace(
+            nee_lights=(8, 3, 6)), 2),
+        "lens_env": (cornell_box_scene(), c128.replace(
+            aperture=4.0, focal_distance=120.0,
+            env_emission=(0.2, 0.3, 0.4)), 4),
+        "on_wall": (cornell_box_scene(), grad_config(width=64, height=48),
+                    2),
+    }
+    out = {}
+    for n, (name, (scene, cfg, k)) in enumerate(cases.items()):
+        cam = on_wall_camera() if name == "on_wall" else smallpt_camera()
+        table = mk.build_scene_table(scene, cfg, dev)
+        camv = mk.build_camera_vec(cam, cfg, dev)
+        res = record_launch_vs_plain(name, table, camv, cfg,
+                                     rng.base_key(1900 + n), scene.n_spheres,
+                                     k, ip_offset=n % 3)
+        res["first_wave"] = wave = res["plan"]["threads"]
+        lanes = res["strict"]["lanes"]
+        if "refill" in name and lanes < 3 * wave:
+            raise AssertionError(f"{name}: {lanes} lanes for a first wave "
+                                 f"of {wave}")
+        if ("global" in name) != bool(res["plan"]["global"]) or bool(
+                res["plan"]["nee"]) != bool(cfg.nee_lights):
+            raise AssertionError(f"{name}: the plan's instance "
+                                 f"{res['plan']}")
+        out[name] = res
+        del table
+    torch.cuda.empty_cache()
+    return out
 
 
 def _cos(a, b) -> float:
@@ -4232,7 +4371,8 @@ def grad_main(dev, n_steps: int = 3) -> dict:
         tag = "remat" if remat else "no_remat"
         if remat:
             launched = counts()
-            if (launched["mega_record"] != n_steps * cfg.spp
+            # one K1b launch a step, over the pixels' spp samples
+            if (launched["mega_record"] != n_steps
                     or any(v for k_, v in launched.items()
                            if k_ != "mega_record")):
                 raise AssertionError(f"grad main path: launches {launched}")
@@ -4277,7 +4417,7 @@ def grad_main(dev, n_steps: int = 3) -> dict:
     rec_ms, fwd_ms, bwd_ms, step = (float(x) for x in np.mean(parts, axis=0))
     out["parts"] = dict(
         host_clock_step_ms=step, record_ms=rec_ms, record_rays=int(rays),
-        k1b_launches_per_step=cfg.spp, replay_forward_ms=fwd_ms,
+        k1b_launches_per_step=1, replay_forward_ms=fwd_ms,
         replay_backward_ms=bwd_ms,
         rest_ms=step - rec_ms - fwd_ms - bwd_ms)
     out["profile"] = _top(profile(lambda: diff.sgd_train_step(
@@ -5033,8 +5173,8 @@ def shard_replay(dev) -> dict:
     four replays, against the single-device image_loss_and_grads (the
     replay too): the loss and image to 1e-5, the gradients within 1e-4
     (index_add adds in no fixed order on the card). The last K1b launch
-    (rows 256-511, in-pixel sample 3) against its plain version on its own
-    inputs (record_exact: bit-equal)."""
+    (rows 256-511, in-pixel samples 2 and 3) against its plain version on
+    its own inputs (record_strict: every lane, bit for bit)."""
     import torch
 
     from smallpt_tpu_torch.core import rng
@@ -5053,20 +5193,21 @@ def shard_replay(dev) -> dict:
     got = []
     zero_counts()
     t0 = time.perf_counter()
-    # the last record launch (tile 1, sample 1's second sample) kept for
-    # its plain version
-    call = capture_calls(mk, "mega_record", lambda: got.append(
+    # the last record launch (tile 1, sample 1: one launch a shard) kept
+    # for its plain version
+    call = capture_calls(mk, "_record_launch", lambda: got.append(
         image_loss_and_grads_sharded(scene, cam, cfg, key, target,
-                                     shard_mesh(dev))), {7})[0]
+                                     shard_mesh(dev))), {3})[0]
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
     launches = counts()
     (loss, img, grads), = got
     a = call["args"]
-    band = {k: a[k] for k in ("ip_offset", "row_offset", "n_rows")}
-    vs_plain = dict(record_exact(
+    band = {k: a[k] for k in ("ip_offset", "row_offset", "n_rows",
+                              "k_samples")}
+    vs_plain = dict(record_strict(
         "shard_replay shard (1, 1)", call["out"], mk.record_pass_plain(
-            a["table"], a["cam"], a["config"], *rng.key_words(a["key"]),
+            a["table"], a["cam"], a["config"], a["k0"], a["k1"],
             n_spheres=a["n_spheres"], **band)), **band)
     loss1, img1, grads1 = diff.image_loss_and_grads(scene, cam, cfg, key,
                                                     target, device=dev)
@@ -5634,7 +5775,7 @@ def main() -> int:
                lane_utilisation_one_lane_a_thread=lane_utilisation(rays_k),
                rays_per_lane_mean=n_rays / cfg.n_pixels,
                rays_per_lane_max=int(rays_k.max()),
-               plan=mk.mega_plan(cfg.n_pixels, ns, 0, False),
+               plan=mk.mega_plan(cfg.n_pixels, ns, 0, "pass"),
                vs_plain=cmp_stats["cornell_1024x768_main"])
     phase("kernel_timing", **k1a)
 
@@ -5784,7 +5925,10 @@ def main() -> int:
     rec_small = record_vs_plain_small(dev)
     phase("record_vs_plain_small", **rec_small)
     rec_mega = record_vs_mega(dev)
-    phase("record_vs_mega", **rec_mega)
+    phase("record_vs_mega", **rec_mega,
+          ptxas=ptxas_entry(mk.LIBRARY[0], "mega_record_kernel"))
+    k1b_built = k1b_constructed_launches(dev)
+    phase("k1b_constructed_launches", **k1b_built)
     phase("grad_small", **grad_small(dev))
     gmain = grad_main(dev)
     phase("grad_main_cornell_512x512", **gmain)
@@ -5956,19 +6100,34 @@ def main() -> int:
         + [v["max_abs_err"] for v in k8_built.values()
            if "max_abs_err" in v])
     wf_kernels.append(k8)
-    launch = rec_mega["launch"]
+    launch, one = rec_mega["launch"], rec_mega["one_sample"]
+    k1b_keys = ("bound_ms_every_test_full", "bound_nofma_ms",
+                "bound_nofma_ms_every_test_full", "share",
+                "share_every_test_full", "rays", "lanes", "queue", "plan")
     wf_kernels.append({
         "name": "mega_record", "route": "cuda",
         "source": "smallpt_tpu_torch/csrc/megakernel.cu",
         "replaces": "smallpt_tpu/ops/megakernel.py:151",
         "launches": gmain["launches"]["mega_record"],
-        "max_abs_err": max([v["max_abs_err"] for v in rec_small.values()]
-                           + [launch["max_abs_err"], shards["replay"][
-                               "shard_vs_plain"]["max_abs_err"]]),
+        "max_abs_err": max(
+            [v["max_abs_err"] for v in rec_small.values()]
+            + [r["strict"]["max_abs_err"]
+               for r in (launch, one, *k1b_built.values())]
+            + [shards["replay"]["shard_vs_plain"]["max_abs_err"]]),
         "ms": launch["kernel_ms"], "plain_ms": launch["plain_ms"],
         "bound_ms": launch["bound_ms"], "bound_by": launch["bound_by"],
-        "rays": launch["rays"], "ptxas": ptxas_entry(
-            mk.LIBRARY[0], "mega_record_kernelILb0E"),
+        **{k: (launch[k] if k in launch else launch["strict"][k])
+           for k in k1b_keys},
+        "one_sample": {k: one[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_ms_every_test_full",
+            "share", "share_every_test_full", "queue", "plan",
+            "lane_utilisation_one_lane_a_thread", "rays_per_lane_mean")},
+        "strict_launches": len(K1_STRICT["mega_record"]),
+        "strict_lanes_differ": max(K1_STRICT["mega_record"]),
+        "constructed": {n: dict(lanes=v["strict"]["lanes"],
+                                rays=v["strict"]["rays"], plan=v["plan"])
+                        for n, v in k1b_built.items()},
+        "ptxas": ptxas_entry(mk.LIBRARY[0], "mega_record_kernel"),
         "library_ms": None,
     })
     k4_main = [v for n, v in k4.items() if n.startswith("occ")]

@@ -85,6 +85,25 @@ three):
   (chip_smoke.py::k1_strict, not raising: ``*_k1_strict``,
   ``*_k1_strict_lanes_differ``).
 
+- the recorder of the training step (BASELINE config 4: Cornell
+  512x512, 4 spp, max_depth 16, key fold_in(base_key(0), 1000)):
+  ``record_cornell_512x512``, the record phase as the step runs it
+  (``render_record_megakernel``: the tables, K1b's launches, the image and
+  the winner plane in FLAT order); beside it the same phase made one K1b
+  launch a sample, its winners stacked into FLAT order
+  (``*_per_sample``), each the median of N_RECORD runs after a warm-up
+  (a run takes 1-2 ms, mostly the host's, and the first runs of a process
+  carry the allocator's growth); and the training step (``*_step``,
+  ``sgd_train_step`` through the replay, the median of five). The
+  bits of the image, winners and rays of both forms (``*_bits``,
+  ``*_per_sample_bits``) must be equal across the trees. K1b alone on one
+  sample's launch (``mega_record``, 262,144 lanes) and, where the tree has
+  it, on the step's launch over the 4 samples (``_record_launch``,
+  1,048,576 lanes), timed as K8's launches are (``*_k1b_launch_ms``,
+  ``*_k1b_launch4_ms``); with --strict the one-sample launch held to the
+  plain version (chip_smoke.py::record_strict, not raising:
+  ``*_k1b_strict``, ``*_k1b_strict_lanes_differ``).
+
 --paths keeps only the named ones (all of them by default). Beside each
 worker's readings, the card's mean SM clock and power draw over the
 worker (nvidia-smi sampled every 100 ms: ``sm_clock_mhz``, ``power_w``).
@@ -108,12 +127,14 @@ import sys
 import numpy as np
 
 N_TIMED = 3
+N_RECORD = 25
 BINNED_SEED = 1000
 HOLD_CYCLES = 2_000_000  # the card's spin before a timed launch, ~1 ms
 DDA = ("dda_procedural10000_512x384", "dda_procedural10000_512x384_nee",
        "dda_procedural10000_1920x1080")
 K1 = ("mega_cornell_1024x768", "stream_cornell_1024x768",
       "stream_cornell_1024x768_nee")
+RECORD = "record_cornell_512x512"
 BINNED = ("binned_drain_procedural10000_512x384",
           "binned_drain_procedural10000_512x384_nee",
           "binned_stream_procedural10000_512x384",
@@ -138,6 +159,15 @@ def _times(fn) -> list:
     fn()
     torch.cuda.synchronize()
     return [_ms(fn) for _ in range(N_TIMED)]
+
+
+def _median_ms(fn, n: int) -> float:
+    """The median CUDA-event time of n runs of fn() after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    return float(np.median([_ms(fn) for _ in range(n)]))
 
 
 def _launch_ms(run, state, before) -> float:
@@ -415,6 +445,91 @@ def k1(only: set, strict: bool) -> dict:
     return out
 
 
+def _record_per_sample(mk, scene, cam, cfg, key, dev):
+    """The record phase made one K1b launch a sample (mega_record), its
+    radiance summed and its winners stacked into FLAT order."""
+    import torch
+
+    table = mk.build_scene_table(scene, cfg, dev)
+    camv = mk.build_camera_vec(cam, cfg, dev)
+    rad = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    recs = []
+    for s in range(cfg.spp):
+        r_s, n_s, w_s = mk.mega_record(table, camv, cfg, key, s,
+                                       n_spheres=scene.n_spheres)
+        rad = rad + r_s
+        rays = rays + n_s.sum(dtype=torch.int64)
+        recs.append(w_s)
+    winners = torch.stack(recs, dim=2).reshape(cfg.max_depth, -1)
+    return rad, winners, rays
+
+
+def record(only: set, strict: bool) -> dict:
+    """The recorder's path (see the module's docstring)."""
+    if only and RECORD not in only:
+        return {}
+    import torch
+
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig,
+    )
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import cornell_box_scene
+    from smallpt_tpu_torch.grad import diff
+    from smallpt_tpu_torch.ops import megakernel as mk
+
+    record_strict = None
+    if strict:
+        import chip_smoke
+
+        record_strict = chip_smoke.record_strict
+    dev = torch.device("cuda")
+    scene, cam = cornell_box_scene(), smallpt_camera()
+    ns = scene.n_spheres
+    cfg = RenderConfig(width=512, height=512, spp_per_cell=1, max_depth=16,
+                       camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+                       intersector=Intersector.PALLAS)
+    key = rng.fold_in(rng.base_key(0), 1000)
+    k0, k1_ = rng.key_words(key)
+    got = []
+    out = {RECORD: _median_ms(lambda: got.__setitem__(
+        slice(None), mk.render_record_megakernel(scene, cam, cfg, key,
+                                                 device=dev)), N_RECORD)}
+    img, winners, rays = got
+    out[RECORD + "_bits"] = _bits(img.cpu().numpy(), winners.cpu().numpy(),
+                                  rays.cpu().numpy())
+    out[RECORD + "_per_sample"] = _median_ms(lambda: got.__setitem__(
+        slice(None), _record_per_sample(mk, scene, cam, cfg, key, dev)),
+        N_RECORD)
+    out[RECORD + "_per_sample_bits"] = _bits(*(t.cpu().numpy() for t in got))
+    target = diff.render_mean(scene, cam, cfg, rng.base_key(99), device=dev)
+    out[RECORD + "_step"] = _median_ms(lambda: diff.sgd_train_step(
+        scene, cam, cfg, key, target, device=dev), 5)
+    table = mk.build_scene_table(scene, cfg, dev)
+    camv = mk.build_camera_vec(cam, cfg, dev)
+    one = []
+
+    def launch():
+        one[:] = mk.mega_record(table, camv, cfg, key, 0, n_spheres=ns)
+
+    out[RECORD + "_k1b_launch_ms"] = _launch_ms(launch, (), ())
+    if hasattr(mk, "_record_launch"):
+        out[RECORD + "_k1b_launch4_ms"] = _launch_ms(
+            lambda: mk._record_launch(table, camv, cfg, k0, k1_, 0, 0,
+                                      cfg.height, ns, cfg.spp), (), ())
+    if record_strict is not None:
+        want = mk.record_pass_plain(table, camv, cfg, k0, k1_, 0,
+                                    n_spheres=ns)
+        st = record_strict(RECORD, one, want, check=False)
+        out[RECORD + "_k1b_strict"] = st["planes"]
+        out[RECORD + "_k1b_strict_lanes_differ"] = st["lanes_differ"]
+    del table, camv, target
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_pass(run, kernel: str, bounds: bool, scene=None) -> dict:
     """Every launch of the closest-hit kernel ``kernel`` ("k2" or "k6") in
     one more run(), each timed alone (``_launch_ms``: the kernel writes
@@ -530,7 +645,8 @@ def worker(only: set, bounds: bool, strict: bool) -> dict:
             cornell, c1.replace(scheduler=Scheduler.FLAT, split_budget=8)),
     }
     out = {"tree": os.environ.get("PYTHONPATH", ""), **k1(only, strict),
-           **dda(only, strict), **binned(only, bounds)}
+           **record(only, strict), **dda(only, strict),
+           **binned(only, bounds)}
     for name, (scene, cfg) in passes.items():
         if only and name not in only:
             continue
@@ -569,8 +685,8 @@ def main() -> int:
     p.add_argument("--blocks", type=int, default=1)
     p.add_argument("--bounds", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--strict", action="store_true",
-                   help="hold K1's and K3's launches to the plain version "
-                   "in the first worker of each tree")
+                   help="hold K1's, K1b's and K3's launches to the plain "
+                   "version in the first worker of each tree")
     p.add_argument("--out", default="wavefront_ab.json")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args()

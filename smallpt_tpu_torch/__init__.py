@@ -37,8 +37,8 @@ does:
   the culled frontier-marching bounce;
 - scene gradients (grad/): image_loss_and_grads, sgd_train_step and
   adam_optimizer -> the recorded-winner replay (one launch of the
-  recording megakernel, K1b in csrc/megakernel.cu, per in-pixel sample,
-  then torch autograd through the flat wavefront's bounce on the recorded
+  recording megakernel, K1b in csrc/megakernel.cu, over the in-pixel
+  samples, then torch autograd through the flat wavefront's bounce on the recorded
   winners), or the flat wavefront under autograd with K2 picking the
   winners;
 - the per-ray DDA closest hit (ops/dda.py::intersect_spheres_dda ->

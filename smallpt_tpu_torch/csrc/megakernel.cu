@@ -10,10 +10,10 @@
 //   mega_record_kernel (K1b);
 // - streaming (streaming=True), launched by stream_step: entry point
 //   smallpt_stream_step, kernel stream_step_kernel (K1c).
-// One bounce body, bounce(), serves all three, with next-event estimation
-// over up to kMaxLights light spheres. The camera, shade and NEE cone
-// formulas live in lane.cuh, shared with the streaming DDA kernel
-// (stream_dda.cu) and the binned bounce (stream_binned.cu).
+// One body, run_lanes(), and one bounce, bounce(), serve all three, with
+// next-event estimation over up to kMaxLights light spheres. The camera,
+// shade and NEE cone formulas live in lane.cuh, shared with the streaming
+// DDA kernel (stream_dda.cu) and the binned bounce (stream_binned.cu).
 //
 // Contract: a lane runs iterations until it has no work left (no path
 // alive, no sample left in its budget) or has run the launch's max_it
@@ -28,40 +28,42 @@
 //
 // What bounds it on an H100: FP32 ALU and SFU work, not memory. A per-pass
 // launch reads a sphere table of S x 64 bytes and writes 16 bytes per pixel
-// lane; a streaming launch reads and writes 80 bytes of state per lane.
-// Every ray tests every sphere; the whole stable test is 27 float ops, 3
-// IEEE square roots and a division (each a multi-instruction sequence),
-// plus compares; regeneration (PCG4D, the tent filter's roots, the
-// camera's divisions and normalize), the shade and the NEE cone sample add
-// a few hundred. In the Cornell box (S = 9) every ray starts inside the six
-// 1e5-radius walls, so six of its nine tests take the inside path below,
-// and most of the three small spheres' tests miss at det. The card's float32
-// rate outside the tensor cores is 67 TFLOP/s counting an FMA as two
-// flops; built with --fmad=false this kernel issues no FMA, so its adds
-// and multiplies retire at most at 33.5 T/s (chip_smoke.py's
-// bound_nofma_ms). Before this design one thread ran one lane to its end,
-// and a warp ran until its longest lane ended: 0.70 of its lanes' slots
-// issued work on the 1024x768 main path (chip_smoke.py::lane_utilisation).
+// lane; a streaming launch reads and writes 80 bytes of state per lane; a
+// recording launch also writes its D x G winner plane (16.8 MB at the
+// training step's 512x512, depth 16). Every ray tests every sphere; the
+// whole stable test is 27 float ops, 3 IEEE square roots and a division
+// (each a multi-instruction sequence), plus compares; regeneration (PCG4D,
+// the tent filter's roots, the camera's divisions and normalize), the shade
+// and the NEE cone sample add a few hundred. In the Cornell box (S = 9)
+// every ray starts inside the six 1e5-radius walls, so six of its nine
+// tests take the inside path below, and most of the three small spheres'
+// tests miss at det. The card's float32 rate outside the tensor cores is 67
+// TFLOP/s counting an FMA as two flops; built with --fmad=false this kernel
+// issues no FMA, so its adds and multiplies retire at most at 33.5 T/s
+// (chip_smoke.py's bound_nofma_ms). With one thread a lane to its end, a
+// warp runs until its longest lane ends: 0.70 of its lanes' slots issued
+// work on K1a's 1024x768 main path (chip_smoke.py::lane_utilisation).
 //
 // What the design does about it:
-// - a lane queue on a persistent grid (kLaneQueue): a launch holds only the
-//   blocks the card runs at once (the SMs times the instance's occupancy
-//   at its shared memory, asked once a device, instance and size). A
-//   thread starts on the lane of its index and, when that lane has no work
-//   left or has run max_it iterations, stores it and takes the next one
-//   from a counter in the caller's scratch (zeroed on the stream before the
-//   launch), one warp-aggregated atomicAdd for the warp's threads that ask
-//   at once, so a warp's threads stay busy until the queue runs dry. A
-//   lane's samples stay on one thread and in order: its radiance sums them
-//   in one chain. A streaming lane with no work costs three loads and no
-//   store. The queue's words count the lanes handed out and the lanes that
-//   had work;
+// - a lane queue on a persistent grid (kLaneQueue), in all three kernels: a
+//   launch holds only the blocks the card runs at once (the SMs times the
+//   instance's occupancy at its shared memory, asked once a device,
+//   instance and size). A thread starts on the lane of its index and, when
+//   that lane has no work left or has run max_it iterations, stores it and
+//   takes the next one from a counter in the caller's scratch (zeroed on
+//   the stream before the launch), one warp-aggregated atomicAdd for the
+//   warp's threads that ask at once, so a warp's threads stay busy until
+//   the queue runs dry. A lane's samples stay on one thread and in order:
+//   its radiance sums them in one chain. A streaming lane with no work
+//   costs three loads and no store. The queue's words count the lanes
+//   handed out and the lanes that had work;
 // - K1's own copy of the stable sphere test (k1_tt), for the sweep and the
-//   shadow sweep (lane.cuh::sphere_tt stays as it is for K1b, K3, K8 and
-//   the NEE cone's own light test): an early miss at det (kEarlyMiss), and
-//   an inside path (kInsidePath) that skips the third square root and the
+//   shadow sweep (lane.cuh::sphere_tt stays as it is for K3, K8 and the NEE
+//   cone's own light test): an early miss at det (kEarlyMiss), and an
+//   inside path (kInsidePath) that skips the third square root and the
 //   division when the ray starts inside the sphere; both give the whole
-//   test's bits (the proof is at k1_tt);
+//   test's bits (the proof is at k1_tt), so the recorder's winners are the
+//   whole test's too;
 // - two instances of each kernel, without NEE and with it (n_lights > 0),
 //   so that the first holds no shadow state; the light indices are copied
 //   into shared memory once a block, so that no instance indexes the kernel
@@ -74,6 +76,14 @@
 //   planes are lane-contiguous. The launch's ray count is the exact sum of
 //   the lanes' rays (one an iteration), summed a thread over its lanes and
 //   reduced once a warp at exit;
+// - the recorder: a lane is one sample of one pixel (budget 1, lane = pixel
+//   * k + s over the launch's k in-pixel samples, written straight in the
+//   replay's FLAT lane order) and counts its own iterations against max_it
+//   == max_depth; it stores its winner at its own depth, so the thread that
+//   runs it does not matter. With kFillPlane the plane is set to -1 on the
+//   stream before the launch and a lane stores its hits only; without it a
+//   lane stores every bounce's winner (-1 for a miss) and -1 at each depth
+//   its path never reached;
 // - the sweep columns [cx cy cz r eps] sit in shared memory, loaded once per
 //   block and sized to the scene (20 B a sphere), read as warp-wide
 //   broadcasts. Up to 2457 spheres fit the 48 KB a launch gets by default;
@@ -95,12 +105,11 @@
 // - the sweep keeps _shadow_tt's citardauq arithmetic, strict < for ties
 //   (the first id wins) and the 3e38 sentinel; built with --fmad=false so
 //   each op rounds in the JAX kernel's order.
-// K1b (mega_record_kernel) keeps one thread a lane to its end, the whole
-// test of lane.cuh and the light indices read from the parameters.
 //
 // Interface: plain C functions, loaded with ctypes (ops/megakernel.py). They
-// launch on the caller's stream (K1a and K1c: a memset of the queue, then
-// the kernel), synchronise nothing and return the first cudaGetLastError().
+// launch on the caller's stream (memsets of the queue and, recording, of
+// the winner plane, then the kernel), synchronise nothing and return the
+// first cudaGetLastError().
 
 #include "lane.cuh"
 #include "plan.cuh"
@@ -116,11 +125,14 @@ constexpr int kMinBlocks = 8;       // blocks an SM, for the register cap
 constexpr bool kLaneQueue = true;   // the persistent grid and its queue
 constexpr bool kEarlyMiss = true;   // k1_tt decides a miss at det
 constexpr bool kInsidePath = true;  // k1_tt's path for an origin inside
+constexpr bool kFillPlane = true;   // the winner plane set to -1 by a memset
 constexpr int kMaxSpheres = 65536;  // the JAX kernel's MAX_VMEM_SPHERES
 constexpr unsigned kFull = 0xffffffffu;
 // the queue's int32 words (ops/megakernel.py::QUEUE_FIELDS): the next lane
 // past the first wave, the lanes handed out, the lanes that had work
 enum { Q_NEXT, Q_HANDED, Q_WORKED, Q_WORDS };
+// The three kernels of run_lanes (ops/megakernel.py::MODES): K1a, K1c, K1b
+enum { MODE_PASS, MODE_STREAM, MODE_RECORD };
 
 // One lane's path state: the streaming planes, in registers.
 struct Lane {
@@ -219,17 +231,6 @@ __device__ __forceinline__ float k1_tt(float ox, float oy, float oz,
   return (det >= 0.0f && sr > 0.0f) ? tt : kBig;
 }
 
-// The sphere test of a sweep: K1's own (kK1, K1a and K1c) or lane.cuh's
-// (K1b).
-template <bool kK1>
-__device__ __forceinline__ float sweep_tt(float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float scx, float scy, float scz,
-                                          float sr, float seps) {
-  return kK1 ? k1_tt(ox, oy, oz, dx, dy, dz, scx, scy, scz, sr, seps)
-             : sphere_tt(ox, oy, oz, dx, dy, dz, scx, scy, scz, sr, seps);
-}
-
 // The PCG4D words a and b of the lane's sample s_idx: per pass (sid ^ k0,
 // k1) with sid = pixel * spp + ip; streaming v2 (pixel ^ k0, k1 ^ ip *
 // mult).
@@ -274,10 +275,10 @@ __device__ __forceinline__ void regenerate(Lane& L, const Params& p,
 
 // One bounce of the live lane L: the closest-hit sweep, emission, shade,
 // NEE over the n_lights lights at a surviving diffuse vertex (kNee), the
-// next ray. kK1 picks the sweeps' sphere test (sweep_tt); lights: the light
-// spheres' table rows by slot; with kRecord, rec receives the lane's
-// winner at its depth.
-template <bool kGlobal, bool kNee, bool kK1, bool kRecord>
+// next ray. lights: the light spheres' table rows by slot; with kRecord,
+// rec receives the lane's winner at its depth (with kFillPlane only a hit:
+// the plane holds -1 already).
+template <bool kGlobal, bool kNee, bool kRecord>
 __device__ __forceinline__ void bounce(Lane& L, const Params& p,
                                        const float* __restrict__ table,
                                        const Columns<kGlobal>& col,
@@ -297,14 +298,14 @@ __device__ __forceinline__ void bounce(Lane& L, const Params& p,
   int bi = -1;
   for (int s = 0; s < n_spheres; ++s) {
     const float tt =
-        sweep_tt<kK1>(ox, oy, oz, dx, dy, dz, col.get(0, s), col.get(1, s),
-                      col.get(2, s), col.get(3, s), col.get(4, s));
+        k1_tt(ox, oy, oz, dx, dy, dz, col.get(0, s), col.get(1, s),
+              col.get(2, s), col.get(3, s), col.get(4, s));
     if (tt < bt) {
       bt = tt;
       bi = s;
     }
   }
-  if (kRecord)
+  if (kRecord && (!kFillPlane || bi >= 0))
     rec[(size_t)L.depth * (size_t)p.i[IP_N_LANES] + lane] = bi;
   if (bi < 0) {
     // escaped: pick up the environment (the smallpt.cpp:168 hook), die
@@ -382,9 +383,8 @@ __device__ __forceinline__ void bounce(Lane& L, const Params& p,
       bool lit = t_light < kBig;
       for (int s = 0; lit && s < n_spheres; ++s) {
         if (s != li &&
-            sweep_tt<kK1>(nox, noy, noz, ldx, ldy, ldz, col.get(0, s),
-                          col.get(1, s), col.get(2, s), col.get(3, s),
-                          col.get(4, s)) < t_light)
+            k1_tt(nox, noy, noz, ldx, ldy, ldz, col.get(0, s), col.get(1, s),
+                  col.get(2, s), col.get(3, s), col.get(4, s)) < t_light)
           lit = false;
       }
       if (lit) {
@@ -409,21 +409,25 @@ __device__ __forceinline__ void bounce(Lane& L, const Params& p,
   L.alive = L.depth < p.i[IP_MAX_DEPTH];
 }
 
-// ---- K1a and K1c: the lane queue -------------------------------------------
+// ---- the lane queue --------------------------------------------------------
 
 // Take the lane `lane` of a launch: per pass a fresh lane (dead, s_idx -1,
 // the launch's k_samples), which is always opened, so that its radiance and
-// rays are written; streaming its state planes, if it has work in this
-// launch (an idle lane is read no further and left as it is). Sets the
-// lane's pixel, budget and current sample words.
-template <bool kStreaming>
+// rays are written; recording a fresh lane that traces one sample s of
+// pixel lane / k, lane = pixel * k + s with k the launch's k_samples
+// (s_idx s - 1, budget s + 1); streaming its state planes, if it has work
+// in this launch (an idle lane is read no further and left as it is). Sets
+// the lane's pixel, budget and current sample words.
+template <int kMode>
 __device__ __forceinline__ bool open_lane(const Params& p,
                                           const int* __restrict__ st,
                                           const float* __restrict__ f,
                                           int lane, Lane& L, Pixel& px,
                                           int& budget, uint32_t& wa,
                                           uint32_t& wb) {
+  constexpr bool kStreaming = kMode == MODE_STREAM;
   const size_t n = (size_t)p.i[IP_N_LANES];  // the plane stride
+  int pixel = lane;
   if (kStreaming) {
     const int* il = st + lane;
     L.alive = il[I_ALIVE * n] != 0;
@@ -439,31 +443,43 @@ __device__ __forceinline__ bool open_lane(const Params& p,
     L.depth = il[I_DEPTH * n];
     L.nrays = il[I_RAYS * n];
     L.sup = (uint32_t)il[I_SUP * n];
-  } else {
+  } else if (kMode == MODE_PASS) {
     L = Lane{};
     L.s_idx = -1;
     budget = p.i[IP_K_SAMPLES];
+  } else {
+    const int k = p.i[IP_K_SAMPLES];
+    pixel = lane / k;
+    L = Lane{};
+    L.s_idx = lane - pixel * k - 1;
+    budget = L.s_idx + 2;
   }
-  px = pixel_of(p, lane);
+  px = pixel_of(p, pixel);
   sample_words<kStreaming>(p, px, L.s_idx, wa, wb);
   return true;
 }
 
-// Store a lane that is done: per pass its radiance and rays; streaming
-// every state plane but the budget.
-template <bool kStreaming>
+// Store a lane that is done: per pass its radiance and rays (recording,
+// without kFillPlane, also -1 at each depth its path never reached);
+// streaming every state plane but the budget.
+template <int kMode>
 __device__ __forceinline__ void close_lane(const Params& p,
                                            float* __restrict__ f,
-                                           int* __restrict__ st, int lane,
+                                           int* __restrict__ st,
+                                           int* __restrict__ rec, int lane,
                                            const Lane& L) {
-  if (!kStreaming) {
+  const size_t n = (size_t)p.i[IP_N_LANES];
+  if (kMode == MODE_RECORD && !kFillPlane) {
+    for (int d = L.depth; d < p.i[IP_MAX_DEPTH]; ++d)
+      rec[(size_t)d * n + lane] = -1;
+  }
+  if (kMode != MODE_STREAM) {
     f[3 * lane + 0] = L.rx;
     f[3 * lane + 1] = L.ry;
     f[3 * lane + 2] = L.rz;
     st[lane] = L.nrays;
     return;
   }
-  const size_t n = (size_t)p.i[IP_N_LANES];
   float* fl = f + lane;
   int* il = st + lane;
   fl[F_OX * n] = L.ox; fl[F_OY * n] = L.oy; fl[F_OZ * n] = L.oz;
@@ -478,18 +494,20 @@ __device__ __forceinline__ void close_lane(const Params& p,
   il[I_SUP * n] = (int)L.sup;
 }
 
-// The body of K1a (per pass: f the (G, 3) radiance, st the (G,) rays) and
-// K1c (streaming: f and st the state planes, rays the launch's count): each
-// thread runs lanes from the queue, one iteration of its open lane a round,
-// until no lane is left.
-template <bool kStreaming, bool kGlobal, bool kNee>
+// The body of K1a (per pass: f the (G, 3) radiance, st the (G,) rays), K1c
+// (streaming: f and st the state planes, rays the launch's count) and K1b
+// (as K1a, and rec the (D, G) winner plane): each thread runs lanes from
+// the queue, one iteration of its open lane a round, until no lane is left.
+template <int kMode, bool kGlobal, bool kNee>
 __device__ __forceinline__ void run_lanes(const float* __restrict__ table,
                                           const float* __restrict__ cam,
                                           float* __restrict__ f,
                                           int* __restrict__ st,
                                           unsigned long long* __restrict__ rays,
+                                          int* __restrict__ rec,
                                           int* __restrict__ queue,
                                           const Params& p) {
+  constexpr bool kStreaming = kMode == MODE_STREAM;
   // 5 * n_spheres floats of dynamic shared memory (none with kGlobal)
   extern __shared__ float smem[];
   __shared__ int s_lights[kMaxLights];
@@ -515,14 +533,14 @@ __device__ __forceinline__ void run_lanes(const float* __restrict__ table,
   Pixel px;
   int budget = 0, it = 0;
   uint32_t wa = 0, wb = 0;
-  bool open = lane < n &&
-              open_lane<kStreaming>(p, st, f, lane, L, px, budget, wa, wb);
+  bool open =
+      lane < n && open_lane<kMode>(p, st, f, lane, L, px, budget, wa, wb);
   if (lane < n) atomicAdd(s_lanes, 1);
   if (open) atomicAdd(s_lanes + 1, 1);
   long long traced = 0;
   for (;;) {
     if (open && (it >= max_it || !(L.alive || L.s_idx < budget - 1))) {
-      close_lane<kStreaming>(p, f, st, lane, L);
+      close_lane<kMode>(p, f, st, rec, lane, L);
       open = false;
     }
     // each thread whose lane is done takes the next, one atomic a warp
@@ -537,8 +555,7 @@ __device__ __forceinline__ void run_lanes(const float* __restrict__ table,
         lane = first_wave + base + __popc(ask & below);
         if (lane < n) {
           it = 0;
-          open = open_lane<kStreaming>(p, st, f, lane, L, px, budget, wa,
-                                       wb);
+          open = open_lane<kMode>(p, st, f, lane, L, px, budget, wa, wb);
           atomicAdd(s_lanes, 1);
           if (open) atomicAdd(s_lanes + 1, 1);
         }
@@ -548,8 +565,9 @@ __device__ __forceinline__ void run_lanes(const float* __restrict__ table,
     if (open) {
       // one iteration: regenerate a dead lane, then trace one bounce
       if (!L.alive) regenerate<kStreaming>(L, p, cam, px, wa, wb);
-      bounce<kGlobal, kNee, true, false>(L, p, table, col, s_lights, wa, wb,
-                                         lane, nullptr);
+      bounce<kGlobal, kNee, kMode == MODE_RECORD>(L, p, table, col,
+                                                  s_lights, wa, wb, lane,
+                                                  rec);
       ++it;
       ++traced;
     }
@@ -566,7 +584,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
                      const float* __restrict__ cam, float* __restrict__ rad,
                      int* __restrict__ rays, int* __restrict__ queue,
                      const Params p) {
-  run_lanes<false, kGlobal, kNee>(table, cam, rad, rays, nullptr, queue, p);
+  run_lanes<MODE_PASS, kGlobal, kNee>(table, cam, rad, rays, nullptr, nullptr,
+                                      queue, p);
 }
 
 template <bool kGlobal, bool kNee>
@@ -576,47 +595,18 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
                        int* __restrict__ st,
                        unsigned long long* __restrict__ rays,
                        int* __restrict__ queue, const Params p) {
-  run_lanes<true, kGlobal, kNee>(table, cam, f, st, rays, queue, p);
+  run_lanes<MODE_STREAM, kGlobal, kNee>(table, cam, f, st, rays, nullptr,
+                                        queue, p);
 }
 
-// ---- K1b: one thread a lane to its end -------------------------------------
-
-// The per-lane loop of _mega_kernel with record_depths: one sample (budget
-// 1), at most max_it iterations; rec receives the lane's winner at each
-// depth, and -1 at the depths its path never reached.
-template <bool kGlobal>
-__global__ void __launch_bounds__(kBlock)
+template <bool kGlobal, bool kNee>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
     mega_record_kernel(const float* __restrict__ table,
                        const float* __restrict__ cam, float* __restrict__ rad,
                        int* __restrict__ rays, int* __restrict__ rec,
-                       const Params p) {
-  extern __shared__ float smem[];
-  const Columns<kGlobal> col =
-      load_columns<kGlobal>(table, smem, p.i[IP_N_SPHERES]);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.i[IP_N_LANES]) return;
-  const int budget = p.i[IP_K_SAMPLES];
-  const int max_it = p.i[IP_MAX_IT];
-  Lane L{};
-  L.s_idx = -1;
-  const Pixel px = pixel_of(p, lane);
-  uint32_t wa = 0, wb = 0;
-  sample_words<false>(p, px, L.s_idx, wa, wb);
-  for (int it = 0; it < max_it; ++it) {
-    if (!L.alive) {
-      if (L.s_idx >= budget - 1) break;
-      regenerate<false>(L, p, cam, px, wa, wb);
-    }
-    bounce<kGlobal, true, false, true>(L, p, table, col, p.lights, wa, wb,
-                                       lane, rec);
-  }
-  const size_t n_lanes = (size_t)p.i[IP_N_LANES];
-  for (int d = L.depth; d < p.i[IP_MAX_DEPTH]; ++d)
-    rec[(size_t)d * n_lanes + lane] = -1;
-  rad[3 * lane + 0] = L.rx;
-  rad[3 * lane + 1] = L.ry;
-  rad[3 * lane + 2] = L.rz;
-  rays[lane] = L.nrays;
+                       int* __restrict__ queue, const Params p) {
+  run_lanes<MODE_RECORD, kGlobal, kNee>(table, cam, rad, rays, nullptr, rec,
+                                        queue, p);
 }
 
 bool bad_params(const Params& p) {
@@ -635,10 +625,20 @@ size_t columns_bytes(int n_spheres) {
   return 5 * sizeof(float) * (size_t)n_spheres;
 }
 
-// The instance of K1a (kStreaming false) or K1c and its fit on the current
-// device at smem bytes of dynamic shared memory, asked once a (device,
-// size).
-template <bool kStreaming, bool kGlobal, bool kNee>
+// The kernel of a mode and instance.
+template <int kMode, bool kGlobal, bool kNee>
+auto k1_kernel() {
+  if constexpr (kMode == MODE_PASS)
+    return mega_pass_kernel<kGlobal, kNee>;
+  else if constexpr (kMode == MODE_STREAM)
+    return stream_step_kernel<kGlobal, kNee>;
+  else
+    return mega_record_kernel<kGlobal, kNee>;
+}
+
+// The instance's fit on the current device at smem bytes of dynamic shared
+// memory, asked once a (device, size).
+template <int kMode, bool kGlobal, bool kNee>
 cudaError_t k1_fit(size_t smem, Fit* out) {
   static Fit fits[64];
   static size_t fit_smem[64];
@@ -651,12 +651,8 @@ cudaError_t k1_fit(size_t smem, Fit* out) {
     if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess)
       return err;
-    if (kStreaming)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, stream_step_kernel<kGlobal, kNee>, kBlock, smem);
-    else
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, mega_pass_kernel<kGlobal, kNee>, kBlock, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k1_kernel<kMode, kGlobal, kNee>(), kBlock, smem);
     if (err != cudaSuccess) return err;
     fit.n_sm = n_sm > 1 ? n_sm : 1;
     fit.per_sm = per_sm > 1 ? per_sm : 1;
@@ -675,9 +671,9 @@ long long first_wave(int n, const Fit& fit) {
   return (kLaneQueue && fill < want) ? fill : want;
 }
 
-// What a K1a or K1c launch of p runs on the current device: the instance
-// (the sweep from global memory or shared, NEE or not), its dynamic shared
-// memory, its fit and its blocks.
+// What a launch of p runs on the current device: the instance (the sweep
+// from global memory or shared, NEE or not), its dynamic shared memory, its
+// fit and its blocks.
 struct Launch {
   bool global, nee;
   size_t smem;
@@ -685,9 +681,9 @@ struct Launch {
   long long blocks;
 };
 
-template <bool kStreaming, bool kGlobal, bool kNee>
+template <int kMode, bool kGlobal, bool kNee>
 cudaError_t prepare(size_t smem, int n, Launch* out) {
-  const cudaError_t err = k1_fit<kStreaming, kGlobal, kNee>(smem, &out->fit);
+  const cudaError_t err = k1_fit<kMode, kGlobal, kNee>(smem, &out->fit);
   if (err != cudaSuccess) return err;
   out->global = kGlobal;
   out->nee = kNee;
@@ -701,62 +697,66 @@ cudaError_t prepare(size_t smem, int n, Launch* out) {
 // counts) in the card's opt-in limit, the instance that sweeps from global
 // memory. Above the 48 KB a block gets by default (static included) the
 // instance is opted in to the limit less its static part.
-template <bool kStreaming, bool kNee>
+template <int kMode, bool kNee>
 cudaError_t plan_nee(const Params& p, Launch* out) {
   const int n = p.i[IP_N_LANES];
   const size_t cols = columns_bytes(p.i[IP_N_SPHERES]);
+  const auto kernel = k1_kernel<kMode, false, kNee>();
   cudaFuncAttributes a;
-  cudaError_t err =
-      kStreaming ? cudaFuncGetAttributes(&a, stream_step_kernel<false, kNee>)
-                 : cudaFuncGetAttributes(&a, mega_pass_kernel<false, kNee>);
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return err;
   const size_t limit = smem_optin_limit();
   const size_t dyn = limit > a.sharedSizeBytes ? limit - a.sharedSizeBytes
                                                : 0;
-  if (cols > dyn) return prepare<kStreaming, true, kNee>(0, n, out);
+  if (cols > dyn) return prepare<kMode, true, kNee>(0, n, out);
   if (cols + a.sharedSizeBytes > kSmemDefault) {
-    err = kStreaming
-              ? cudaFuncSetAttribute(
-                    stream_step_kernel<false, kNee>,
-                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn)
-              : cudaFuncSetAttribute(
-                    mega_pass_kernel<false, kNee>,
-                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (err != cudaSuccess) return err;
   }
-  return prepare<kStreaming, false, kNee>(cols, n, out);
+  return prepare<kMode, false, kNee>(cols, n, out);
 }
 
-// K1a's (kStreaming false) or K1c's launch of p: without NEE or with it.
-template <bool kStreaming>
+// The launch of p in a mode: without NEE or with it.
+template <int kMode>
 cudaError_t plan_launch(const Params& p, Launch* out) {
-  return p.i[IP_N_LIGHTS] > 0 ? plan_nee<kStreaming, true>(p, out)
-                              : plan_nee<kStreaming, false>(p, out);
+  return p.i[IP_N_LIGHTS] > 0 ? plan_nee<kMode, true>(p, out)
+                              : plan_nee<kMode, false>(p, out);
 }
 
-// The queue's memset and the launch of K1a (kStreaming false: f the
-// radiance, st the rays) or K1c on the stream s.
-template <bool kStreaming>
+// The queue's memset (recording with kFillPlane, the winner plane's too)
+// and the launch of K1a (f the radiance, st the rays), K1c (f, st the state
+// planes, rays the count) or K1b (as K1a, rec the winner plane) on the
+// stream s.
+template <int kMode>
 int launch(const Params& p, const float* table, const float* cam, float* f,
-           int* st, unsigned long long* rays, int* queue, cudaStream_t s) {
+           int* st, unsigned long long* rays, int* rec, int* queue,
+           cudaStream_t s) {
   if (p.i[IP_N_LANES] <= 0) return 0;
   Launch l;
-  cudaError_t err = plan_launch<kStreaming>(p, &l);
+  cudaError_t err = plan_launch<kMode>(p, &l);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(queue, 0, Q_WORDS * sizeof(int), s);
+  if (err == cudaSuccess && kMode == MODE_RECORD && kFillPlane)
+    err = cudaMemsetAsync(rec, 0xFF,
+                          (size_t)p.i[IP_MAX_DEPTH] *
+                              (size_t)p.i[IP_N_LANES] * sizeof(int),
+                          s);
   if (err != cudaSuccess) {
     cudaGetLastError();  // the error is returned here, not to the next call
     return (int)err;
   }
   const dim3 grid((unsigned)l.blocks);
-#define K1_LAUNCH(G, N)                                                     \
-  if (kStreaming)                                                           \
-    stream_step_kernel<G, N><<<grid, kBlock, l.smem, s>>>(table, cam, f,    \
-                                                          st, rays, queue,  \
-                                                          p);               \
-  else                                                                      \
-    mega_pass_kernel<G, N><<<grid, kBlock, l.smem, s>>>(table, cam, f, st,  \
-                                                        queue, p);
+#define K1_LAUNCH(G, N)                                                      \
+  if constexpr (kMode == MODE_STREAM)                                        \
+    stream_step_kernel<G, N><<<grid, kBlock, l.smem, s>>>(table, cam, f, st, \
+                                                          rays, queue, p);   \
+  else if constexpr (kMode == MODE_PASS)                                     \
+    mega_pass_kernel<G, N><<<grid, kBlock, l.smem, s>>>(table, cam, f, st,   \
+                                                        queue, p);           \
+  else                                                                       \
+    mega_record_kernel<G, N><<<grid, kBlock, l.smem, s>>>(table, cam, f, st, \
+                                                          rec, queue, p);
   if (l.global) {
     if (l.nee) { K1_LAUNCH(true, true) } else { K1_LAUNCH(true, false) }
   } else {
@@ -768,16 +768,17 @@ int launch(const Params& p, const float* table, const float* cam, float* f,
 
 }  // namespace
 
-// The launch smallpt_mega_pass (streaming 0) or smallpt_stream_step
-// (streaming 1) makes on the current device for n lanes over n_spheres
-// spheres with n_lights NEE lights: out, seven int64 {blocks, threads (the
-// first wave), n_sm, per_sm, smem bytes, global (the sweep from global
-// memory), nee} (ops/megakernel.py::PLAN_FIELDS). Returns a cudaError_t
-// (the device query's).
+// The launch smallpt_mega_pass (mode 0), smallpt_stream_step (mode 1) or
+// smallpt_mega_record (mode 2; ops/megakernel.py::MODES) makes on the
+// current device for n lanes over n_spheres spheres with n_lights NEE
+// lights: out, seven int64 {blocks, threads (the first wave), n_sm, per_sm,
+// smem bytes, global (the sweep from global memory), nee}
+// (ops/megakernel.py::PLAN_FIELDS). Returns a cudaError_t (the device
+// query's).
 extern "C" int smallpt_mega_plan(int n, int n_spheres, int n_lights,
-                                 int streaming, void* out) {
+                                 int mode, void* out) {
   if (n < 0 || n_spheres < 0 || n_spheres > kMaxSpheres || n_lights < 0 ||
-      n_lights > kMaxLights)
+      n_lights > kMaxLights || mode < MODE_PASS || mode > MODE_RECORD)
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.i[IP_N_LANES] = n;
@@ -785,7 +786,9 @@ extern "C" int smallpt_mega_plan(int n, int n_spheres, int n_lights,
   p.i[IP_N_LIGHTS] = n_lights;
   Launch l;
   const cudaError_t err =
-      streaming ? plan_launch<true>(p, &l) : plan_launch<false>(p, &l);
+      mode == MODE_PASS     ? plan_launch<MODE_PASS>(p, &l)
+      : mode == MODE_STREAM ? plan_launch<MODE_STREAM>(p, &l)
+                            : plan_launch<MODE_RECORD>(p, &l);
   if (err != cudaSuccess) return (int)err;
   const long long v[7] = {l.blocks, l.blocks * kBlock, l.fit.n_sm,
                           l.fit.per_sm, (long long)l.smem, l.global ? 1 : 0,
@@ -807,44 +810,31 @@ extern "C" int smallpt_mega_pass(const void* table, const void* cam,
                                  void* stream) {
   const Params p = read_params(iparams, fparams);
   if (bad_params(p)) return (int)cudaErrorInvalidValue;
-  return launch<false>(p, (const float*)table, (const float*)cam,
-                       (float*)rad, (int*)rays, nullptr, (int*)queue,
-                       (cudaStream_t)stream);
+  return launch<MODE_PASS>(p, (const float*)table, (const float*)cam,
+                           (float*)rad, (int*)rays, nullptr, nullptr,
+                           (int*)queue, (cudaStream_t)stream);
 }
 
-// K1b: one per-pass launch with one sample a lane (params[IP_K_SAMPLES] ==
-// 1, params[IP_MAX_IT] == params[IP_MAX_DEPTH] == D) that also records each
-// lane's winner sphere id per depth. rec: (D, G) i32 on the device, every
-// entry written (-1: a miss, or a depth the path never reached); the other
-// arguments as for smallpt_mega_pass, without the queue. Returns the
-// launch's cudaGetLastError().
+// K1b: one recording launch of params[IP_N_LANES] = G * k lanes, k =
+// params[IP_K_SAMPLES] in-pixel samples of each of G pixels, lane = pixel *
+// k + s tracing sample ip_offset + s (params[IP_MAX_IT] ==
+// params[IP_MAX_DEPTH] == D), that also records each lane's winner sphere
+// id per depth. rad: (G * k, 3) f32 and rays: (G * k,) i32, a lane each;
+// rec: (D, G * k) i32 on the device, every entry written (-1: a miss, or a
+// depth the path never reached); the other arguments as for
+// smallpt_mega_pass. Returns the first cudaGetLastError().
 extern "C" int smallpt_mega_record(const void* table, const void* cam,
                                    void* rad, void* rays, void* rec,
-                                   const void* iparams, const void* fparams,
-                                   void* stream) {
+                                   void* queue, const void* iparams,
+                                   const void* fparams, void* stream) {
   const Params p = read_params(iparams, fparams);
-  if (bad_params(p) || p.i[IP_K_SAMPLES] != 1 ||
+  if (bad_params(p) || p.i[IP_K_SAMPLES] <= 0 ||
+      p.i[IP_N_LANES] % p.i[IP_K_SAMPLES] != 0 ||
       p.i[IP_MAX_IT] != p.i[IP_MAX_DEPTH] || p.i[IP_MAX_DEPTH] <= 0)
     return (int)cudaErrorInvalidValue;
-  const int n = p.i[IP_N_LANES];
-  if (n <= 0) return 0;
-  const int grid = (n + kBlock - 1) / kBlock;
-  const size_t smem = columns_bytes(p.i[IP_N_SPHERES]);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (smem > smem_optin_limit()) {
-    mega_record_kernel<true><<<grid, kBlock, 0, s>>>(
-        (const float*)table, (const float*)cam, (float*)rad, (int*)rays,
-        (int*)rec, p);
-    return (int)cudaGetLastError();
-  }
-  if (smem > kSmemDefault) {
-    const cudaError_t err = opt_in_smem(mega_record_kernel<false>);
-    if (err != cudaSuccess) return (int)err;
-  }
-  mega_record_kernel<false><<<grid, kBlock, smem, s>>>(
-      (const float*)table, (const float*)cam, (float*)rad, (int*)rays,
-      (int*)rec, p);
-  return (int)cudaGetLastError();
+  return launch<MODE_RECORD>(p, (const float*)table, (const float*)cam,
+                             (float*)rad, (int*)rays, nullptr, (int*)rec,
+                             (int*)queue, (cudaStream_t)stream);
 }
 
 // Advance the streaming state by at most params[IP_MAX_IT] iterations of
@@ -859,7 +849,7 @@ extern "C" int smallpt_stream_step(const void* table, const void* cam,
                                    void* stream) {
   const Params p = read_params(iparams, fparams);
   if (bad_params(p)) return (int)cudaErrorInvalidValue;
-  return launch<true>(p, (const float*)table, (const float*)cam, (float*)f,
-                      (int*)i, (unsigned long long*)rays, (int*)queue,
-                      (cudaStream_t)stream);
+  return launch<MODE_STREAM>(p, (const float*)table, (const float*)cam,
+                             (float*)f, (int*)i, (unsigned long long*)rays,
+                             nullptr, (int*)queue, (cudaStream_t)stream);
 }

@@ -13,8 +13,8 @@ phases:
    lane's winner sphere id at each bounce, a (max_depth, L) int32 plane, -1
    on a miss or a dead lane. Scenes of at most MEGA_MAX_SPHERES spheres
    record through the recording megakernel K1b (ops/megakernel.py::
-   render_record_megakernel, csrc/megakernel.cu), one launch per in-pixel
-   sample; bigger ones through the flat wavefront over the hybrid
+   render_record_megakernel, csrc/megakernel.cu), one launch over the
+   in-pixel samples, a lane a sample; bigger ones through the flat wavefront over the hybrid
    intersector (K2's winner, bounce_step's transport). Everything else a
    replay needs (camera rays, shade uniforms, branch choices) is a
    function of (key, sample id, depth).

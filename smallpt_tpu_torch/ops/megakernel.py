@@ -6,20 +6,19 @@ One bounce body (csrc/megakernel.cu) serves all three. A lane loops on its
 own: regenerate a camera ray when its path has died and it still has
 samples, sweep the sphere table for the closest hit, pick up emission,
 sample the NEE lights at diffuse vertices, shade (DIFF/SPEC/REFR with
-Russian roulette) and continue. The per-pass and streaming kernels (K1a,
-K1c) run on as many threads as the card holds at once, each taking pixel
-lanes from a queue as its lanes finish (``mega_plan``); the recorder (K1b)
-runs one thread a lane. A lane's result does not depend on the thread that
-runs it.
+Russian roulette) and continue. The per-pass, recording and streaming
+kernels (K1a, K1b, K1c) run on as many threads as the card holds at once,
+each taking pixel lanes from a queue as its lanes finish (``mega_plan``).
+A lane's result does not depend on the thread that runs it.
 
 - Per-pass mode, ``mega_pass`` (the JAX ``render_pass_megakernel``): every
   lane starts dead with a budget of k_samples, and only the summed radiance
   and the ray count of each lane leave the kernel.
 - Recording, ``mega_record`` (one launch of the JAX
-  ``render_record_megakernel``, which ``render_record_megakernel`` here
-  runs once per in-pixel sample): the per-pass mode with one sample a lane
-  that also writes each lane's winner sphere id at each depth, the record
-  of grad/replay.py's replay differentiator.
+  ``render_record_megakernel``; ``render_record_megakernel`` here makes one
+  launch over a band's in-pixel samples, a lane a sample): the per-pass
+  mode with one sample a lane that also writes each lane's winner sphere
+  id at each depth, the record of grad/replay.py's replay differentiator.
 - Streaming mode, ``stream_step`` (the JAX ``stream_step``): the path state
   of every lane persists across launches in two buffers laid out as the JAX
   package lays them out, ``(8*14, n_cols)`` f32 and ``(8*6, n_cols)`` i32,
@@ -234,9 +233,10 @@ def _launch_args(config: RenderConfig, n_lanes, n_spheres, k0, k1,
 LIBRARY = ("smallpt_megakernel", "megakernel.cu")
 
 
-# K1a's and K1c's launch (smallpt_mega_plan) and their queue's scratch after
-# a launch (the counter past the first wave, the lanes handed out, the lanes
-# that had work)
+# The launch of K1a, K1c or K1b (smallpt_mega_plan, by its mode, MODES) and
+# their queue's scratch after a launch (the counter past the first wave, the
+# lanes handed out, the lanes that had work)
+MODES = ("pass", "stream", "record")
 PLAN_FIELDS = ("blocks", "threads", "n_sm", "per_sm", "smem", "global",
                "nee")
 QUEUE_FIELDS = ("next", "handed", "worked")
@@ -253,27 +253,27 @@ def _stream_lib():
 
 
 def _plan_lib():
-    """The launch plan of K1a and K1c, in the same library."""
+    """The launch plan of K1a, K1c and K1b, in the same library."""
     return _entry("smallpt_mega_plan", 5, [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
 
 
-def mega_plan(n_lanes: int, n_spheres: int, n_lights: int,
-              streaming: bool, device=None) -> dict:
-    """The launch K1a (streaming False) or K1c makes of n_lanes lanes over
-    n_spheres spheres with n_lights NEE lights, on a CUDA device (None: the
-    current one): its blocks and their threads (the first wave; the queue
-    hands out the other lanes), the SMs, the blocks an SM holds (the
-    instance's occupancy at its shared memory), the shared memory a block,
-    and the instance (the sweep from global memory, NEE); PLAN_FIELDS ->
-    int."""
+def mega_plan(n_lanes: int, n_spheres: int, n_lights: int, mode: str,
+              device=None) -> dict:
+    """The launch K1a (mode "pass"), K1c ("stream") or K1b ("record")
+    makes of n_lanes lanes over n_spheres spheres with n_lights NEE lights,
+    on a CUDA device (None: the current one): its blocks and their threads
+    (the first wave; the queue hands out the other lanes), the SMs, the
+    blocks an SM holds (the instance's occupancy at its shared memory), the
+    shared memory a block, and the instance (the sweep from global memory,
+    NEE); PLAN_FIELDS -> int."""
     device = torch.device("cuda" if device is None else device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     out = np.zeros(len(PLAN_FIELDS), np.int64)
     with torch.cuda.device(device):
         err = _plan_lib()(int(n_lanes), int(n_spheres), int(n_lights),
-                          int(bool(streaming)), out.ctypes.data)
+                          MODES.index(mode), out.ctypes.data)
     if err != 0:
         raise RuntimeError(f"smallpt_mega_plan: CUDA error {err}")
     return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
@@ -281,7 +281,7 @@ def mega_plan(n_lanes: int, n_spheres: int, n_lights: int,
 
 def _record_lib():
     """The recording entry point of the same library (K1b)."""
-    return _entry("smallpt_mega_record", 8)
+    return _entry("smallpt_mega_record", 9)
 
 
 def _entry(name: str, n_args: int, argtypes=None):
@@ -371,27 +371,43 @@ def mega_record(table: torch.Tensor, cam: torch.Tensor, config: RenderConfig,
     if table.device.type == "cpu":
         return record_pass_plain(table, cam, config, k0, k1, ip_offset,
                                  row_offset, n_rows, n_spheres=n_spheres)
-    fn = _record_lib()
-    g = n_rows * config.width
-    dev = table.device
-    rad = torch.empty((g, 3), dtype=torch.float32, device=dev)
-    rays = torch.empty((g,), dtype=torch.int32, device=dev)
-    rec = torch.empty((config.max_depth, g), dtype=torch.int32, device=dev)
-    ints, floats = _launch_args(config, g, n_spheres, k0, k1, ip_offset,
-                                row_offset, 1)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), cam.data_ptr(), rad.data_ptr(),
-                 rays.data_ptr(), rec.data_ptr(), ints.ctypes.data,
-                 floats.ctypes.data, stream)
-    if err != 0:
-        raise RuntimeError(f"record megakernel launch failed: CUDA error "
-                           f"{err}")
+    rad, rays, rec, _ = _record_launch(table, cam, config, k0, k1, ip_offset,
+                                       row_offset, n_rows, n_spheres)
     mega_record.launches += 1
     return rad, rays, rec
 
 
 mega_record.launches = 0
+
+
+def _record_launch(table, cam, config: RenderConfig, k0: int, k1: int,
+                   ip_offset: int, row_offset: int, n_rows: int,
+                   n_spheres: int, k_samples: int = 1):
+    """A K1b launch on CUDA tensors, uncounted; the caller has checked the
+    inputs. Its G * k_samples lanes are the band's G pixels' in-pixel
+    samples ip_offset + s, lane = pixel * k_samples + s (the FLAT lane
+    order). Returns (radiance (G * k, 3), rays (G * k,), winners
+    (max_depth, G * k), queue): the queue's (3,) int32 scratch after the
+    launch (QUEUE_FIELDS)."""
+    fn = _record_lib()
+    g = n_rows * config.width * k_samples
+    dev = table.device
+    rad = torch.empty((g, 3), dtype=torch.float32, device=dev)
+    rays = torch.empty((g,), dtype=torch.int32, device=dev)
+    rec = torch.empty((config.max_depth, g), dtype=torch.int32, device=dev)
+    # the queue's counters, zeroed by the launch on its stream
+    queue = torch.empty((len(QUEUE_FIELDS),), dtype=torch.int32, device=dev)
+    ints, floats = _launch_args(config, g, n_spheres, k0, k1, ip_offset,
+                                row_offset, k_samples, config.max_depth)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table.data_ptr(), cam.data_ptr(), rad.data_ptr(),
+                 rays.data_ptr(), rec.data_ptr(), queue.data_ptr(),
+                 ints.ctypes.data, floats.ctypes.data, stream)
+    if err != 0:
+        raise RuntimeError(f"record megakernel launch failed: CUDA error "
+                           f"{err}")
+    return rad, rays, rec, queue
 
 
 # ---------------------------------------------------------------------------
@@ -689,20 +705,27 @@ def record_pass_plain(table: torch.Tensor, cam: torch.Tensor,
                       config: RenderConfig, k0: int, k1: int,
                       ip_offset: int = 0, row_offset: int = 0,
                       n_rows: int | None = None, *,
-                      n_spheres: int | None = None, counts=None):
+                      n_spheres: int | None = None, counts=None,
+                      k_samples: int = 1):
     """The plain version of the recording launch (K1b): the per-pass case
-    with one sample a lane, ip_offset, that also records each lane's
-    winner at each depth. Returns (radiance (G, 3), rays (G,) int32,
-    winners (max_depth, G) int32) as ``mega_record``."""
+    with one sample a lane that also records each lane's winner at each
+    depth. Lane pixel * k_samples + s traces the pixel's sample ip_offset
+    + s (the FLAT lane order). Returns (radiance (G * k, 3), rays (G * k,)
+    int32, winners (max_depth, G * k) int32); with k_samples 1 those of
+    ``mega_record``."""
     _check_config(config, n_spheres)
     n_rows = config.height if n_rows is None else n_rows
-    g = n_rows * config.width
+    g = n_rows * config.width * k_samples
     st = _fresh_lanes(g, table.device)
+    # lane s of a pixel starts dead at s_idx s - 1 with a budget of s + 1:
+    # it traces sample s alone
+    s = torch.arange(g, dtype=torch.int64, device=table.device) % k_samples
+    st["s_idx"] = s - 1
     rec = torch.full((config.max_depth, g), -1, dtype=torch.int32,
                      device=table.device)
-    _plain_lanes(table, cam, config, k0, k1, st, 1, config.max_depth,
+    _plain_lanes(table, cam, config, k0, k1, st, s + 1, config.max_depth,
                  ip_offset, row_offset, streaming=False, n_spheres=n_spheres,
-                 counts=counts, rec=rec)
+                 counts=counts, rec=rec, lanes_a_pixel=k_samples)
     return (torch.stack([st["rx"], st["ry"], st["rz"]], dim=-1), st["rays"],
             rec)
 
@@ -740,7 +763,7 @@ def stream_step_plain(table: torch.Tensor, cam: torch.Tensor,
 def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
                  st: dict, budget, max_it: int, ip_offset: int,
                  row_offset: int, *, streaming: bool, n_spheres, counts,
-                 rec=None):
+                 rec=None, lanes_a_pixel: int = 1):
     """The kernel's per-lane loop in PyTorch, on flat lanes with masks: a
     transliteration of the JAX ``_mega_kernel`` body, one function for its
     modes. One deviation: it normalizes with
@@ -761,7 +784,8 @@ def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
     test puts them in (``_count_pairs``), for the kernel's op bound; it only
     counts, on the side. rec:
     None, or a (max_depth, N) int32 tensor prefilled with -1 that receives
-    each live lane's winner (table row) at its depth."""
+    each live lane's winner (table row) at its depth. lanes_a_pixel: lane
+    n traces pixel n // lanes_a_pixel of the band."""
     dev = table.device
     f32 = torch.float32
     W = config.width
@@ -774,8 +798,8 @@ def _plain_lanes(table, cam, config: RenderConfig, k0: int, k1: int,
     camv = cam.detach().cpu().reshape(-1).tolist()
 
     lane = torch.arange(G, dtype=torch.int64, device=dev)
-    pix_col = lane % W
-    pix_row = lane // W + row_offset
+    pix_col = lane // lanes_a_pixel % W
+    pix_row = lane // lanes_a_pixel // W + row_offset
     pixel = pix_row * W + pix_col
     ox, oy, oz, dx, dy, dz = (st[n] for n in _F_PLANES[0:6])
     wx, wy, wz, rx, ry, rz, m1, m2 = (st[n] for n in _F_PLANES[6:14])
@@ -1234,15 +1258,17 @@ def render_record_megakernel(scene: SphereScene, camera,
                              k_samples: int | None = None, device=None):
     """The forward pass at megakernel speed, recording every sample's
     winner sphere id at every depth: the recorder of the replay
-    differentiator (grad/replay.py). One K1b launch (``mega_record``) per
-    in-pixel sample s, keyed with ip = ip_offset + s, so launch s traces the
-    FLAT scheduler's samples s.
+    differentiator (grad/replay.py). One K1b launch (counted in
+    ``mega_record.launches``) over the band's k_samples in-pixel samples, a
+    lane a sample, lane = local_pixel * k_samples + s keyed with ip =
+    ip_offset + s, so that lane traces the FLAT scheduler's sample; on the
+    CPU its plain version, ``record_pass_plain``.
 
-    Returns ((n_rows, W, 3) radiance summed over the k_samples samples, as
-    render_pass_megakernel; winners (max_depth, G * k_samples) int32, -1
-    for a miss or a dead lane, in FLAT lane order lane = local_pixel *
-    k_samples + s; rays traced as a 0-d int64 tensor). The hooks are
-    render_pass_megakernel's. ``device=None`` means CUDA."""
+    Returns ((n_rows, W, 3) radiance summed over the k_samples samples in
+    order, as render_pass_megakernel; winners (max_depth, G * k_samples)
+    int32, -1 for a miss or a dead lane, in that FLAT lane order; rays
+    traced as a 0-d int64 tensor). The hooks are render_pass_megakernel's.
+    ``device=None`` means CUDA."""
     dev = resolve_device(device)
     n_rows = config.height if n_rows is None else n_rows
     k_samples = config.spp if k_samples is None else k_samples
@@ -1251,20 +1277,24 @@ def render_record_megakernel(scene: SphereScene, camera,
                          "spheres")
     table = build_scene_table(scene, config, dev)
     cam = build_camera_vec(camera, config, dev)
+    n_spheres = _check_inputs(table, cam, config, scene.n_spheres)
+    k0, k1 = prng.key_words(key)
+    if dev.type == "cpu":
+        r, n, winners = record_pass_plain(
+            table, cam, config, k0, k1, ip_offset, row_offset, n_rows,
+            n_spheres=n_spheres, k_samples=k_samples)
+    else:
+        r, n, winners, _ = _record_launch(table, cam, config, k0, k1,
+                                          ip_offset, row_offset, n_rows,
+                                          n_spheres, k_samples)
+        mega_record.launches += 1
     g = n_rows * config.width
+    r = r.reshape(g, k_samples, 3)
     rad = torch.zeros((g, 3), dtype=torch.float32, device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    recs = []
     for s in range(k_samples):
-        r_s, n_s, w_s = mega_record(table, cam, config, key, ip_offset + s,
-                                    row_offset, n_rows,
-                                    n_spheres=scene.n_spheres)
-        rad = rad + r_s
-        rays = rays + n_s.sum(dtype=torch.int64)
-        recs.append(w_s)
-    winners = torch.stack(recs, dim=2).reshape(config.max_depth,
-                                               g * k_samples)
-    return rad.reshape(n_rows, config.width, 3), winners, rays
+        rad = rad + r[:, s]
+    return (rad.reshape(n_rows, config.width, 3), winners,
+            n.sum(dtype=torch.int64))
 
 
 # ---------------------------------------------------------------------------

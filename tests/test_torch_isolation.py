@@ -155,7 +155,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert mpfn.argtypes == [ctypes.c_int] * 4 + [ctypes.c_void_p]
     assert mpfn.restype is ctypes.c_int
     assert mk._record_lib() is rfn
-    assert rfn.argtypes == [ctypes.c_void_p] * 8
+    assert rfn.argtypes == [ctypes.c_void_p] * 9
     assert rfn.restype is ctypes.c_int
     assert mk._stream_lib() is sfn
     assert sfn.argtypes == [ctypes.c_void_p] * 9

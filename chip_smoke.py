@@ -55,12 +55,20 @@ the main paths through the kernels and times them:
   plan's edges (77 rays cut to one range a chunk, a tie with a copy in a
   later range, rays parallel to a plane of triangles, n_rows below the
   table), each with the plan its launcher made;
-- the grid-culled sweep (K7): against its plain version on the 60-ball
-  mesh (random, coherent and surface rays, an overflowing list, a ragged
-  tile, all-miss rays) and on procedural_mesh_scene(500)'s camera and
-  first-bounce rays at 256x192, 4 spp, where it is also held to K6 and
-  timed beside it; the FLAT mesh path with the culled route forced
-  (MESH_ACCEL_MIN_TRIS = 1), its pass bit-equal to the K6 pass;
+- the grid-culled sweep (K7): against its plain version and K6, each
+  launch timed beside K6 on the same rays, on the 60-ball mesh (random,
+  coherent and surface rays, an overflowing list, a ragged tile, all-miss
+  rays), on procedural_mesh_scene(500)'s camera and first-bounce rays at
+  256x192, 4 spp, and on constructed launches at the edges of its box
+  cull, its normal cones and its group walk (k7_constructed_launches,
+  ops/cull_rays.py's kinds: rays grazing
+  triangle planes, zero direction components, origins on and inside
+  chunk boxes and on surfaces, NaN and inf, one lane missing among near
+  hits, 1 ray, a ragged tile, a 49,152-lane stream launch), each with its
+  bounds (k7_bound: the lesser of the tile walk's and the box-culled
+  count) and ptxas's registers, stack and spills; the FLAT mesh path with
+  the culled route forced (MESH_ACCEL_MIN_TRIS = 1), its pass bit-equal
+  to the K6 pass, its launches held to the plain version and to K6;
 - mesh streaming (bench.py --mesh-stream's shape): WavefrontStreamingRenderer
   on procedural_mesh_scene(500) at 256x192, max_depth 12, rounds of
   step(24 bounces, 8 samples) and a flush, through K6 and with the culled
@@ -1527,6 +1535,17 @@ OPS_K2_DIRECT_MISS, OPS_K2_DIRECT_HIT = 17, 24
 # PERF.md); a row it leaves out as it stages the table (padding, n = 0)
 # costs no op a pair.
 OPS_K6_DN, OPS_K6_T, OPS_K6_FULL = 9, 19, 46
+# One box test of K7 (csrc/closest_tri_culled.cu::box_keep; its plain form
+# ops/mesh_pallas.py::box_test): c - o (3), the sum of their absolute
+# values (2; an absolute value is an operand's modifier), times kBoxRel
+# plus w0 (2), h + w (3) and its copysign (3), the slab ends (6
+# subtractions or additions, 6 products), their max and min (4) and the
+# three compares that drop a chunk (3). K7's cone test (sweep_cones;
+# ops/mesh_pallas.py::cone_test): d . a (3 products, 2 sums), s times |d|
+# (1) and the compare (1); |d| once a ray (3 products, 2 sums, the root).
+OPS_K7_BOX = 32
+OPS_K7_CONE = 7
+OPS_K7_LEN = 6
 
 
 def k2_pairs(org, dirs, table, n_a: int, n_b: int) -> dict:
@@ -1742,26 +1761,264 @@ def k6_bound(org, dirs, table, n_rows=None, eps: float = 0.0) -> dict:
                   bound_by_every_pair_full=full["bound_by"])
 
 
-def k7_bound(args, work) -> dict:
+def _k7_staged(lane, t_final, rays, rows, mask, eps: float) -> list:
+    """[dn, t, full]: the (ray, row) pairs of rays (P,) (indices into the
+    lane planes (ox, oy, oz, dx, dy, dz) and t_final) and rows (P, R, 16)
+    where mask (P, R), by where a test that decides dn and t first decides
+    them at the ray's final t (k6_pairs' stages; a pair whose t is at or
+    below the final t takes the whole test): the least over any order of
+    the sweep."""
+    import torch
+
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    out = [0, 0, 0]
+    step = max(1, (1 << 22) // max(rows.shape[1], 1))
+    for lo in range(0, rays.shape[0], step):
+        ray, row, m = (x[lo:lo + step] for x in (rays, rows, mask))
+        ln = [x[ray][:, None] for x in lane]
+        cols = [row[..., k] for k in range(13)]
+        _, t, _, _ = mp._tri_test(ln, cols, eps)
+        dn = ln[3] * cols[9] + ln[4] * cols[10] + ln[5] * cols[11]
+        at_dn = dn == 0.0
+        at_t = ~at_dn & ~((eps < t) & (t <= t_final[ray][:, None]))
+        out[0] += int((at_dn & m).sum())
+        out[1] += int((at_t & m).sum())
+        out[2] += int((~at_dn & ~at_t & m).sum())
+    return out
+
+
+def k7_walk(args, t_final, eps: float = 0.0, batch: int = 1 << 23) -> dict:
+    """The work of one K7 launch on the wrapper's arguments (org, dirs,
+    n_rays, table, boxes, slivers, cones, cone_rows, lists, dlo, stops,
+    n_glob, n_chunks) at each ray's final t (t_final: the launch's
+    (n_rays,) t, 3e38 on a miss), counted over the valid rays in batches
+    of tiles (about ``batch`` (ray, slot) pairs a batch):
+    - "tile", the tile-wide walk of the kernel before the box cull: each
+      tile sweeps the global chunks, its listed slots until every valid
+      lane's t is below the next slot's bound, and every local chunk on
+      an overflow whose tail a lane reaches: "pairs" (valid lane, valid
+      row) and "dead" (valid lane, padding row) of the chunks swept;
+    - "ray", a ray alone: its cone tests ("cone_tests", every cone), the
+      box tests over the slots it walks (until its own t is below the next
+      bound; every local chunk after an overflow whose tail it reaches),
+      and the (ray, row) pairs it tests, by stage ("ray_dn", "ray_t",
+      "ray_full", _k7_staged): the live rows of the global chunks, the
+      slivers, the cones it grazes ("cone_rows") and the chunks whose box
+      it enters before its t (mesh_pallas.box_test with best = its t);
+    - "group", as the kernel walks (GROUP rays): every slot of its tile's
+      list (and every local chunk after an overflow whose tail a valid
+      lane reaches), a box test each a valid lane, and the pairs by stage:
+      the live rows of the globals, the slivers, each lane's cones and
+      the union of its valid lanes' entered chunks, each for every valid
+      lane.
+    A chunk with no live row takes no box test (the kernel skips it)."""
+    import torch
+
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    (org, dirs, n_rays, table, boxes, slivers, cones, cone_rows, lists, dlo,
+     stops, n_glob, n_chunks) = args[:13]
+    dev = org.device
+    n_pad, g = org.shape[1], mp.GROUP
+    n_tiles, l_max = lists.shape
+    t = torch.full((n_pad,), 3e38, device=dev)
+    t[:n_rays] = t_final[:n_rays]
+    valid = torch.arange(n_pad, device=dev) < n_rays
+    lane = mp.box_lane(org, dirs)
+    rays = [*org, *dirs]
+    live = boxes[:, 7].contiguous().view(torch.int32)
+    bits = torch.tensor([1 << k for k in range(16)], dtype=torch.int32,
+                        device=dev)
+    live_bits = (live[:, None] & bits) != 0
+    n_live = live_bits.sum(dim=1)
+    has_live = live != 0
+    chunk_rows = table.reshape(-1, 16, 16)
+    n_valid = (table[:, 12] > 0.5).reshape(-1, 16).sum(dim=1)
+    stop = stops.long()
+    walk = stop.abs()
+    out = {k: 0 for k in ("tile_pairs", "tile_dead", "tile_chunks",
+                          "cone_tests", "cone_rows", "ray_tests", "ray_dn",
+                          "ray_t", "ray_full", "ray_rows", "ray_entered",
+                          "group_tests", "group_dn", "group_t", "group_full",
+                          "group_rows", "group_union")}
+    entered_max, union_max = 0, 0
+
+    def add(keys, st):
+        for key in keys:
+            for k, v in zip(("dn", "t", "full"), st):
+                out[f"{key}_{k}"] += v
+
+    # every valid ray: the global chunks' live rows, the slivers and the
+    # rows of the cones it grazes
+    glob = torch.cat([torch.nonzero(live_bits[:n_glob].reshape(-1))[:, 0]
+                      .to(torch.int32), slivers])
+    every = torch.nonzero(valid)[:, 0]
+    n_cones = cones.shape[0]
+    off = cone_rows[:n_cones + 1].long()
+    size = off[1:] - off[:-1]
+    out["cone_tests"] = n_rays * n_cones
+    grow = table[glob.long()]
+    for lo in range(0, every.numel(), 1024):
+        r = every[lo:lo + 1024]
+        if glob.numel():
+            add(("ray", "group"), _k7_staged(
+                rays, t, r, grow[None].expand(r.numel(), -1, -1),
+                torch.ones((r.numel(), grow.shape[0]), dtype=torch.bool,
+                           device=dev), eps))
+        if n_cones:
+            hit = mp.cone_test([x[r][:, None] for x in rays[3:]],
+                               [c[None, :] for c in cones.unbind(dim=1)])
+            ray, cone = torch.nonzero(hit, as_tuple=True)
+            n_at = size[cone]
+            first = (off[cone] - torch.cumsum(n_at, 0) + n_at
+                     ).repeat_interleave(n_at)
+            at = torch.arange(int(n_at.sum()), device=dev) + first
+            row = table[cone_rows[n_cones + 1 + at].long()]
+            out["cone_rows"] += row.shape[0]
+            add(("ray", "group"), _k7_staged(
+                rays, t, r[ray].repeat_interleave(n_at), row[:, None],
+                torch.ones((row.shape[0], 1), dtype=torch.bool,
+                           device=dev), eps))
+    out["ray_rows"] += n_rays * glob.numel() + out["cone_rows"]
+    out["group_rows"] += n_rays * glob.numel() + out["cone_rows"]
+    glob_valid = int(n_valid[:n_glob].sum())
+
+    def walked(c):
+        """Slots walked where c[..., j] says the walk goes on past j."""
+        before = torch.cat([torch.ones_like(c[..., :1]), c[..., :-1]],
+                           dim=-1)
+        return torch.cumprod(before.to(torch.int32), dim=-1).bool()
+
+    def count(t0, cid, w_ray, w_grp, tt, vv, lanes):
+        """Count the ray's and the group's work over the slots cid (b, S)
+        of tiles t0.. where the ray walks w_ray (b, 1024, S) and the group
+        w_grp (b, 1024 // g, S); returns each ray's entered chunks (b,
+        1024) and each group's union (b, 1024 // g)."""
+        b, s_ = cid.shape
+        box = [x.reshape(b, 1, s_) for x in boxes[cid].unbind(dim=2)]
+        keep = mp.box_test(lanes, box, tt[:, :, None], eps) & vv[:, :, None]
+        tested = has_live[cid][:, None, :]
+        ent = keep & w_ray
+        out["ray_tests"] += int((w_ray & tested).sum())
+        kg = keep.reshape(b, 1024 // g, g, s_).any(dim=2) & w_grp
+        out["group_tests"] += int(((w_grp & tested[:, 0][:, None, :]).sum(
+            dim=2) * vv.reshape(b, 1024 // g, g).sum(dim=2)).sum())
+        swept = kg.repeat_interleave(g, dim=1) & vv[:, :, None]
+        # the rows of the entered chunks (ray) and of the union (group)
+        for key, sel in (("ray", ent), ("group", swept)):
+            tl, ray, slot = torch.nonzero(sel, as_tuple=True)
+            c = cid[tl, slot]
+            out[key + "_rows"] += int(n_live[c].sum())
+            add((key,), _k7_staged(rays, t, t0 * 1024 + tl * 1024 + ray,
+                                   chunk_rows[c], live_bits[c], eps))
+        return ent.sum(dim=2), kg.sum(dim=2)
+
+    per = max(1, batch // (1024 * max(l_max, n_chunks)))
+    for t0 in range(0, n_tiles, per):
+        t1 = min(n_tiles, t0 + per)
+        b = t1 - t0
+        tt = t[t0 * 1024:t1 * 1024].reshape(b, 1024)
+        vv = valid[t0 * 1024:t1 * 1024].reshape(b, 1024)
+        nv = vv.sum(dim=1)
+        lanes = [x[t0 * 1024:t1 * 1024].reshape(b, 1024, 1) for x in lane]
+        w = walk[t0:t1]
+        bound = dlo[t0:t1]
+        nxt = torch.cat([bound[:, 1:], torch.full((b, 1), float("inf"),
+                                                  device=dev)], dim=1)
+        inwalk = torch.arange(l_max, device=dev)[None, :] < w[:, None]
+        cont = (tt[:, :, None] >= nxt[:, None, :]) & vv[:, :, None]
+        w_ray = walked(cont) & inwalk[:, None, :] & vv[:, :, None]
+        w_grp = inwalk[:, None, :] & vv.reshape(b, 1024 // g, g).any(
+            dim=2)[:, :, None]
+        w_tile = walked(cont.any(dim=1)) & inwalk
+        cid = n_glob + lists[t0:t1].long()
+        out["tile_chunks"] += int(w_tile.sum()) + b * n_glob
+        tile_valid = (w_tile * n_valid[cid]).sum(dim=1) + glob_valid
+        out["tile_pairs"] += int((nv * tile_valid).sum())
+        out["tile_dead"] += int((nv * (16 * (w_tile.sum(dim=1) + n_glob)
+                                       - tile_valid)).sum())
+        per_ray, union = count(t0, cid, w_ray, w_grp, tt, vv, lanes)
+        # the overflow fallback: every local chunk, for the rays, groups
+        # and tiles whose t reaches the last slot's bound
+        tail = stop[t0:t1] < 0
+        if bool(tail.any()):
+            last = bound.gather(1, (w - 1).clamp(min=0)[:, None])
+            reach = (tt >= last) & vv & tail[:, None]
+            greach = reach.reshape(b, 1024 // g, g).any(dim=2)
+            treach = reach.any(dim=1)
+            every_c = (n_glob + torch.arange(n_chunks, device=dev))[
+                None].expand(b, -1)
+            fb_ray, fb_union = count(
+                t0, every_c, reach[:, :, None].expand(-1, -1, n_chunks),
+                greach[:, :, None].expand(-1, -1, n_chunks), tt, vv, lanes)
+            per_ray, union = per_ray + fb_ray, union + fb_union
+            out["tile_chunks"] += int(treach.sum()) * n_chunks
+            fb_valid = int(n_valid[n_glob:].sum())
+            out["tile_pairs"] += int((nv * treach).sum()) * fb_valid
+            out["tile_dead"] += int((nv * treach).sum()) * (
+                16 * n_chunks - fb_valid)
+        out["ray_entered"] += int(per_ray.sum())
+        entered_max = max(entered_max, int(per_ray.max()))
+        out["group_union"] += int(union.sum())
+        union_max = max(union_max, int(union.max()))
+    n_groups = n_pad // g
+    out.update(ray_entered_mean=out["ray_entered"] / max(n_rays, 1),
+               ray_entered_max=entered_max,
+               cone_rows_mean=out["cone_rows"] / max(n_rays, 1),
+               group_union_mean=out["group_union"] / max(n_groups, 1),
+               group_union_max=union_max,
+               tile_chunks_mean=out["tile_chunks"] / max(n_tiles, 1))
+    return out
+
+
+def k7_bound(args, t_final, eps: float = 0.0) -> dict:
     """The least time of one K7 launch on the wrapper's arguments (org,
-    dirs, n_rays, table, lists, dlo, stops, ...): OPS_K6_ROW per (ray, live
-    row) of the chunks each tile sweeps on this run's lists (work: the
-    plain version's (chunks, live rows) per tile), a compare per padding row
-    swept, at the float rate; the ray planes, the lists, dlo, stops and the
-    table read once and 16 B a ray written, at the memory rate."""
-    org, _, n_rays, table, lists, dlo, stops = args[:7]
-    chunks, live = (x.cpu().numpy().astype(np.int64) for x in work)
-    tile = np.arange(chunks.shape[0]) * 1024
-    valid = np.clip(n_rays - tile, 0, 1024)
-    pairs = int((valid * live).sum())
-    dead = int((valid * (16 * chunks - live)).sum())
-    ops = OPS_K6_ROW * pairs + OPS_ROW_SKIP * dead
-    nbytes = (2 * org.numel() * 4 + n_rays * 16 + table.numel() * 4
-              + (lists.numel() + dlo.numel() + stops.numel()) * 4)
-    return _bound(ops, nbytes, pairs=pairs, dead=dead,
-                  chunks_per_tile={"mean": float(chunks.mean()),
-                                   "min": int(chunks.min()),
-                                   "max": int(chunks.max())})
+    dirs, n_rays, table, boxes, slivers, lists, dlo, stops, ...) and its t
+    (t_final), the function's: the lesser of
+    - the tile-wide walk's count (bound_ms_tile_walk: OPS_K6_ROW per
+      (valid ray, valid row) and a compare per padding row of the chunks
+      each tile sweeps, k7_walk's "tile"; PRs 8-15 bound K7 by this walk at
+      the running best, the same walk), and
+    - the box-culled count (bound_ms_box_culled: for each ray its |d|
+      and cone tests at OPS_K7_LEN and OPS_K7_CONE, its box tests over
+      the slots it walks at OPS_K7_BOX, and the pairs it tests (the live
+      rows of the global chunks, the slivers, the cones it grazes and the
+      chunks it enters before its t) at K6's staged counts, OPS_K6_DN,
+      OPS_K6_T or OPS_K6_FULL as dn, t at the ray's final t or the whole
+      test decides each, k7_walk's "ray"),
+    at the float rate, against the ray planes, the table, the boxes, the
+    cones and the lists read once and 16 B a ray written, at the memory
+    rate. Beside it the design's least (bound_ms_group_union: the same
+    but a group's box tests and the union of its lanes' chunks for each
+    lane, "group")."""
+    org, _, n_rays, table = args[:4]
+    c = k7_walk(args, t_final, eps)
+    nbytes = (2 * org.numel() * 4 + n_rays * 16
+              + sum(x.numel() * 4 for x in args[3:11]))
+    tile = _bound(OPS_K6_ROW * c["tile_pairs"] + OPS_ROW_SKIP * c["tile_dead"],
+                  nbytes)
+
+    def culled(key):
+        tests = (OPS_K7_BOX * c[key + "_tests"] + OPS_K7_LEN * n_rays
+                 + OPS_K7_CONE * c["cone_tests"])
+        rows = (OPS_K6_DN * c[key + "_dn"] + OPS_K6_T * c[key + "_t"]
+                + OPS_K6_FULL * c[key + "_full"])
+        return _bound(tests + rows, nbytes,
+                      bound_ops_ms_tests=tests / PEAK_FP32_OPS * 1e3,
+                      bound_ops_ms_rows=rows / PEAK_FP32_OPS * 1e3)
+
+    ray, grp = culled("ray"), culled("group")
+    best = ray if ray["bound_ms"] <= tile["bound_ms"] else tile
+    return dict(best, bound_algorithm=("box-culled"
+                                       if best is ray else "tile walk"),
+                bound_ms_tile_walk=tile["bound_ms"],
+                bound_ms_box_culled=ray["bound_ms"],
+                bound_ms_group_union=grp["bound_ms"],
+                bound_ops_ms_tests=ray["bound_ops_ms_tests"],
+                bound_ops_ms_rows=ray["bound_ops_ms_rows"],
+                group_bound_ops_ms_tests=grp["bound_ops_ms_tests"],
+                group_bound_ops_ms_rows=grp["bound_ops_ms_rows"], counts=c)
 
 
 def _bound(ops, nbytes, **info) -> dict:
@@ -2315,7 +2572,8 @@ def launches_vs_plain(name, kernel: str, fn, per_run: float,
     plain version (bit-equal), its CUDA-event time (the card held busy
     before each call: ``hold_card``), the plain version's host time and the
     launch's bound ("first", "middle"; K2's with the sphere scene the run
-    renders, ``k2_bound``)."""
+    renders, ``k2_bound``); K7's also against K6 on the same rays, with K6's
+    time beside it, where the mesh scene the run renders is given."""
     import torch
 
     from smallpt_tpu_torch.ops import intersect_pallas as ip
@@ -2332,8 +2590,7 @@ def launches_vs_plain(name, kernel: str, fn, per_run: float,
         torch.cuda.synchronize()
         t = time.perf_counter()
         if kernel == "closest_tri_culled":
-            want, work = mp.closest_tri_culled_plain(*args, **kw,
-                                                     return_work=True)
+            want = mp.closest_tri_culled_plain(*args, **kw)
         elif kernel == "closest_tri":
             want = mp.closest_tri_plain(*args, **kw)
         else:
@@ -2342,13 +2599,21 @@ def launches_vs_plain(name, kernel: str, fn, per_run: float,
         plain_ms = (time.perf_counter() - t) * 1e3
         bound = (k2_bound(*args, **kw, scene=scene)
                  if kernel == "closest_hit" else k6_bound(*args, **kw)
-                 if kernel == "closest_tri" else k7_bound(args, work))
+                 if kernel == "closest_tri" else k7_bound(
+                     args, got[0], kw.get("eps", 0.0)))
         if kernel in ("closest_hit", "closest_tri"):
             # the cut the launcher made of this launch, and its scratch
             bound["plan"] = (k2_plan if kernel == "closest_hit"
                              else k6_plan)(*args, **kw)
         launches[k] = dict(rays=n, kernel_ms=k_ms, plain_ms=plain_ms,
                            vs_plain=exact(name, got, want), **bound)
+        if kernel == "closest_tri_culled" and scene is not None:
+            # K6 on the same rays: the same outputs, and its time
+            table = mp.build_tri_table(scene, device=args[0].device)
+            launches[k]["vs_k6"] = k7_vs_k6(name, table, args, got)
+            launches[k]["k6_ms"], _ = cuda_ms(
+                lambda: mp.closest_tri(args[0], args[1], table), 5,
+                setup=hold_card)
     return launches
 
 
@@ -2543,31 +2808,42 @@ def wavefront_main_paths(dev) -> dict:
     return out
 
 
-def k7_vs_plain(name, org, dirs, accel) -> dict:
+def k7_vs_plain(name, org, dirs, accel, full: bool = False) -> dict:
     """K7 against closest_tri_culled_plain on (N, 3) rays and a
-    MeshGridAccel on the card, on the tile lists of these rays: t, id, u, v
-    bit-equal. Returns the check with the bound of the launch, the chunks
-    each tile swept, and the wrapper's arguments (key "args", for the
-    caller's timings)."""
+    MeshGridAccel on the card, on the tile lists of these rays (full:
+    every local chunk listed with bound 0, a valid input for any rays and
+    the one for NaN and inf rays, whose bin keys the list builder cannot
+    take): t, id, u, v bit-equal. Returns the check with the bound of the
+    launch (k7_bound) and the wrapper's arguments and outputs (keys "args"
+    and "got", for the caller's timings)."""
     import torch
 
     from smallpt_tpu_torch.ops import mesh_accel as ma
     from smallpt_tpu_torch.ops import mesh_pallas as mp
 
     n = org.shape[0]
-    n_pad = -(-n // ma.RAY_TILE) * ma.RAY_TILE
+    n_pad = -(-max(n, 1) // ma.RAY_TILE) * ma.RAY_TILE
     ot, dt = mp._ray_planes(org, dirs, n_pad)
-    valid = torch.arange(n_pad, device=org.device) < n
-    lists, dlo, stops = ma.mesh_tile_lists(ot, dt, valid, accel)
-    args = (ot, dt, n, accel.table, lists, dlo, stops, accel.n_glob_chunks,
+    if full:
+        t_ = n_pad // ma.RAY_TILE
+        c = accel.n_chunks
+        lists = torch.arange(c, dtype=torch.int32, device=org.device
+                             ).expand(t_, c).contiguous()
+        dlo = torch.zeros((t_, c), device=org.device)
+        stops = torch.full((t_,), c, dtype=torch.int32, device=org.device)
+    else:
+        valid = torch.arange(n_pad, device=org.device) < n
+        lists, dlo, stops = ma.mesh_tile_lists(ot, dt, valid, accel)
+    args = (ot, dt, n, accel.table, accel.boxes, accel.slivers, accel.cones,
+            accel.cone_rows, lists, dlo, stops, accel.n_glob_chunks,
             accel.n_chunks)
     got = mp.closest_tri_culled(*args)
-    want, work = mp.closest_tri_culled_plain(*args, return_work=True)
+    want = mp.closest_tri_culled_plain(*args)
     out = exact(name, got, want)
     out.update(tiles=int(stops.numel()),
                overflow_tiles=int((stops < 0).sum()),
                listed_mean=float(stops.abs().float().mean()),
-               **k7_bound(args, work))
+               **k7_bound(args, got[0]))
     return dict(out, args=args, got=got)
 
 
@@ -2589,18 +2865,129 @@ def k7_vs_k6(name, table, args, got) -> dict:
     return {"equal": True, "hit_share": float(hit.float().mean())}
 
 
+def k7_held(name, o, d, accel, table, full: bool = False) -> dict:
+    """One K7 launch on (N, 3) rays held to its plain version (k7_vs_plain)
+    and to K6 on the same rays and K6's table (k7_vs_k6), with K7's and
+    K6's CUDA-event times (the card held busy before each)."""
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    st = k7_vs_plain(name, o, d, accel, full)
+    args, got = st.pop("args"), st.pop("got")
+    st["vs_k6"] = k7_vs_k6(name, table, args, got)
+    st["kernel_ms"], _ = cuda_ms(lambda: mp.closest_tri_culled(*args), 3,
+                                 setup=hold_card)
+    st["k6_ms"], _ = cuda_ms(lambda: mp.closest_tri(args[0], args[1],
+                                                    table), 3,
+                             setup=hold_card)
+    return st
+
+
+def k7_constructed_launches(dev) -> dict:
+    """K7 held bit for bit to its plain version and to K6 (k7_held, each
+    with its time, K6's and its bound) on launches built to reach the
+    edges of its box cull and its group walk, on the 60-ball
+    mesh (3,854 triangles), each kind built by ops/cull_rays.py::edge_rays
+    (tests/test_torch_tri_cull.py holds the plain cull and sweep to the
+    same kinds on the CPU):
+    - rays grazing triangle planes: through a point of a triangle along
+      its plane, tilted off it by |cos| 0, 1e-7, ..., 1e-2;
+    - directions with one or two zero components (+0 and -0), some from
+      chunk box centres;
+    - origins on chunk box faces, directions along the face (0), grazing
+      it (1e-6) or random; origins inside chunk boxes;
+    - origins on the surfaces a camera-like bundle hits (t near eps);
+    - NaN and inf in origins and directions among finite rays (every
+      local chunk listed);
+    - a tile whose lanes hit a near ball but for one, which misses
+      everything from outside the room;
+    - 1 ray; 3 x 1,024 + 17 rays (a ragged tile and a ragged group);
+    - a 49,152-lane launch of the mesh stream on procedural_mesh_scene(500)
+      with the culled route forced (the fifth of a round's launches; dead
+      and flushed lanes with their stale rays included)."""
+    import torch
+
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig,
+    )
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import procedural_mesh_scene, scene_to
+    from smallpt_tpu_torch.engine import renderer
+    from smallpt_tpu_torch.engine.mesh_stream import (
+        WavefrontStreamingRenderer,
+    )
+    from smallpt_tpu_torch.ops import cull_rays as cr
+    from smallpt_tpu_torch.ops import mesh_accel as ma
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    m60 = scene_to(procedural_mesh_scene(60, seed=3), dev)
+    acc = ma.build_mesh_grid_accel(m60, device=dev)
+    table = mp.build_tri_table(m60, device=dev)
+    cases = {}
+    for k, (name, kind, n) in enumerate((
+            ("grazing_planes", "grazing", 2048),
+            ("axis_parallel", "axis_parallel", 2048),
+            ("box_faces", "box_faces", 2048),
+            ("inside_boxes", "inside_box", 2048),
+            ("on_surfaces", "on_surface", 2048),
+            ("nan_inf", "nan_inf", 2048),
+            ("one_lane_misses", "one_lane_misses", 1024),
+            ("ragged_3089", "random", 3 * 1024 + 17),
+            ("one_ray", "random", 1))):
+        cases[name] = [torch.tensor(x, device=dev) for x in
+                       cr.edge_rays(kind, acc, table, n, 20 + k)]
+
+    out = {}
+    for name, (o, d) in cases.items():
+        out[name] = k7_held(name, o.contiguous(), d.contiguous(), acc, table,
+                            full=name == "nan_inf")
+    miss = out["one_lane_misses"]
+    if not 0.99 < miss["vs_k6"]["hit_share"] < 1.0:
+        raise AssertionError(f"one_lane_misses: {miss['vs_k6']}")
+
+    # the mesh stream's fifth launch, 49,152 lanes, culled route forced
+    mesh = procedural_mesh_scene(500)
+    cfg = RenderConfig(width=256, height=192, spp_per_cell=1, max_depth=12,
+                       camera_model=CameraModel.LEGACY, filter=Filter.TENT,
+                       intersector=Intersector.PALLAS)
+    old = renderer.MESH_ACCEL_MIN_TRIS
+    renderer.MESH_ACCEL_MIN_TRIS = 1
+    try:
+        s = WavefrontStreamingRenderer(mesh, smallpt_camera(), cfg, seed=0,
+                                       device=dev)
+        s.reset()
+        kept = capture_calls(mp, "closest_tri_culled",
+                             lambda: s.step(n_bounces=8, add_samples=8),
+                             {4})
+    finally:
+        renderer.MESH_ACCEL_MIN_TRIS = old
+    if not kept:
+        raise AssertionError("the culled stream made fewer than 5 launches")
+    args, kw, got = kept[0]["a"], kept[0]["k"], kept[0]["out"]
+    tab6 = mp.build_tri_table(s.scene, device=dev)
+    want = mp.closest_tri_culled_plain(*args, **kw)
+    st = exact("stream_launch", got, want)
+    st["vs_k6"] = k7_vs_k6("stream_launch", tab6, args, got)
+    st["kernel_ms"], _ = cuda_ms(lambda: mp.closest_tri_culled(*args, **kw),
+                                 5, setup=hold_card)
+    st["k6_ms"], _ = cuda_ms(lambda: mp.closest_tri(args[0], args[1],
+                                                    tab6), 5,
+                             setup=hold_card)
+    st.update(k7_bound(args, got[0], kw.get("eps", 0.0)))
+    out["stream_launch_49152"] = st
+    return out
+
+
 def closest_tri_culled_phases(dev):
-    """K7 against its plain version on the card, bit-equal in every output:
-    the 60-ball mesh (3,854 triangles) on 2,048 random, coherent and
+    """K7 against its plain version and K6 on the card, bit-equal in every
+    output, each launch timed beside K6 on the same rays (k7_held): the
+    60-ball mesh (3,854 triangles) on 2,048 random, coherent and
     surface-respawned rays (tests/test_mesh_accel.py's cases), an overflow
     accel (l_max 16), a ragged last tile (3 x 1,024 + 17 rays) and 77 rays
     that miss everything; then procedural_mesh_scene(500) (32,014
     triangles) on the 196,608 camera rays of 256x192 at 4 spp and their
-    first-bounce rays, every tile. On those two batches, K7 against K6 on
-    the same rays (t everywhere, the triangle, u and v on hits, equal), each
-    kernel's CUDA-event time, the tile-list prep's time (mesh_tile_lists,
-    torch) and its peak memory, and the chunks each tile swept. Returns
-    (vs plain, vs K6)."""
+    first-bounce rays, every tile, with the tile-list prep's time
+    (mesh_tile_lists, torch) and its peak memory, and K7's bounds with
+    their counts. Returns (vs plain, vs K6)."""
     import torch
 
     from smallpt_tpu_torch.config import CameraModel, Filter, RenderConfig
@@ -2635,26 +3022,24 @@ def closest_tri_culled_phases(dev):
             d = d / torch.linalg.norm(d, dim=1, keepdim=True)
         return o, d
 
-    def strip(st):
-        return {k: v for k, v in st.items() if k not in ("args", "got")}
-
     m60 = scene_to(procedural_mesh_scene(60, seed=3), dev)
     acc60 = ma.build_mesh_grid_accel(m60, device=dev)
+    tab60 = mp.build_tri_table(m60, device=dev)
     vs_plain = {}
     for kind in ("random", "coherent", "surface"):
-        vs_plain[f"mesh60_{kind}_2048"] = strip(k7_vs_plain(
-            kind, *rays(kind, 2048, 11, m60), acc60))
-    vs_plain["mesh60_overflow_lmax16"] = strip(k7_vs_plain(
+        vs_plain[f"mesh60_{kind}_2048"] = k7_held(
+            kind, *rays(kind, 2048, 11, m60), acc60, tab60)
+    vs_plain["mesh60_overflow_lmax16"] = k7_held(
         "overflow", *rays("random", 2048, 41),
-        ma.build_mesh_grid_accel(m60, l_max=16, device=dev)))
+        ma.build_mesh_grid_accel(m60, l_max=16, device=dev), tab60)
     if vs_plain["mesh60_overflow_lmax16"]["overflow_tiles"] != 2:
         raise AssertionError("the l_max 16 accel did not overflow")
-    vs_plain["mesh60_ragged_3089"] = strip(k7_vs_plain(
-        "ragged", *rays("random", 3 * 1024 + 17, 51), acc60))
+    vs_plain["mesh60_ragged_3089"] = k7_held(
+        "ragged", *rays("random", 3 * 1024 + 17, 51), acc60, tab60)
     far = torch.tensor([[50.0, 40.0, 1e4]], device=dev).expand(77, 3)
     away = torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(77, 3)
-    miss = strip(k7_vs_plain("all miss", far.contiguous(), away.contiguous(),
-                             acc60))
+    miss = k7_held("all miss", far.contiguous(), away.contiguous(), acc60,
+                   tab60)
     if miss["hit_share"] != 0.0:
         raise AssertionError("all-miss rays hit")
     vs_plain["mesh60_all_miss_77"] = miss
@@ -2683,8 +3068,8 @@ def closest_tri_culled_phases(dev):
     for name, (o, d) in (("mesh500_256x192_camera", (org, dirs)),
                          ("mesh500_256x192_bounce", (nxt.org, nxt.dir))):
         st = k7_vs_plain(name, o, d, acc)
-        args, got = st["args"], st["got"]
-        vs_plain[name] = strip(st)
+        args, got = st.pop("args"), st.pop("got")
+        vs_plain[name] = st
         cmp = k7_vs_k6(name, table, args, got)
         ot, dt, n = args[0], args[1], args[2]
         valid = torch.arange(ot.shape[1], device=dev) < n
@@ -2694,21 +3079,24 @@ def closest_tri_culled_phases(dev):
         lists_ms, _ = cuda_ms(lambda: ma.mesh_tile_lists(ot, dt, valid, acc),
                               5, skip_first=True)
         lists_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-        k7_ms, _ = cuda_ms(lambda: mp.closest_tri_culled(*args), 5)
-        k6_ms, _ = cuda_ms(lambda: mp.closest_tri(ot, dt, table), 5)
+        k7_ms, _ = cuda_ms(lambda: mp.closest_tri_culled(*args), 5,
+                           setup=hold_card)
+        k6_ms, _ = cuda_ms(lambda: mp.closest_tri(ot, dt, table), 5,
+                           setup=hold_card)
         k6b = k6_bound(ot, dt, table)
         vs_k6[name] = dict(cmp, rays=n, k7_ms=k7_ms, k6_ms=k6_ms,
                            lists_ms=lists_ms,
                            lists_peak_gb_above_inputs=lists_peak,
                            k7_plus_lists_ms=k7_ms + lists_ms,
-                           k7_bound_ms=vs_plain[name]["bound_ms"],
+                           k7_bound_ms=st["bound_ms"],
+                           k7_bound_ms_tile_walk=st["bound_ms_tile_walk"],
+                           k7_bound_ms_group_union=st[
+                               "bound_ms_group_union"],
                            k6_bound_ms=k6b["bound_ms"],
                            k6_bound_ms_every_pair_full=k6b[
                                "bound_ms_every_pair_full"],
                            k6_plan=k6_plan(ot, dt, table),
-                           chunks_per_tile=vs_plain[name][
-                               "chunks_per_tile"],
-                           pairs_k7=vs_plain[name]["pairs"],
+                           counts=st["counts"],
                            pairs_k6=ot.shape[1] * k6b["valid_rows"],
                            pairs_k6_staged=k6b["pairs"])
     return vs_plain, vs_k6
@@ -2820,7 +3208,8 @@ def mesh_stream_path(name, dev, kernel: str, n_rounds=3) -> dict:
     rays = float(np.mean(round_rays))
     per_round = launched[kernel] / n_rounds
     peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the path's own
-    launches = launches_vs_plain(name, kernel, round_, per_round)
+    launches = launches_vs_plain(name, kernel, round_, per_round,
+                                 r.scene)
     kernel_ms = float(np.mean([v["kernel_ms"] for v in launches.values()]))
     return dict(width=256, height=192, spp=8, max_depth=12, n_bounces=24,
                 build_s=build_s, first_round_s=warm_s, rounds=n_rounds,
@@ -5879,6 +6268,9 @@ def main() -> int:
     k7_stats, k7_vs_k6_stats = closest_tri_culled_phases(dev)
     phase("closest_tri_culled_vs_plain", **k7_stats)
     phase("closest_tri_culled_vs_k6", **k7_vs_k6_stats)
+    k7_built = k7_constructed_launches(dev)
+    phase("k7_constructed_launches", **k7_built,
+          ptxas=ptxas_entry(mp.LIBRARY_CULLED[0]))
 
     # ---- 29-31. the culled route of FLAT, and the mesh stream through K6 and
     # through K7 --------------------------------------------------------------
@@ -6017,11 +6409,30 @@ def main() -> int:
         k["stream_launch"] = {
             "path": n, "rays": launch["rays"], "ms": launch["kernel_ms"],
             "plain_ms": launch["plain_ms"], "bound_ms": launch["bound_ms"],
-            "bound_by": launch["bound_by"]}
+            "bound_by": launch["bound_by"], **{
+                x: launch[x] for x in ("k6_ms", "bound_ms_tile_walk",
+                                       "bound_ms_box_culled",
+                                       "bound_ms_group_union")
+                if x in launch}}
     k7["same_rays_vs_k6"] = {
         n: {k: v[k] for k in ("k7_ms", "k6_ms", "lists_ms", "k7_bound_ms",
-                              "k6_bound_ms")}
+                              "k7_bound_ms_tile_walk",
+                              "k7_bound_ms_group_union", "k6_bound_ms")}
         for n, v in k7_vs_k6_stats.items() if n != "accel"}
+    # K7's bounds on its path-5 middle launch: the function's (the lesser
+    # of the tile walk's and the box-culled count), each, the design's
+    # least (a group's union); the counts
+    k7_mid = wf["flat_culled_mesh500_256x192"]["kernel"]["middle"]
+    for key in ("bound_ms_tile_walk", "bound_ms_box_culled",
+                "bound_ms_group_union", "bound_algorithm", "counts"):
+        k7[key] = k7_mid[key]
+    k7_keys = ("rays", "kernel_ms", "k6_ms", "bound_ms", "bound_by",
+               "bound_ms_tile_walk", "bound_ms_box_culled",
+               "bound_ms_group_union")
+    k7["constructed"] = {n: {x: v[x] for x in k7_keys if x in v}
+                         for n, v in k7_built.items()}
+    k7["max_abs_err"] = max([k7["max_abs_err"]] + [
+        v["max_abs_err"] for v in k7_built.values()])
     k7["round_ms_k7_stream"] = ms_paths[
         "mesh_stream_culled_mesh500_256x192"]["ms_per_round"]
     k7["round_ms_k6_stream"] = ms_paths[

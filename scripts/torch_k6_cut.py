@@ -1,33 +1,48 @@
-"""K6 (csrc/closest_tri.cu) on one CUDA card at the launches of PERF.md's
-paths 3 and 6, and what cutting its rows into ranges costs.
+"""K6 (csrc/closest_tri.cu) and K7 (csrc/closest_tri_culled.cu) on one
+CUDA card at the launches of PERF.md's paths 3 and 6 (5 and 7 for K7), and
+what cutting K6's rows into ranges costs.
 
-    python scripts/torch_k6_cut.py [--ranges 1,2,3,6,12] \
-        [--out chiprun_out/k6_cut.json]
+    python scripts/torch_k6_cut.py [--kernels k6,k7] [--ranges 1,2,3,6,12] \
+        [--trees A,B,...] [--out chiprun_out/k6_cut.json]
 
 On procedural_mesh_scene(500) (32,014 triangles), three launches captured
 from the renderers: the first (camera rays) and a middle (bounce rays) K6
 launch of a FLAT pass at 256x192, 4 spp, max_depth 12 (196,608 rays each;
 path 3), and a middle launch of a mesh-stream round (49,152 lanes; path
-6). For each: the plan the launcher makes (``closest_tri_plan``), K6
+6).
+
+K6, for each: the plan the launcher makes (``closest_tri_plan``), K6
 against ``closest_tri_plain`` (t, tri, u and v bit-equal), K6's time (CUDA
 events, the mean of five after a warm-up) and its bounds
 (chip_smoke.py::k6_bound: each pair at the ops a test that decides dn and
-t first needs, and every live pair at the whole test's 49).
+t first needs, and every live pair at the whole test's 49). A tree from
+before the plan existed (PR 14's) gives the time, the check and the bounds
+alone. Each launch's rays k times over (k in --repeats), timed, in ms per
+the launch's rays: how much the launch gains from more waves. The cut's
+cost: each launch's rays repeated until its plan has one range (the launch
+then fills the card uncut), timed over all rows, and as the sum of the
+same rows swept as k consecutive sub-tables of whole 256-row chunks (one
+launch each, each starting from 3e38 as a later range of a cut does; k in
+--ranges), in ms per the launch's own rays. The sum less the whole sweep
+is what k ranges lose where a kernel drops pairs on its running best
+(nothing where every pair takes the whole test).
 
-A tree from before the plan existed (PR 14's) gives the time, the check
-and the bounds alone. Each launch's rays k times over (k in --repeats),
-timed, in ms per the launch's rays: how much the launch gains from more
-waves. The cut's cost: each launch's rays repeated until its plan has one
-range (the launch then fills the card uncut), timed over all rows, and as
-the sum of the same rows swept as k consecutive sub-tables of whole
-256-row chunks (one launch each, each starting from 3e38 as a later range
-of a cut does; k in --ranges), in ms per the launch's own rays. The sum
-less the whole sweep is what k ranges lose where a kernel drops pairs on
-its running best (nothing where every pair takes the whole test).
+K7, for each (keys "k7_" + the launch's name): the same rays, the K7
+launch paths 5 and 7 make of them (paths 5 and 7 are bit-equal to 3 and
+6): the tile lists of the rays on the tree's accel (mesh_tile_lists,
+their time the mean of five after a warm-up), K7 against its plain
+version and against K6 (t, tri, u and v bit-equal; the triangle, u and v
+on hit lanes against K6), K7's time and K6's (the card held busy about
+1 ms before each) and, where the tree's K7 takes the box table and the
+normal cones, its bounds (chip_smoke.py::k7_bound). A tree whose K7 takes
+neither (an earlier commit's) gives the time and the checks.
 
-Prints one JSON line a tree (its build's ptxas lines among them), then
-the card's name and power limit. Exits non-zero without a card or if K6
-differs from its plain version. Imports neither JAX nor the JAX package.
+--trees measures several source trees in turn, each in a fresh process (a
+copy of the tree with one constant of a kernel's source edited is
+measured the same way). Prints one JSON line a tree (its builds' ptxas
+lines among them), then the card's name and power limit. Exits non-zero
+without a card or if a kernel differs from its plain version (or K7 from
+K6). Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -90,21 +105,69 @@ def _launches(dev) -> dict:
     return out
 
 
-def measure(ks: list, repeats: list) -> dict:
+def _k7(name, org, dirs, table, eps, accel) -> dict:
+    """K7's readings (the module's docstring) on one launch's rays."""
+    import torch
+
+    import chip_smoke as cs
+    from smallpt_tpu_torch.ops import mesh_accel as ma
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    n = org.shape[1]
+    n_pad = -(-n // ma.RAY_TILE) * ma.RAY_TILE
+    ot, dt = mp._ray_planes(org.T, dirs.T, n_pad)
+    valid = torch.arange(n_pad, device=org.device) < n
+    lists, dlo, stops = ma.mesh_tile_lists(ot, dt, valid, accel)
+    boxed = hasattr(accel, "cones")
+    args = ((ot, dt, n, accel.table)
+            + ((accel.boxes, accel.slivers, accel.cones, accel.cone_rows)
+               if boxed else ())
+            + (lists, dlo, stops, accel.n_glob_chunks, accel.n_chunks, eps))
+    got = mp.closest_tri_culled(*args)
+    want = mp.closest_tri_culled_plain(*args)
+    row = dict(rays=n, vs_plain=cs.exact("k7_" + name, got, want),
+               vs_k6=cs.k7_vs_k6("k7_" + name, table, args, got))
+    row["kernel_ms"], _ = cs.cuda_ms(lambda: mp.closest_tri_culled(*args),
+                                     5, setup=cs.hold_card)
+    row["k6_ms"], _ = cs.cuda_ms(lambda: mp.closest_tri(ot, dt, table), 5,
+                                 setup=cs.hold_card)
+    row["lists_ms"], _ = cs.cuda_ms(
+        lambda: ma.mesh_tile_lists(ot, dt, valid, accel), 6, skip_first=True)
+    if boxed:
+        row.update(cs.k7_bound(args, got[0], eps))
+    return row
+
+
+def measure(kernels: list, ks: list, repeats: list) -> dict:
     """Every reading of the module's docstring, on this process's tree."""
     import torch
 
     import chip_smoke as cs
+    from smallpt_tpu_torch.ops import mesh_accel as ma
     from smallpt_tpu_torch.ops import mesh_pallas as mp
     from smallpt_tpu_torch.utils import nvcc
 
     dev = torch.device("cuda")
     mp._kernel_lib()
-    ptxas = cs.ptxas_entry(mp.LIBRARY[0])
     res = {"tree": os.path.dirname(os.path.dirname(mp.__file__)),
-           "ptxas": ptxas,
+           "ptxas": cs.ptxas_entry(mp.LIBRARY[0]),
            "build_s": nvcc.builds.get(mp.LIBRARY[0], {}).get("seconds")}
-    for name, (org, dirs, table, eps) in _launches(dev).items():
+    launches = _launches(dev)
+    if "k7" in kernels:
+        mp._culled_lib()
+        res["k7_ptxas"] = cs.ptxas_entry(mp.LIBRARY_CULLED[0])
+        res["k7_build_s"] = nvcc.builds.get(mp.LIBRARY_CULLED[0], {}).get(
+            "seconds")
+        from smallpt_tpu_torch.core.scene import (
+            procedural_mesh_scene, scene_to,
+        )
+        accel = ma.build_mesh_grid_accel(
+            scene_to(procedural_mesh_scene(500), dev), device=dev)
+        for name, (org, dirs, table, eps) in launches.items():
+            res["k7_" + name] = _k7(name, org, dirs, table, eps, accel)
+    for name, (org, dirs, table, eps) in launches.items():
+        if "k6" not in kernels:
+            break
         n = org.shape[1]
         got = mp.closest_tri(org, dirs, table, eps=eps)
         want = mp.closest_tri_plain(org, dirs, table, eps=eps)
@@ -151,6 +214,7 @@ def measure(ks: list, repeats: list) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--kernels", default="k6,k7")
     p.add_argument("--ranges", default="1,2,3,6,12")
     p.add_argument("--repeats", default="1,2,3,6")
     p.add_argument("--trees", default="",
@@ -167,7 +231,7 @@ def main() -> int:
     ks = [int(k) for k in args.ranges.split(",")]
     repeats = [int(k) for k in args.repeats.split(",")]
     if args.worker or not args.trees:
-        res = measure(ks, repeats)
+        res = measure(args.kernels.split(","), ks, repeats)
         print(json.dumps(res), flush=True)
         if args.worker:
             return 0
@@ -178,7 +242,8 @@ def main() -> int:
             tree = os.path.abspath(tree)
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker",
-                 "--ranges", args.ranges, "--repeats", args.repeats],
+                 "--kernels", args.kernels, "--ranges", args.ranges,
+                 "--repeats", args.repeats],
                 env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
                 text=True, timeout=1800)
             if proc.returncode:

@@ -37,6 +37,15 @@ three):
   sums their bounds (chip_smoke.py::k6_bound: ``*_k6_pass_bound_ms``, and
   at the whole test's 49 ops every live pair,
   ``*_k6_pass_bound_every_pair_full_ms``);
+- ``flat_culled_mesh500_256x192`` and ``mesh_stream_culled_mesh500_256x192``:
+  paths 3 and 6 with the culled route forced (MESH_ACCEL_MIN_TRIS = 1),
+  through K7 (paths 5 and 7), timed the same way; K7 is bit-equal to K6 in
+  every tree, so their bits must equal paths 3's and 6's where a worker
+  runs both, and across the trees. Every K7 launch of one more pass or
+  round is timed alone (``*_k7_pass_ms``, first, middle, last, the sum),
+  and the first change worker sums their bounds (chip_smoke.py::k7_bound,
+  the function's: ``*_k7_pass_bound_ms``; the tile walk's alone:
+  ``*_k7_pass_bound_tile_walk_ms``);
 - the binned paths through K8 at bench.py --procedural-binned's shape
   (procedural_sphere_scene(10000), 512x384, 4 spp, max_depth 24, four
   lanes a pixel, seeded 1000), each without and with NEE on sphere 8
@@ -530,28 +539,42 @@ def record(only: set, strict: bool) -> dict:
     return out
 
 
+def _k7_bound(*a, **k) -> dict:
+    """chip_smoke.py::k7_bound of one K7 launch on the wrapper's
+    arguments, its t from the plain version."""
+    import chip_smoke
+
+    from smallpt_tpu_torch.ops import mesh_pallas as mp
+
+    want = mp.closest_tri_culled_plain(*a, **k)
+    return chip_smoke.k7_bound(a, want[0], k.get("eps", 0.0))
+
+
 def _kernel_pass(run, kernel: str, bounds: bool, scene=None) -> dict:
-    """Every launch of the closest-hit kernel ``kernel`` ("k2" or "k6") in
-    one more run(), each timed alone (``_launch_ms``: the kernel writes
-    only its outputs, so nothing is restored) and, with bounds, bounded
-    (chip_smoke.py::k2_bound, with the sphere scene rendered, or k6_bound,
-    from the change tree; beside each, every pair at the whole test's):
-    the first, middle and last launch's ms, their sum and the bounds'
-    sums; for K2 also the first launch's first 77 rays alone (one ray
-    block, ``rays77_ms``). Each key is prefixed with the kernel's name."""
+    """Every launch of the closest-hit kernel ``kernel`` ("k2", "k6" or
+    "k7") in one more run(), each timed alone (``_launch_ms``: the kernel
+    writes only its outputs, so nothing is restored) and, with bounds,
+    bounded (chip_smoke.py::k2_bound, with the sphere scene rendered,
+    k6_bound or k7_bound, from the change tree; beside each, every pair at
+    the whole test's, or K7's tile walk): the first, middle and last
+    launch's ms, their sum and the bounds' sums; for K2 also the first
+    launch's first 77 rays alone (one ray block, ``rays77_ms``). Each key
+    is prefixed with the kernel's name."""
     import torch
 
     from smallpt_tpu_torch.ops import intersect_pallas as ip
     from smallpt_tpu_torch.ops import mesh_pallas as mp
 
-    mod, name = (ip, "closest_hit") if kernel == "k2" else (mp,
-                                                             "closest_tri")
-    bound_fn = None
+    mod, name = {"k2": (ip, "closest_hit"), "k6": (mp, "closest_tri"),
+                 "k7": (mp, "closest_tri_culled")}[kernel]
+    bound_fn, other = None, ("bound_ms_tile_walk" if kernel == "k7"
+                             else "bound_ms_every_pair_full")
     if bounds:
         import chip_smoke
 
-        bound_fn = (functools.partial(chip_smoke.k2_bound, scene=scene)
-                    if kernel == "k2" else chip_smoke.k6_bound)
+        bound_fn = {"k2": functools.partial(chip_smoke.k2_bound,
+                                            scene=scene),
+                    "k6": chip_smoke.k6_bound, "k7": _k7_bound}[kernel]
     real, ms, bound, full, first = getattr(mod, name), [], [], [], []
 
     def spy(*a, **k):
@@ -561,7 +584,7 @@ def _kernel_pass(run, kernel: str, bounds: bool, scene=None) -> dict:
         if bound_fn is not None:
             b = bound_fn(*a, **k)
             bound.append(b["bound_ms"])
-            full.append(b["bound_ms_every_pair_full"])
+            full.append(b[other])
         return real(*a, **k)
 
     spy.launches = real.launches
@@ -581,8 +604,9 @@ def _kernel_pass(run, kernel: str, bounds: bool, scene=None) -> dict:
         out["rays77_ms"] = _launch_ms(lambda: real(o, d, *rest, **k), (),
                                       ())
     if bound:
-        out.update(pass_bound_ms=float(np.sum(bound)),
-                   pass_bound_every_pair_full_ms=float(np.sum(full)))
+        out["pass_bound_ms"] = float(np.sum(bound))
+        out["pass_" + other.replace("bound_ms", "bound") + "_ms"] = float(
+            np.sum(full))
     return {f"{kernel}_{k}": v for k, v in out.items()}
 
 
@@ -616,6 +640,7 @@ def worker(only: set, bounds: bool, strict: bool) -> dict:
     from smallpt_tpu_torch.core.scene import (
         cornell_box_scene, procedural_mesh_scene, procedural_sphere_scene,
     )
+    from smallpt_tpu_torch.engine import renderer
     from smallpt_tpu_torch.engine.mesh_stream import (
         WavefrontStreamingRenderer,
     )
@@ -644,36 +669,52 @@ def worker(only: set, bounds: bool, strict: bool) -> dict:
         "flat_split8_cornell_1024x768": (
             cornell, c1.replace(scheduler=Scheduler.FLAT, split_budget=8)),
     }
+    passes["flat_culled_mesh500_256x192"] = passes["flat_mesh500_256x192"]
+    culled = {"flat_culled_mesh500_256x192": "flat_mesh500_256x192",
+              "mesh_stream_culled_mesh500_256x192":
+              "mesh_stream_mesh500_256x192"}
     out = {"tree": os.environ.get("PYTHONPATH", ""), **k1(only, strict),
            **record(only, strict), **dda(only, strict),
            **binned(only, bounds)}
+    default = renderer.MESH_ACCEL_MIN_TRIS
     for name, (scene, cfg) in passes.items():
         if only and name not in only:
             continue
+        # the culled route (K7) where the path forces it, else the default
+        renderer.MESH_ACCEL_MIN_TRIS = 1 if name in culled else default
         r = ProgressiveRenderer(scene, cam, cfg, seed=0, device=dev)
         out[name] = _times(r.step)
         out[name + "_mean"] = float(r.image.mean())
         out[name + "_bits"] = _bits(r.image)
-        kernel = "k6" if scene is mesh else "k2"
+        kernel = ("k7" if name in culled else "k6" if scene is mesh
+                  else "k2")
         out.update({f"{name}_{k}": v for k, v in _kernel_pass(
             r.step, kernel, bounds, scene).items()})
         del r
-    if only and "mesh_stream_mesh500_256x192" not in only:
-        return out
     cfg = RenderConfig(width=256, height=192, max_depth=12, **leg)
-    s = WavefrontStreamingRenderer(mesh, cam, cfg, seed=0, device=dev)
+    for name in ("mesh_stream_mesh500_256x192",
+                 "mesh_stream_culled_mesh500_256x192"):
+        if only and name not in only:
+            continue
+        renderer.MESH_ACCEL_MIN_TRIS = 1 if name in culled else default
+        s = WavefrontStreamingRenderer(mesh, cam, cfg, seed=0, device=dev)
 
-    def round_():
-        s.reset()
-        s.step(n_bounces=24, add_samples=8)
-        s.flush()
+        def round_():
+            s.reset()
+            s.step(n_bounces=24, add_samples=8)
+            s.flush()
 
-    name = "mesh_stream_mesh500_256x192"
-    out[name] = _times(round_)
-    rad, w = s.accumulators()
-    out[name + "_bits"] = _bits(rad.cpu().numpy(), w.cpu().numpy())
-    out.update({f"{name}_{k}": v
-                for k, v in _kernel_pass(round_, "k6", bounds).items()})
+        out[name] = _times(round_)
+        rad, w = s.accumulators()
+        out[name + "_bits"] = _bits(rad.cpu().numpy(), w.cpu().numpy())
+        out.update({f"{name}_{k}": v for k, v in _kernel_pass(
+            round_, "k7" if name in culled else "k6", bounds).items()})
+        del s
+    renderer.MESH_ACCEL_MIN_TRIS = default
+    for name, k6_path in culled.items():
+        if name + "_bits" in out and k6_path + "_bits" in out \
+                and out[name + "_bits"] != out[k6_path + "_bits"]:
+            raise AssertionError(f"{name}: bits differ from {k6_path}'s")
     return out
 
 
@@ -705,7 +746,7 @@ def main() -> int:
                              * args.blocks):
         tree = os.path.abspath(getattr(args, side))
         env = dict(os.environ, PYTHONPATH=tree)
-        # the K2, K6 and K8 launches' bounds once, in the first change
+        # the K2, K6, K7 and K8 launches' bounds once, in the first change
         # worker; K1 and K3 against the plain version once a tree
         extra = (["--bounds"] if n == 1 else []) + (
             ["--strict"] if args.strict and n < 2 else [])

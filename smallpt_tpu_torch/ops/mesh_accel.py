@@ -16,13 +16,18 @@ CLOSEST at :578-582).
    (distance bucket, id) order, with a per-slot lower bound on the distance
    of every remaining chunk.
 4. **The culled sweep** (ops/mesh_pallas.py::intersect_mesh_culled, kernel
-   K7): global chunks, then the listed chunks nearest-first, with a
-   tile-level early exit. The fold tie-breaks equal t on the ORIGINAL
-   triangle id (table column 13), so the result is bit-equal to the brute
-   sweep (K6) for any sweep order.
+   K7): per group of 32 rays, global chunks and the sliver rows, then
+   the listed chunks nearest-first, each swept only where a ray enters
+   its box (the accel's ``boxes``) before its best t, and for each ray
+   the rows of the normal cones (``cones``) whose planes it may graze.
+   The fold
+   tie-breaks equal t on the ORIGINAL triangle id (table column 13), so
+   the result is bit-equal to the brute sweep (K6) for any sweep order.
 
-Every field of the accel equals the JAX package's exactly; the tensors lie
-on one device.
+Every field of the accel equals the JAX package's exactly, but ``boxes``,
+``slivers``, ``cones`` and ``cone_rows``, K7's own (the JAX kernel has
+none); the tensors lie on one
+device.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from smallpt_tpu_torch.ops.accel import N_DIR, _cell_lin, _dir_bin, \
 # Triangles per chunk: 16 rows x 16 f32, one 1 KB stage of the kernel.
 CHUNK_T = 16
 
-# Rays per kernel tile: one thread block of K7 each.
+# Rays per tile of the chunk lists (K7 sweeps a tile in groups of 32).
 RAY_TILE = 1024
 
 # Sub-block key intervals per tile (one tile-wide interval would drag in
@@ -76,6 +81,11 @@ class MeshGridAccel:
     k_hi: torch.Tensor      # (C, 3) f32 local chunk AABB maxs
     l_max: int              # per-tile chunk-list capacity
     d0: float               # distance-bucket-0 radius
+    boxes: torch.Tensor     # (n_glob_chunks + C, 8) f32 K7's box table
+    slivers: torch.Tensor   # (S,) int32 and its sliver rows
+                            # (ops/mesh_pallas.py::chunk_boxes of table)
+    cones: torch.Tensor     # (K, 4) f32 K7's normal cones and their rows
+    cone_rows: torch.Tensor  # (K + 1 + R,) int32 (mesh_pallas.graze_cones)
 
     @property
     def n_bins(self) -> int:
@@ -177,7 +187,9 @@ def build_mesh_grid_accel(scene: MeshScene, l_max: int | None = None,
 
     # table rows are the brute sweep's own rows, permuted, so the culled
     # and brute sweeps evaluate bit-identical geometry
-    from smallpt_tpu_torch.ops.mesh_pallas import build_tri_table
+    from smallpt_tpu_torch.ops.mesh_pallas import (
+        build_tri_table, chunk_boxes, graze_cones,
+    )
 
     base_rows = build_tri_table(scene).numpy()[: idx.shape[0]].copy()
     # column 13 = the ORIGINAL tri id: the kernel tie-breaks equal-t
@@ -226,6 +238,8 @@ def build_mesh_grid_accel(scene: MeshScene, l_max: int | None = None,
     masks = reach.reshape(-1, n_chunks).astype(np.float32)
 
     dev = device or "cpu"
+    boxes, slivers = chunk_boxes(torch.from_numpy(table))
+    cones, cone_rows = graze_cones(torch.from_numpy(table), n_glob_chunks)
 
     def f32(x):
         return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
@@ -245,6 +259,10 @@ def build_mesh_grid_accel(scene: MeshScene, l_max: int | None = None,
         # list cannot overflow at the 32k-triangle headline (2001 chunks)
         l_max=int(min(l_max if l_max is not None else 2048, n_chunks)),
         d0=float(np.mean(cell)) * 0.125,
+        boxes=boxes.to(dev),
+        slivers=slivers.to(dev),
+        cones=cones.to(dev),
+        cone_rows=cone_rows.to(dev),
     )
 
 

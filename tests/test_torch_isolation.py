@@ -176,7 +176,7 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert tpfn.argtypes == [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     assert tpfn.restype is ctypes.c_int
     assert mp._culled_lib() is cfn
-    assert cfn.argtypes == [ctypes.c_void_p] * 13
+    assert cfn.argtypes == [ctypes.c_void_p] * 17
     assert cfn.restype is ctypes.c_int
     assert mk._binned_lib() == (bfn, bwfn)
     assert bfn.argtypes == [ctypes.c_void_p] * 13

@@ -224,8 +224,9 @@ def test_culled_sweep_matches_jax_and_the_brute_sweep(meshes, accels, kind):
     lists, dlo, stops = tma.mesh_tile_lists(ot, dt, valid, accels[1])
     ta = accels[1]
     launches = tmp.closest_tri_culled.launches
-    got = tmp.closest_tri_culled(ot, dt, 2048, ta.table, lists, dlo, stops,
-                                 ta.n_glob_chunks, ta.n_chunks)
+    got = tmp.closest_tri_culled(ot, dt, 2048, ta.table, ta.boxes,
+                                 ta.slivers, ta.cones, ta.cone_rows, lists,
+                                 dlo, stops, ta.n_glob_chunks, ta.n_chunks)
     assert tmp.closest_tri_culled.launches == launches  # the plain version
     assert got[1].dtype == torch.int32
     hit = _check_vs_brute(got, org, d, meshes[1])
@@ -249,21 +250,27 @@ def test_culled_sweep_matches_jax_and_the_brute_sweep(meshes, accels, kind):
 
 
 def test_overflow_fallback_is_exact(meshes):
-    """l_max far below the reachable count: every tile walks 16 chunks
-    nearest-first, then sweeps every local chunk (the exit bound is not
-    met); still bit-equal to the brute sweep and within the JAX bars."""
+    """l_max far below the reachable count: every group of 32 rays tests
+    the boxes of its tile's 16 listed chunks nearest-first, then of every
+    local chunk (the exit bound is not met), and sweeps only the chunks
+    its rays enter; still bit-equal to the brute sweep and within the JAX
+    bars."""
     ta = tma.build_mesh_grid_accel(meshes[1], l_max=16)
     org, d = _rays("random", 2048, 41)
     ot, dt, valid = _planes(org, d)
     lists, dlo, stops = tma.mesh_tile_lists(ot, dt, valid, ta)
     assert (stops == -16).all()
-    got, (chunks, live) = tmp.closest_tri_culled_plain(
-        ot, dt, 2048, ta.table, lists, dlo, stops, ta.n_glob_chunks,
-        ta.n_chunks, return_work=True)
+    got, (tests, chunks, live) = tmp.closest_tri_culled_plain(
+        ot, dt, 2048, ta.table, ta.boxes, ta.slivers, ta.cones,
+        ta.cone_rows, lists, dlo, stops, ta.n_glob_chunks, ta.n_chunks,
+        return_work=True)
     _check_vs_brute(got, org, d, meshes[1])
-    # global + 16 listed + every local chunk again
-    assert chunks.tolist() == [1 + 16 + ta.n_chunks] * 2
-    assert (live > 16 * chunks - 16 * 3).all()
+    # 16 listed boxes + every local chunk's box again; the global chunk
+    # and the chunks the lanes enter swept, their live rows counted
+    assert tests.tolist() == [16 + ta.n_chunks] * (2048 // tmp.GROUP)
+    assert (chunks >= 1).all() and (chunks < 1 + tests).all()
+    assert (live > 0).all()
+    assert (live <= 16 * chunks + ta.slivers.shape[0]).all()
     ja = jma.build_mesh_grid_accel(meshes[0], l_max=16)
     jh = jmp.intersect_mesh_culled(jnp.asarray(org), jnp.asarray(d),
                                    meshes[0], ja)
@@ -286,8 +293,9 @@ def test_ragged_tile_and_all_miss(meshes, accels):
                                     torch.from_numpy(d), meshes[1], ta)
     ot, dt, valid = _planes(org, d)
     lists, dlo, stops = tma.mesh_tile_lists(ot, dt, valid, ta)
-    raw = tmp.closest_tri_culled(ot, dt, org.shape[0], ta.table, lists, dlo,
-                                 stops, ta.n_glob_chunks, ta.n_chunks)
+    raw = tmp.closest_tri_culled(ot, dt, org.shape[0], ta.table, ta.boxes,
+                                 ta.slivers, ta.cones, ta.cone_rows, lists,
+                                 dlo, stops, ta.n_glob_chunks, ta.n_chunks)
     assert raw[0].shape == (3 * 1024 + 17,)
     _check_vs_brute(raw, org, d, meshes[1])
     assert torch.equal(torch.where(torch.isfinite(got.t), got.t, BIG),
@@ -296,8 +304,9 @@ def test_ragged_tile_and_all_miss(meshes, accels):
     away = np.tile(np.float32([0.0, 0.0, 1.0]), (77, 1))
     ot, dt, valid = _planes(far, away)
     lists, dlo, stops = tma.mesh_tile_lists(ot, dt, valid, ta)
-    miss = tmp.closest_tri_culled(ot, dt, 77, ta.table, lists, dlo, stops,
-                                  ta.n_glob_chunks, ta.n_chunks)
+    miss = tmp.closest_tri_culled(ot, dt, 77, ta.table, ta.boxes,
+                                  ta.slivers, ta.cones, ta.cone_rows, lists,
+                                  dlo, stops, ta.n_glob_chunks, ta.n_chunks)
     assert (miss[0] == BIG).all() and (miss[1] == 0).all()
     assert (miss[2] == 0).all() and (miss[3] == 0).all()
 
@@ -308,18 +317,20 @@ def test_culled_wrapper_checks_its_inputs(accels):
     lists = torch.zeros((1, ta.l_max), dtype=torch.int32)
     dlo = torch.zeros((1, ta.l_max))
     stops = torch.zeros((1,), dtype=torch.int32)
-    args = (ta.table, lists, dlo, stops, ta.n_glob_chunks, ta.n_chunks)
+    args = (ta.table, ta.boxes, ta.slivers, ta.cones, ta.cone_rows, lists,
+            dlo, stops, ta.n_glob_chunks, ta.n_chunks)
+    tables = (ta.table, ta.boxes, ta.slivers, ta.cones, ta.cone_rows)
     with pytest.raises(ValueError, match="multiple of 1024"):
         tmp.closest_tri_culled(o[:, :1000].contiguous(),
                                o[:, :1000].contiguous(), 10, *args)
     with pytest.raises(ValueError, match="for 1 tiles"):
-        tmp.closest_tri_culled(o, o, 10, ta.table, lists[:, :3], dlo,
-                               stops, ta.n_glob_chunks, ta.n_chunks)
+        tmp.closest_tri_culled(o, o, 10, *tables, lists[:, :3], dlo, stops,
+                               ta.n_glob_chunks, ta.n_chunks)
     with pytest.raises(TypeError, match="stops"):
-        tmp.closest_tri_culled(o, o, 10, ta.table, lists, dlo, stops.long(),
+        tmp.closest_tri_culled(o, o, 10, *tables, lists, dlo, stops.long(),
                                ta.n_glob_chunks, ta.n_chunks)
     with pytest.raises(ValueError, match="chunks of 16"):
-        tmp.closest_tri_culled(o, o, 10, ta.table, lists, dlo, stops,
+        tmp.closest_tri_culled(o, o, 10, *tables, lists, dlo, stops,
                                ta.n_glob_chunks, ta.n_chunks + 1)
 
 

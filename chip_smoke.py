@@ -13,8 +13,8 @@ stream_step_dda), closest_hit.cu (K2, the wavefronts' sphere closest hit),
 closest_tri.cu (K6, their triangle closest hit), closest_tri_culled.cu
 (K7, the grid-culled triangle sweep), stream_binned.cu (K8, the binned
 scheduler's bounce), dda.cu (K4, the per-ray DDA closest hit) and
-closest_hit_mxu.cu (K5, the sphere sweep whose small spheres' coefficients
-are row-by-feature dot products). It holds each kernel
+closest_hit_mxu.cu (K5, the sphere sweep whose small spheres' quadratic
+coefficients come from table rows). It holds each kernel
 against its plain PyTorch version (at small sizes, and on the main paths'
 own rays at full width) and against the stored f64 golden images, drives
 the main paths through the kernels and times them:
@@ -64,7 +64,9 @@ the main paths through the kernels and times them:
   ops/cull_rays.py's kinds: rays grazing
   triangle planes, zero direction components, origins on and inside
   chunk boxes and on surfaces, NaN and inf, one lane missing among near
-  hits, 1 ray, a ragged tile, a 49,152-lane stream launch), each with its
+  hits, 1 ray, a ragged tile, a 49,152-lane stream launch, grazing rays on
+  a mesh of randomly rotated instances whose normals are not shared), each
+  with its
   bounds (k7_bound: the lesser of the tile walk's and the box-culled
   count) and ptxas's registers, stack and spills; the FLAT mesh path with
   the culled route forced (MESH_ACCEL_MIN_TRIS = 1), its pass bit-equal
@@ -120,8 +122,11 @@ the main paths through the kernels and times them:
   intersect_spheres_dda on procedural_sphere_scene(10000), 196,608 bounce
   and 196,608 camera rays, grids at occ_target 16, 28 and 48, K4 held bit
   for bit to its plain version there and on tests/test_dda.py's five
-  cases, and to K2 on the same rays (t and winner), with K2's time beside
-  K4's;
+  cases (its queue's rays, walk steps and slots tested to the plain
+  version's counts), and to K2 on the same rays (t and winner), with K2's
+  time beside K4's, and on constructed launches (k4_constructed_launches:
+  rays that miss the grid, twins in one cell, an overflowing grid, a
+  launch past the persistent grid's first wave);
 - the host surfaces on the per-pass configuration (Cornell, 1024x768, 4
   spp a pass, max_depth 48; K1a): the interactive session over an
   in-memory stream (each restarted pass bit-equal to a fresh renderer's,
@@ -136,7 +141,9 @@ the main paths through the kernels and times them:
   rays, K5 held bit for bit to its plain version there and on the Cornell
   box and 2,000 spheres (rays from inside and outside the spheres' box,
   tests/test_intersect_pallas.py's 77-ray case), its refined hits held to
-  K2's under test_mxu_matches_pure_jax's gates, K2's time beside K5's;
+  K2's under test_mxu_matches_pure_jax's gates, K2's time beside K5's,
+  and on constructed launches under its own plan and forced cuts of its
+  slots (k5_constructed_launches: twins, masked rows, 1 ray, 77 rays);
 - multi-device (parallel/), every shard of a 2 x 2 (tile, sample) mesh on
   the one card in this process: render_sharded (MEGA Cornell 1024x768, 4
   spp) against the single pass; ShardedStreamingRenderer, classic on the
@@ -1145,7 +1152,7 @@ def k3_bound(counts: dict, n_lanes: int, nf: int, tables) -> dict:
     the always table and those of them past det, walk steps, inits, shadow
     rays; the kernel's lanes do the same work): its operations at the
     float rate, each sphere test priced at what K3's early-miss test
-    (csrc/stream_dda.cu::stable_tt) spends up to its decision,
+    (csrc/lane.cuh::early_stable_tt) spends up to its decision,
     OPS_K2_STABLE_MISS for a miss at det and OPS_K2_STABLE_HIT for a test
     past det; its bytes (the tables the kernel reads, its slots' geometry
     and counts, the ids, the always and scene tables, and the state read
@@ -1515,12 +1522,13 @@ OPS_K2_FAST = 26
 OPS_K6_ROW = 49
 OPS_ROW_SKIP = 1
 # K2's bound prices each pair at what its early-miss tests
-# (csrc/closest_hit.cu: stable_tt, direct_tt, on the live rows it stages)
-# spend up to their decision (K3's bound prices its slot and always tests
-# at the stable form's two counts: its own stable_tt is the same test): the stable form to det (23) and det >= 0
-# (24) for a miss, which skips the fold; the rest of the test (2 for s, 3
-# for |op|, 3 for cc, denom, its sign, the division, the two root tests)
-# and the fold's compare for a det >= 0 pair (38); the direct quadratic to
+# (csrc/lane.cuh: early_stable_tt, early_direct_tt, on the live rows it
+# stages) spend up to their decision (K3's bound prices its slot and always
+# tests at the stable form's two counts: it calls the same early_stable_tt):
+# the stable form to det (23) and det >= 0 (24) for a miss, which skips
+# the fold; the rest of the test (2 for s, 3 for |op|, 3 for cc, denom,
+# its sign, the division, the two root tests) and the fold's compare for a
+# det >= 0 pair (38); the direct quadratic to
 # det with r * r staged once a row (16) and the compare (17) for a miss;
 # s, the two roots, their tests and the fold (24) for a det >= 0 pair. A
 # row left out as the table is staged (r not > 0) costs no op a pair.
@@ -2901,6 +2909,9 @@ def k7_constructed_launches(dev) -> dict:
     - a tile whose lanes hit a near ball but for one, which misses
       everything from outside the room;
     - 1 ray; 3 x 1,024 + 17 rays (a ragged tile and a ragged group);
+    - 2,048 grazing rays on ops/cull_rays.py::rotated_ball_mesh (768
+      triangles of 12 balls, each turned by its own random rotation, so
+      that no two share a normal; its cone count printed beside);
     - a 49,152-lane launch of the mesh stream on procedural_mesh_scene(500)
       with the culled route forced (the fifth of a round's launches; dead
       and flushed lanes with their stale rays included)."""
@@ -2943,6 +2954,17 @@ def k7_constructed_launches(dev) -> dict:
     miss = out["one_lane_misses"]
     if not 0.99 < miss["vs_k6"]["hit_share"] < 1.0:
         raise AssertionError(f"one_lane_misses: {miss['vs_k6']}")
+
+    # a mesh whose triangles share no normals: 12 randomly rotated balls
+    rot = scene_to(cr.rotated_ball_mesh(), dev)
+    racc = ma.build_mesh_grid_accel(rot, device=dev)
+    rtab = mp.build_tri_table(rot, device=dev)
+    o, d = (torch.tensor(x, device=dev) for x in cr.edge_rays(
+        "grazing", racc, rtab, 2048, 30))
+    out["rotated_instances_grazing"] = dict(
+        k7_held("rotated_instances_grazing", o, d, racc, rtab),
+        cones=int(racc.cones.shape[0]), rows=int(rot.indices.shape[0]),
+        slivers=int(racc.slivers.numel()))
 
     # the mesh stream's fifth launch, 49,152 lanes, culled route forced
     mesh = procedural_mesh_scene(500)
@@ -4950,46 +4972,100 @@ def dda_rays(n, seed, inside=True, coherent=False):
 
 def k4_bound(counts: dict, n_rays: int, grid) -> dict:
     """The least time of one K4 launch for the work the plain version
-    counted on the same rays (its walk visits the cells the kernel's does):
-    OPS_K2_STABLE a live part-A row, OPS_K2_FAST an overflow row and a
-    tested slot, OPS_PER_STEP a walk step and OPS_PER_INIT a ray's grid
-    clip, at the float rate; the ray planes in, t and code out, part A, the
-    overflow rows and the cell table once, at the memory rate. slot_bytes:
-    the 32 B of each tested slot the walk reads (from L2)."""
-    ops = (counts["part_a_tests"] * OPS_K2_STABLE
-           + (counts["overflow_tests"] + counts["slot_tests"]) * OPS_K2_FAST
-           + counts["walk_steps"] * OPS_PER_STEP + n_rays * OPS_PER_INIT)
+    counted on the same rays (its walk visits the cells the kernel's
+    does), each pair priced at what K4's early-miss tests spend up to
+    their decision: a live part-A row OPS_K2_STABLE_MISS, or
+    OPS_K2_STABLE_HIT past det; an overflow row or a tested slot
+    OPS_K2_DIRECT_MISS, or the whole direct test OPS_K2_FAST past det;
+    OPS_PER_STEP a walk step and OPS_PER_INIT a ray's grid clip, at the
+    float rate; the ray planes in, t and code out, part A, the overflow
+    rows and the cell table once, at the memory rate. Beside it
+    (``bound_ms_every_test_full``) every pair at its whole test, as K4 was
+    held to before its early miss. slot_bytes: the 16 B of each tested
+    slot the warp sweep reads (from L1 or L2)."""
+    a_all, a_hit = counts["part_a_tests"], counts["part_a_past_det"]
+    d_all = counts["overflow_tests"] + counts["slot_tests"]
+    d_hit = counts["overflow_past_det"] + counts["slot_past_det"]
+    walk = counts["walk_steps"] * OPS_PER_STEP + n_rays * OPS_PER_INIT
+    ops = (OPS_K2_STABLE_MISS * (a_all - a_hit) + OPS_K2_STABLE_HIT * a_hit
+           + OPS_K2_DIRECT_MISS * (d_all - d_hit) + OPS_K2_FAST * d_hit
+           + walk)
     nbytes = n_rays * (24 + 8) + 4 * (grid.part_a.numel()
                                       + grid.overflow.numel()
                                       + grid.cells.numel())
-    return _bound(ops, nbytes, slot_bytes=32 * counts["slot_tests"],
+    whole = _bound(a_all * OPS_K2_STABLE + d_all * OPS_K2_FAST + walk,
+                   nbytes)
+    return _bound(ops, nbytes, bound_ms_every_test_full=whole["bound_ms"],
+                  slot_bytes=16 * counts["slot_tests"],
                   cells_per_ray_mean=counts["walk_steps"] / n_rays,
                   cells_per_ray_max=counts["max_steps"])
 
 
 def k4_vs_plain(name, org, dirs, grid) -> dict:
-    """K4 against closest_hit_dda_plain on the same (N, 3) rays: t and code
-    bit-equal. Returns exact()'s reading plus the plain version's counts
-    and host-clock ms, and the planes and K4's outputs for reuse."""
+    """K4 against closest_hit_dda_plain on the same (N, 3) rays: the
+    counted wrapper's t and code bit-equal; then a second launch
+    (dda._launch, uncounted, which returns the scratch) whose (t, code)
+    equal the first's and whose queue counters hold against the plain
+    version's counts: every ray finished, the walk steps and the slots
+    tested. Returns exact()'s reading plus the plain version's counts and
+    host-clock ms, the queue, K4's launch (dda.dda_plan), and the planes
+    and K4's outputs for reuse."""
     import torch
 
     from smallpt_tpu_torch.ops import dda
 
     o, d = org.T.contiguous(), dirs.T.contiguous()
-    got = dda.closest_hit_dda(o, d, grid)
+    t4, code = dda.closest_hit_dda(o, d, grid)
     cnt = {}
     torch.cuda.synchronize()
     t = time.perf_counter()
     want = dda.closest_hit_dda_plain(o, d, grid, counts=cnt)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
-    return dict(exact(name, got, want), plain_ms=plain_ms, counts=cnt,
-                planes=(o, d), got=got)
+    st = exact(name, (t4, code), want)
+    t_q, code_q, queue = dda._launch(o, d, grid)
+    if not (torch.equal(t_q.view(torch.int32), t4.view(torch.int32))
+            and torch.equal(code_q, code)):
+        raise AssertionError(f"{name}: K4's second launch differs from "
+                             "its first")
+    q = dict(zip(dda.QUEUE_FIELDS, queue.tolist()))
+    n = o.shape[1]
+    for key, val in (("rays", n), ("walk_steps", cnt["walk_steps"]),
+                     ("slot_tests", cnt["slot_tests"])):
+        if q[key] != val:
+            raise AssertionError(f"{name}: K4's queue counted {q[key]} "
+                                 f"{key}, the plain version {val}")
+    plan = dda.dda_plan(n, o.device)
+    if q["next"] < n - plan["threads"]:
+        raise AssertionError(f"{name}: the queue handed out {q['next']} "
+                             f"rays past a first wave of {plan['threads']}")
+    return dict(st, plain_ms=plain_ms, counts=cnt, queue=q, plan=plan,
+                planes=(o, d), got=(t4, code))
+
+
+def k4_vs_k2(name, t4, code, grid, t2, id2) -> dict:
+    """K4's (t, code) against K2's t and winners (sphere ids, perm[slot])
+    on the same rays: t bit-equal everywhere, the winner's id equal where
+    K2 hits (a part-A code through grid.perm_a)."""
+    import torch
+
+    c = code.long()
+    ids4 = torch.where(c < 0, grid.perm_a.index_select(
+        0, (-c - 1).clamp(min=0)), c)
+    hit = t2 < 3e38
+    if not torch.equal(t4, t2):
+        raise AssertionError(f"{name}: K4 t differs from K2's on "
+                             f"{int((t4 != t2).sum())} rays")
+    if not torch.equal(ids4[hit], id2[hit]):
+        raise AssertionError(f"{name}: K4 winner differs from K2's on "
+                             f"{int((ids4[hit] != id2[hit]).sum())} rays")
+    return dict(t_equal=True, ids_equal=True, hits=int(hit.sum()))
 
 
 def dda_vs_plain_small(dev) -> dict:
-    """K4 against its plain version on the card, bit for bit (t and code),
-    on tests/test_dda.py's five cases: procedural_sphere_scene(800) at occ
+    """K4 against its plain version on the card, bit for bit (t and code;
+    its queue counters against the plain version's counts), on
+    tests/test_dda.py's five cases: procedural_sphere_scene(800) at occ
     16 from inside and from outside (2,048 rays each), the Cornell box at
     occ 4, procedural_sphere_scene(600) on a 2x2x2 grid with k_max 48 (its
     spheres overflow) and procedural_sphere_scene(400) at occ 16 with
@@ -5044,10 +5120,12 @@ def dda_main(dev) -> dict:
     the camera, coherent), grids at occ_target 16, 28 and 48 (k_max 128).
     The main path runs once (counts zeroed before it, read after: one K4
     launch a grid and ray set). Then, per grid and ray set: K4 against its
-    plain version (bit-equal), against K2 (closest_hit) on the same rays
-    (hit/miss, winner id and t bit-equal), K4's, K2's and the plain
-    version's ms, the cells a ray visited (the plain walk's counts), the
-    bound and the registers."""
+    plain version (bit-equal; its queue counters against the plain
+    version's counts, k4_vs_plain), against K2 (closest_hit) on the same
+    rays (hit/miss, winner id and t bit-equal), K4's and K2's ms (the card
+    held busy before each call) and the plain version's, the cells a ray
+    visited (the plain walk's counts), the bounds and their shares, K4's
+    launch and the registers."""
     import torch
 
     from smallpt_tpu_torch.core.scene import procedural_sphere_scene, scene_to
@@ -5077,6 +5155,8 @@ def dda_main(dev) -> dict:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t
     launches = counts()
+    if launches["closest_hit_dda"] != len(hits):
+        raise AssertionError(f"K4 main path: launches {launches}")
     for h in hits.values():
         if not (torch.isfinite(h.t) | torch.isinf(h.t)).all():
             raise AssertionError("K4 main path: NaN t")
@@ -5087,7 +5167,7 @@ def dda_main(dev) -> dict:
         ot, dt = o.T.contiguous(), d.T.contiguous()
         ms, (t2, slot) = cuda_ms(
             lambda: ip.closest_hit(ot, dt, table, 64 * nbc, 64 * nsc), 6,
-            skip_first=True)
+            setup=hold_card, skip_first=True)
         k2[n] = dict(ms=ms, t=t2, id=perm.index_select(0, slot.long()),
                      bound_ms=k2_bound(ot, dt, table, 64 * nbc, 64 * nsc,
                                        scene=dscene)["bound_ms"])
@@ -5111,60 +5191,193 @@ def dda_main(dev) -> dict:
                                h.t):
                 raise AssertionError(f"{name}: intersect_spheres_dda t "
                                      "differs from closest_hit_dda's")
-            # against K2 on the same rays: hit/miss, t and the winner
-            c = code.long()
-            ids4 = torch.where(
-                c < 0, g.perm_a.index_select(0, (-c - 1).clamp(min=0)), c)
-            hit = k2[n]["t"] < 3e38
-            if not torch.equal(t4, k2[n]["t"]):
-                raise AssertionError(
-                    f"{name}: K4 t differs from K2's on "
-                    f"{int((t4 != k2[n]['t']).sum())} rays")
-            if not torch.equal(ids4[hit], k2[n]["id"][hit]):
-                raise AssertionError(
-                    f"{name}: K4 winner differs from K2's on "
-                    f"{int((ids4[hit] != k2[n]['id'][hit]).sum())} rays")
+            vs_k2 = k4_vs_k2(name, t4, code, g, k2[n]["t"], k2[n]["id"])
             ms, _ = cuda_ms(lambda: dda.closest_hit_dda(ot, dt, g), 6,
-                            skip_first=True)
+                            setup=hold_card, skip_first=True)
             st.update(k4_bound(st["counts"], DDA_RAYS, g))
             st.update(kernel_ms=ms, k2_ms_same_rays=k2[n]["ms"],
-                      vs_k2=dict(t_equal=True, ids_equal=True,
-                                 hits=int(hit.sum())),
-                      mrays_per_s=DDA_RAYS / ms / 1e3)
+                      share=st["bound_ms"] / ms,
+                      share_every_test_full=st["bound_ms_every_test_full"]
+                      / ms, vs_k2=vs_k2, mrays_per_s=DDA_RAYS / ms / 1e3)
             out[name] = st
     out["ptxas"] = ptxas_entry("smallpt_dda")
     return out
 
 
-# K5's pair, counting what the function needs: the two dots over their
-# non-zero terms (the b row's 3, 5 ops; the det row's 5, whose -q and -oo
-# need no product, 7 ops), b, det (2), the square root, the two roots and
-# three compares. The kernel also sums the zero terms, 39 ops a pair.
+def k4_constructed_launches(dev) -> dict:
+    """K4 held bit for bit to its plain version (t and code; its queue's
+    rays, walk steps and slots tested to the plain version's counts,
+    k4_vs_plain) on launches built to reach the edges of its walk, its
+    fold and its queue, each with its time (the card held busy before each
+    call):
+    - 4,096 rays whose lines miss the grid's box
+      (procedural_sphere_scene(800) at occ 16; origins far beyond the
+      scene, pointing away): part A and no walk step;
+    - the same scene with its sphere 500 twice (the copy appended, id
+      800): both in every cell the sphere touches, so every hit on it
+      ties, and the fold must keep the lesser id (2,048 rays aimed at it);
+    - procedural_sphere_scene(600) on a 2x2x2 grid with k_max 16: most of
+      its spheres overflow into the rows every ray sweeps;
+    - the persistent grid's first wave (its plan's threads) and 4,097 rays
+      more, procedural_sphere_scene(800) at occ 16: the queue hands out
+      rays past the first wave."""
+    import torch
+
+    from smallpt_tpu_torch.core.scene import (
+        procedural_sphere_scene, sphere_scene_from_arrays,
+    )
+    from smallpt_tpu_torch.ops import dda
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    out = {}
+    p800 = procedural_sphere_scene(800)
+    g800 = dda.build_dda_grid(p800, occ_target=16.0, device=dev)
+    r = np.random.default_rng(41)
+    away = r.normal(size=(4096, 3))
+    away[:, 2] = np.abs(away[:, 2]) + 1.0
+    away /= np.linalg.norm(away, axis=1, keepdims=True)
+    far = np.tile([[50.0, 40.0, 1e6]], (4096, 1))
+    cases = {"all_outside_the_grid": (far, away, g800)}
+    m = p800.material
+    pick = [*range(800), 500]
+    twin = sphere_scene_from_arrays(
+        p800.center[pick], p800.radius[pick], m.emission[pick],
+        m.albedo[pick], m.refl[pick])
+    o = np.tile(p800.center[500].numpy()[None], (2048, 1)) + r.uniform(
+        -60, 60, (2048, 3))
+    d = (p800.center[500].numpy()[None] + r.uniform(-1, 1, (2048, 3))
+         * float(p800.radius[500]) - o)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cases["twins_in_one_cell"] = (o, d, dda.build_dda_grid(
+        twin, occ_target=16.0, device=dev))
+    g600 = dda.build_dda_grid(procedural_sphere_scene(600), nb=(2, 2, 2),
+                              k_max=16, device=dev)
+    o, d = dda_rays(2048, 42)
+    cases["overflowing_grid_k16"] = (o, d, g600)
+    n = dda.dda_plan(1, dev)["n_sm"] * dda.dda_plan(1, dev)["per_sm"] * 128
+    o, d = dda_rays(n + 4097, 43)
+    cases["past_the_first_wave"] = (o, d, g800)
+    for name, (o, d, g) in cases.items():
+        st = k4_vs_plain(name, t(o), t(d), g)
+        (ot, dt), (t4, code) = st.pop("planes"), st.pop("got")
+        st["kernel_ms"], _ = cuda_ms(lambda: dda.closest_hit_dda(ot, dt, g),
+                                     3, setup=hold_card)
+        out[name] = st
+    if out["all_outside_the_grid"]["queue"]["walk_steps"] != 0:
+        raise AssertionError(f"all outside: {out['all_outside_the_grid']}")
+    won = dda.closest_hit_dda_plain(*(t(x).T.contiguous() for x in (
+        cases["twins_in_one_cell"][:2])), cases["twins_in_one_cell"][2])[1]
+    if not bool((won == 500).any()) or bool((won == 800).any()):
+        raise AssertionError("twins: the copy won a tie, or none hit")
+    if g600.n_overflow < 300:
+        raise AssertionError(f"k_max 16: {g600.n_overflow} overflow")
+    out["overflowing_grid_k16"]["n_overflow"] = g600.n_overflow
+    past = out["past_the_first_wave"]
+    if past["queue"]["next"] < 4097:
+        raise AssertionError(f"past the first wave: {past['queue']}")
+    return out
+
+
+# K5's pairs, counted from csrc/closest_hit_mxu.cu's coef_tt: a live small
+# sphere's b (3 products, 2 sums, less od: 6), e (3 products, 2 sums, plus
+# -q, less oo: 7), det (2) and its compare, 16 ops to a miss; the square
+# root, the two roots, their two compares and the fold's, 22 past det.
+# K5's part-A rows take K2's stable counts (OPS_K2_STABLE_MISS / _HIT), a
+# masked row none. Before its early miss K5 was held to OPS_K5_PAIR, the
+# whole test over the non-zero terms (its dots also summed the zero
+# terms, 39 ops a pair).
+OPS_K5_MISS, OPS_K5_HIT = 16, 22
 OPS_K5_PAIR = 21
 MXU_RAYS = 512 * 384
 
 
-def k5_bound(stable, mxu, n_a: int, n_b: int, n_rays: int) -> dict:
-    """The least time of one K5 launch over n_rays rays: OPS_K2_STABLE a
-    live part-A row, OPS_K5_PAIR a live small sphere, a compare a dead row
-    (part A's padding, the small class's masked big spheres and padding),
-    at the float rate; 24 B of ray in and 8 B out a ray and both tables
-    once, at the memory rate."""
-    live_a = int((stable[:n_a, 3] > 0).sum())
-    row2 = mxu[:2 * n_b].view(-1, 2, 64, 8)[:, 1].reshape(-1, 8)
-    live_b = int((row2[:, 7] != 0).sum())
-    dead = n_a + n_b - live_a - live_b
-    ops = n_rays * (OPS_K2_STABLE * live_a + OPS_K5_PAIR * live_b
-                    + OPS_ROW_SKIP * dead)
+def k5_pairs(org_c, dirs, stable, mxu, n_a: int, n_b: int) -> dict:
+    """The (ray, slot) pairs of one K5 launch ((3, N) planes in the tables'
+    frame) by where its tests decide them, counted op for op as far as
+    det: "stable_miss", "stable_hit" over part A's live rows (k2_pairs),
+    "coef_miss", "coef_hit" (det >= 0) over the live small spheres
+    (intersect_pallas.mxu_live_rows); "live_a", "live_b" and "left_out",
+    the slots the kernel stages and leaves out."""
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    a = k2_pairs(org_c, dirs, stable, n_a, 0)
+    live, coef = ip.mxu_live_rows(mxu, n_b)
+    ox, oy, oz, dx, dy, dz = (x[:, None] for x in (*org_c, *dirs))
+    od = (ox * dx + oy * dy) + oz * dz
+    oo = (ox * ox + oy * oy) + oz * oz
+    n = org_c.shape[1]
+    hits = 0
+    per = max(1, (1 << 24) // max(n, 1))
+    for lo in range(0, live.numel(), per):
+        cx, cy, cz, tx, ty, tz, nq = (coef[lo:lo + per, k][None, :]
+                                      for k in range(7))
+        b = cx * dx + cy * dy + cz * dz - od
+        e = tx * ox + ty * oy + tz * oz + nq - oo
+        hits += int((b * b + e >= 0.0).sum())
+    return dict(stable_miss=a["stable_miss"], stable_hit=a["stable_hit"],
+                coef_miss=n * live.numel() - hits, coef_hit=hits,
+                live_a=a["live_a"], live_b=live.numel(),
+                left_out=n_a + n_b - a["live_a"] - live.numel())
+
+
+def k5_bound(org_c, dirs, stable, mxu, n_a: int, n_b: int, scene=None,
+             org=None) -> dict:
+    """The least time of one K5 launch on closest_hit_mxu's arguments: 24 B
+    of ray in and 8 B out a ray and both tables once, at the memory rate,
+    or the float work the function needs, whichever is longer. K5 computes
+    K2's function (the closest sphere of each ray), so that work is, as in
+    k2_bound, the lesser of two algorithms' counts:
+    - this kernel's staged sweep (``bound_ms_staged_sweep``): each pair at
+      the ops K5's tests spend up to their decision (k5_pairs:
+      OPS_K2_STABLE_MISS / _HIT a part-A pair, OPS_K5_MISS / _HIT a small
+      one, none a slot left out);
+    - a grid walk over the scene's spheres (k2_walk: ``bound_ms_grid_walk``)
+      on the same rays, given in the world's frame (org, (3, N)) with the
+      scene the tables were built from.
+    ``bound_algorithm`` names the one taken. Beside them
+    (``bound_ms_every_pair_full``) the count K5 was held to before its
+    early miss: OPS_K2_STABLE a live part-A row, OPS_K5_PAIR a live small
+    sphere, a compare a dead slot, for every ray."""
+    n_rays = org_c.shape[1]
+    p = k5_pairs(org_c, dirs, stable, mxu, n_a, n_b)
+    ops = (OPS_K2_STABLE_MISS * p["stable_miss"]
+           + OPS_K2_STABLE_HIT * p["stable_hit"]
+           + OPS_K5_MISS * p["coef_miss"] + OPS_K5_HIT * p["coef_hit"])
     nbytes = n_rays * (24 + 8) + (stable.numel() + mxu.numel()) * 4
-    return _bound(ops, nbytes, live_a=live_a, live_b=live_b, dead=dead)
+    full = _bound(n_rays * (OPS_K2_STABLE * p["live_a"]
+                            + OPS_K5_PAIR * p["live_b"]
+                            + OPS_ROW_SKIP * p["left_out"]), nbytes)
+    info = dict(pairs=p, bound_ms_staged_sweep=_bound(ops, nbytes)[
+        "bound_ms"], bound_ms_every_pair_full=full["bound_ms"])
+    algorithm = "staged sweep"
+    walk = k2_walk(org, dirs, scene) if scene is not None else None
+    if walk is not None:
+        info.update(walk=walk, bound_ms_grid_walk=_bound(
+            walk["ops"], nbytes)["bound_ms"])
+        if walk["ops"] < ops:
+            ops, algorithm = walk["ops"], "grid walk"
+    return _bound(ops, nbytes, bound_algorithm=algorithm, **info)
+
+
+def k5_plan(args, forced: int = 0) -> dict:
+    """The plan K5's launcher makes of a launch on closest_hit_mxu's
+    arguments (forced > 0: its slots forced into that many ranges), with
+    its scratch in MB."""
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    n, slots, dev = args[0].shape[1], args[4] + args[5], args[2].device
+    plan = (ip.read_plan(ip._mxu_lib()[1], dev, n, slots, forced)
+            if forced else ip.closest_hit_mxu_plan(n, slots, dev))
+    return dict(plan, scratch_mb=plan["scratch_words"] * 4 / 1e6)
 
 
 def k5_vs_plain(name, scene, org, dirs, dev, tables=None) -> dict:
     """K5 against closest_hit_mxu_plain on the same (N, 3) rays, shifted
     into the tables' frame: t and slot bit-equal. Returns exact()'s
-    reading plus the plain version's host-clock ms, the planes and K5's
-    outputs for reuse."""
+    reading plus the plain version's host-clock ms, the plan the launcher
+    made, the arguments and K5's outputs for reuse."""
     import torch
 
     from smallpt_tpu_torch.ops import intersect_pallas as ip
@@ -5181,8 +5394,8 @@ def k5_vs_plain(name, scene, org, dirs, dev, tables=None) -> dict:
     want = ip.closest_hit_mxu_plain(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
-    return dict(exact(name, got, want), plain_ms=plain_ms, args=args,
-                got=got)
+    return dict(exact(name, got, want), plain_ms=plain_ms,
+                plan=k5_plan(args), args=args, got=got)
 
 
 def mxu_vs_plain_small(dev) -> dict:
@@ -5252,8 +5465,11 @@ def mxu_main(dev) -> dict:
     (counts zeroed before it, read after: one K5 launch). Then K5 against
     its plain version (bit-equal), the refined hits against K2's route
     (intersect_spheres_pallas) on the same rays under
-    test_mxu_matches_pure_jax's gates, K5's, K2's and the plain version's
-    ms, the bound and the registers."""
+    test_mxu_matches_pure_jax's gates, K5's and K2's ms (the card held busy
+    before each call) and the plain version's, the plan and its scratch,
+    the bound (k5_bound's: the lesser of its staged sweep's count and a
+    grid walk's on the same rays), K2's (k2_bound's), the shares, and the
+    registers."""
     import torch
 
     from smallpt_tpu_torch.core.scene import procedural_sphere_scene, scene_to
@@ -5277,31 +5493,122 @@ def mxu_main(dev) -> dict:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t
     launches = counts()
+    if launches["closest_hit_mxu"] != 1:
+        raise AssertionError(f"K5 main path: launches {launches}")
     if not (torch.isfinite(h.t) | torch.isinf(h.t)).all():
         raise AssertionError("K5 main path: NaN t")
 
     st = k5_vs_plain("procedural10000", scene, org, dirs, dev, tables)
     args, got = st.pop("args"), st.pop("got")
-    ms, _ = cuda_ms(lambda: ip.closest_hit_mxu(*args), 6, skip_first=True)
+    ms, _ = cuda_ms(lambda: ip.closest_hit_mxu(*args), 6, setup=hold_card,
+                    skip_first=True)
     k2_tables = ip.build_sphere_table(scene, device=dev)
     table, _, nbc, nsc = k2_tables
     ot, dt = org.T.contiguous(), dirs.T.contiguous()
     k2_ms, _ = cuda_ms(
         lambda: ip.closest_hit(ot, dt, table, 64 * nbc, 64 * nsc), 6,
-        skip_first=True)
+        setup=hold_card, skip_first=True)
     h_k2 = ip.intersect_spheres_pallas(org, dirs, dscene, want_uv=False,
                                        tables=k2_tables)
-    stable, mxu, _, nbc5, nsc5, _, _ = tables
-    st.update(k5_bound(stable, mxu, 64 * nbc5, 64 * nsc5, MXU_RAYS))
+    st.update(k5_bound(*args[:6], scene=dscene, org=ot))
+    k2b = k2_bound(ot, dt, table, 64 * nbc, 64 * nsc, scene=dscene)
     st.update(kernel_ms=ms, k2_ms_same_rays=k2_ms,
-              k2_bound_ms=k2_bound(ot, dt, table, 64 * nbc, 64 * nsc,
-                                   scene=dscene)["bound_ms"],
+              share=st["bound_ms"] / ms,
+              share_staged_sweep=st["bound_ms_staged_sweep"] / ms,
+              share_every_pair_full=st["bound_ms_every_pair_full"] / ms,
+              k2_bound_ms=k2b["bound_ms"],
               vs_k2=mxu_gates("procedural10000", h_k2, h),
               mrays_per_s=MXU_RAYS / ms / 1e3)
     return dict(st, rays=MXU_RAYS, launches=launches, main_path_s=main_s,
                 tables_build_s=build_s,
-                mxu_table_kb=mxu.numel() * 4 / 1e3,
+                mxu_table_kb=args[3].numel() * 4 / 1e3,
                 ptxas=ptxas_entry(ip.LIBRARY_MXU[0]))
+
+
+def k5_constructed_launches(dev) -> dict:
+    """K5 held bit for bit to its plain version (t and slot) on launches
+    built to reach the edges of its plan, its staging and its tests, each
+    under the plan its launcher makes and under forced cuts of its slots
+    (1 range, 2, 3 and one a 256-slot chunk; intersect_pallas._mxu_launch,
+    uncounted), with the plan and the time (the card held busy before each
+    call), on procedural_sphere_scene(2000):
+    - 4,096 rays from inside the spheres' box;
+    - the scene with its sphere 1500 twice (the copy appended: slot n_a +
+      2000, two chunks after the original's): 2,048 rays aimed at it
+      hit both at the same t, and the first slot must win under every
+      cut;
+    - its table with 300 live small spheres masked as the big spheres and
+      the padding are (q = 1e30, a 0 in column 7): no ray takes one;
+    - 1 ray; 77 rays (one ray block, which the plan cuts the deepest)."""
+    import torch
+
+    from smallpt_tpu_torch.core.scene import (
+        procedural_sphere_scene, sphere_scene_from_arrays,
+    )
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    scene = procedural_sphere_scene(2000)
+    tables = ip.build_sphere_table_mxu(scene, device=dev)
+    stable, mxu, _, nbc, nsc, eps, shift = tables
+    n_a, n_b = 64 * nbc, 64 * nsc
+    o, d = dda_rays(4096, 51)
+    r = np.random.default_rng(52)
+    m = scene.material
+    pick = [*range(2000), 1500]
+    twin = sphere_scene_from_arrays(
+        scene.center[pick], scene.radius[pick], m.emission[pick],
+        m.albedo[pick], m.refl[pick])
+    tw = ip.build_sphere_table_mxu(twin, device=dev)
+    c = scene.center[1500].numpy()
+    to = c[None] + r.uniform(-40, 40, (2048, 3))
+    td = c[None] + r.uniform(-1, 1, (2048, 3)) * float(scene.radius[1500]) \
+        - to
+    td /= np.linalg.norm(td, axis=1, keepdims=True)
+    masked = mxu.clone()
+    live, _ = ip.mxu_live_rows(mxu, n_b)
+    drop = live[torch.from_numpy(r.choice(live.numel(), 300,
+                                          replace=False)).to(dev)]
+    rows2 = (drop // 64) * 128 + 64 + drop % 64
+    masked[rows2, 6] = -1e30
+    masked[rows2, 7] = 0.0
+    cases = {
+        "inside_4096": (o, d, tables),
+        "twin_spheres": (to, td, tw),
+        "masked_300": (o, d, (stable, masked, *tables[2:])),
+        "one_ray": (o[:1], d[:1], tables),
+        "rays77": (o[:77], d[:77], tables),
+    }
+    out = {}
+    for name, (o_, d_, tab) in cases.items():
+        args = ((t(o_) - tab[6][None, :]).T.contiguous(),
+                t(d_).T.contiguous(), tab[0], tab[1], 64 * tab[3],
+                64 * tab[4], tab[5])
+        want = ip.closest_hit_mxu_plain(*args)
+        hit = want[0] < 3e38
+        if name == "twin_spheres" and (
+                not bool((want[1] == args[4] + 1500).any())
+                or bool((want[1] == args[4] + 2000).any())):
+            raise AssertionError(f"{name}: the copy won a tie, or none hit")
+        if name == "masked_300" and bool(torch.isin(
+                want[1][hit], (drop + n_a).to(torch.int32)).any()):
+            raise AssertionError(f"{name}: a masked sphere won")
+        chunks = -(-(args[4] + args[5]) // 256)
+        cuts = {}
+        for forced in (0, 1, 2, 3, chunks):
+            def launch():
+                return (ip.closest_hit_mxu(*args) if forced == 0
+                        else ip._mxu_launch(*args, forced=forced))
+            cmp = exact(f"{name} forced={forced}", launch(), want)
+            ms, _ = cuda_ms(launch, 3, setup=hold_card)
+            cuts["own_plan" if forced == 0 else f"forced_{forced}"] = dict(
+                cmp, kernel_ms=ms, plan=k5_plan(args, forced))
+        if len({c_["plan"]["ranges"] for c_ in cuts.values()}) < 4:
+            raise AssertionError(f"{name}: cuts {cuts}")
+        out[name] = cuts
+    return out
 
 
 def shard_mesh(dev):
@@ -6327,21 +6634,27 @@ def main() -> int:
 
     # ---- 46-48. the per-ray DDA kernel K4: against its plain version on
     # tests/test_dda.py's cases, then bench_dda_tpu.py's stage 2 through
-    # intersect_spheres_dda, against the plain version and K2; the host
-    # surfaces on the per-pass Cornell configuration --------------------------
+    # intersect_spheres_dda, against the plain version and K2, then on
+    # constructed launches; the host surfaces on the per-pass Cornell
+    # configuration -----------------------------------------------------------
     k4_small = dda_vs_plain_small(dev)
     phase("dda_vs_plain_small", **k4_small)
     k4 = dda_main(dev)
     phase("dda_main_procedural10000", **k4)
+    k4_built = k4_constructed_launches(dev)
+    phase("k4_constructed_launches", **k4_built)
     phase("host_surfaces_cornell_1024x768", **host_surfaces(dev))
 
     # ---- 49-50. K5, the MXU-assisted sweep: against its plain version on
     # tests/test_intersect_pallas.py's cases, then bench_mxu_tpu.py's shape
-    # through intersect_spheres_mxu, against the plain version and K2 ---
+    # through intersect_spheres_mxu, against the plain version and K2, then
+    # on constructed launches under forced cuts ------------------------------
     k5_small = mxu_vs_plain_small(dev)
     phase("mxu_vs_plain_small", **k5_small)
     k5 = mxu_main(dev)
     phase("mxu_main_procedural10000", **k5)
+    k5_built = k5_constructed_launches(dev)
+    phase("k5_constructed_launches", **k5_built)
 
     # ---- 51-56. multi-device: each parallel/ module on a 2 x 2 mesh of
     # shards on the one card, against the single-device result; then two
@@ -6428,7 +6741,7 @@ def main() -> int:
         k7[key] = k7_mid[key]
     k7_keys = ("rays", "kernel_ms", "k6_ms", "bound_ms", "bound_by",
                "bound_ms_tile_walk", "bound_ms_box_culled",
-               "bound_ms_group_union")
+               "bound_ms_group_union", "cones", "rows")
     k7["constructed"] = {n: {x: v[x] for x in k7_keys if x in v}
                          for n, v in k7_built.items()}
     k7["max_abs_err"] = max([k7["max_abs_err"]] + [
@@ -6548,16 +6861,21 @@ def main() -> int:
         "source": "smallpt_tpu_torch/csrc/dda.cu",
         "replaces": "smallpt_tpu/ops/dda.py:258",
         "launches": k4["launches"]["closest_hit_dda"],
-        "max_abs_err": max(v["max_abs_err"] for v in (*k4_small.values(),
-                                                      *k4_main)),
+        "max_abs_err": max(v["max_abs_err"] for v in (
+            *k4_small.values(), *k4_main, *k4_built.values())),
         "ms": k4_mid["kernel_ms"], "plain_ms": k4_mid["plain_ms"],
         "bound_ms": k4_mid["bound_ms"], "bound_by": k4_mid["bound_by"],
         "rays": DDA_RAYS, "k2_ms_same_rays": k4_mid["k2_ms_same_rays"],
         "by_grid_and_rays": {
-            n: {f: v[f] for f in ("kernel_ms", "k2_ms_same_rays", "plain_ms",
-                                  "bound_ms", "bound_by",
-                                  "cells_per_ray_mean", "cells_per_ray_max")}
+            n: {f: v[f] for f in (
+                "kernel_ms", "k2_ms_same_rays", "plain_ms", "bound_ms",
+                "bound_by", "bound_ms_every_test_full", "share",
+                "share_every_test_full", "cells_per_ray_mean",
+                "cells_per_ray_max", "queue")}
             for n, v in k4.items() if n.startswith("occ")},
+        "plan": k4_mid["plan"],
+        "constructed": {n: {f: v[f] for f in ("rays", "kernel_ms", "queue")}
+                        for n, v in k4_built.items()},
         "ptxas": k4["ptxas"],
         "library_ms": None,
     })
@@ -6566,12 +6884,24 @@ def main() -> int:
         "source": "smallpt_tpu_torch/csrc/closest_hit_mxu.cu",
         "replaces": "smallpt_tpu/ops/intersect_pallas.py:173",
         "launches": k5["launches"]["closest_hit_mxu"],
-        "max_abs_err": max(v["max_abs_err"] for v in (*k5_small.values(),
-                                                      k5)),
+        "max_abs_err": max(v["max_abs_err"] for v in (
+            *k5_small.values(), k5,
+            *(c for v in k5_built.values() for c in v.values()))),
         "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "bound_algorithm": k5["bound_algorithm"],
+        "bound_ms_staged_sweep": k5["bound_ms_staged_sweep"],
+        "bound_ms_grid_walk": k5.get("bound_ms_grid_walk"),
+        "bound_ms_every_pair_full": k5["bound_ms_every_pair_full"],
+        "share": k5["share"],
+        "share_staged_sweep": k5["share_staged_sweep"],
+        "share_every_pair_full": k5["share_every_pair_full"],
         "rays": MXU_RAYS, "k2_ms_same_rays": k5["k2_ms_same_rays"],
         "k2_bound_ms": k5["k2_bound_ms"], "vs_k2": k5["vs_k2"],
+        "plan": k5["plan"],
+        "constructed": {n: {c: {f: x[f] for f in ("rays", "kernel_ms")}
+                            for c, x in v.items()}
+                        for n, v in k5_built.items()},
         "ptxas": k5["ptxas"],
         "library_ms": None,
     })

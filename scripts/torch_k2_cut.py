@@ -1,7 +1,9 @@
 """K2 (csrc/closest_hit.cu) on one CUDA card at the launches of PERF.md's
-paths 1, 2 and 4, in one or several source trees.
+paths 1, 2 and 4, and K4 (csrc/dda.cu) and K5 (csrc/closest_hit_mxu.cu)
+at their entry points' benchmark shapes, in one or several source trees.
 
-    python scripts/torch_k2_cut.py [--trees A,B] [--out k2_cut.json]
+    python scripts/torch_k2_cut.py [--kernels k2,k4,k5] [--trees A,B] \
+        [--out k2_cut.json]
 
 The launches are captured once, from this checkout's renderers
 (``ProgressiveRenderer``, seed 0, the wrapper's arguments kept), and every
@@ -24,9 +26,23 @@ plan (``closest_hit_plan``) the plan and the time with the rows forced
 into one range (``uncut_ms``). This checkout's bounds (chip_smoke.py::
 k2_bound with the launch's scene) are read once, in the first worker.
 
+K4 and K5 (--kernels k4, k5; K2 alone by default) on the rays of
+chip_smoke.py's ``dda_main`` and ``mxu_main``: procedural_sphere_scene
+(10000) and 196,608 rays, K4 on the bounce and the camera rays
+(``dda_rays``, seed 11) over the tree's grids at occ_target 16, 28 and 48
+(keys ``k4_occ<occ>_<rays>``), K5 on mxu_main's rays over the tree's
+tables (``k5_procedural10000``). For each: the kernel against its plain
+version (every output bit-equal), K4's t against K2's on the same rays
+(bit-equal) and its winners against K2's, the kernel's time and K2's on
+the same rays (the card held busy about 1 ms before each), and where the
+tree has them K4's queue counters and launch (``dda.dda_plan``) and K5's
+plan (``closest_hit_mxu_plan``) and its time with the slots forced into
+one range (``uncut_ms``). This checkout's bounds (chip_smoke.py::k4_bound,
+k5_bound) are computed once, in the parent process, after the trees.
+
 Each tree (--trees, default this checkout) is measured in a fresh process
 with ``PYTHONPATH`` set to it; it must hold ``smallpt_tpu_torch/``. A copy
-of a tree with one edit to csrc/closest_hit.cu is measured the same way.
+of a tree with one edit to a kernel's source is measured the same way.
 
 Prints one JSON line a tree (its build's ptxas lines among them), then the
 card's name and power limit. Exits non-zero without a card or if K2
@@ -94,7 +110,8 @@ def capture(dev) -> dict:
 
 
 def measure(bounds: bool) -> dict:
-    """Every reading of the module's docstring, on this process's tree."""
+    """Every K2 reading of the module's docstring, on this process's
+    tree."""
     import torch
 
     import chip_smoke as cs
@@ -138,8 +155,144 @@ def measure(bounds: bool) -> dict:
     return res
 
 
+def sphere_rays(dev) -> dict:
+    """dda_main's bounce and camera rays and mxu_main's rays, (N, 3) each
+    on the card, made by this checkout's chip_smoke.py."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+
+    out = {}
+    for name, inside, coh in (("bounce", True, False),
+                              ("camera", False, True)):
+        o, d = cs.dda_rays(cs.DDA_RAYS, 11, inside=inside, coherent=coh)
+        out[name] = (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))
+    rng_ = np.random.default_rng(0)
+    o = rng_.uniform([5, 5, 20], [95, 75, 150], (cs.MXU_RAYS, 3))
+    d = rng_.normal(size=(cs.MXU_RAYS, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    out["mxu"] = (torch.from_numpy(o.astype(np.float32)).to(dev),
+                  torch.from_numpy(d.astype(np.float32)).to(dev))
+    return out
+
+
+def measure_spheres(kernels: list) -> dict:
+    """The K4 and K5 readings of the module's docstring, on this process's
+    tree."""
+    import torch
+
+    import chip_smoke as cs
+    from smallpt_tpu_torch.core.scene import procedural_sphere_scene
+    from smallpt_tpu_torch.ops import dda
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+    from smallpt_tpu_torch.utils import nvcc
+
+    dev = torch.device("cuda")
+    scene = procedural_sphere_scene(10000)
+    rays = sphere_rays(dev)
+    table, perm, nbc, nsc = ip.build_sphere_table(scene, device=dev)
+    k2 = {}
+    for name in ("bounce", "camera", "mxu"):
+        ot, dt = (x.T.contiguous() for x in rays[name])
+        args = (ot, dt, table, 64 * nbc, 64 * nsc)
+        t2, slot = ip.closest_hit(*args)
+        ms, _ = cs.cuda_ms(lambda: ip.closest_hit(*args), 6,
+                           setup=cs.hold_card, skip_first=True)
+        k2[name] = (t2, perm.index_select(0, slot.long()), ms)
+    res = {"tree": os.path.dirname(os.path.dirname(ip.__file__))}
+    if "k4" in kernels:
+        dda._kernel_lib()
+        res["k4_ptxas"] = cs.ptxas_entry(dda.LIBRARY[0])
+        res["k4_build_s"] = nvcc.builds.get(dda.LIBRARY[0], {}).get(
+            "seconds")
+        for occ in cs.DDA_OCC:
+            grid = dda.build_dda_grid(scene, occ_target=occ, k_max=128,
+                                      device=dev)
+            for name in ("bounce", "camera"):
+                ot, dt = (x.T.contiguous() for x in rays[name])
+                got = dda.closest_hit_dda(ot, dt, grid)
+                row = dict(rays=ot.shape[1], vs_plain=cs.exact(
+                    f"k4 occ{int(occ)} {name}", got,
+                    dda.closest_hit_dda_plain(ot, dt, grid)))
+                row["vs_k2"] = cs.k4_vs_k2(f"k4 occ{int(occ)} {name}",
+                                           *got, grid, *k2[name][:2])
+                row["kernel_ms"], _ = cs.cuda_ms(
+                    lambda: dda.closest_hit_dda(ot, dt, grid), 6,
+                    setup=cs.hold_card, skip_first=True)
+                row["k2_ms"] = k2[name][2]
+                if hasattr(dda, "dda_plan"):
+                    row["plan"] = dda.dda_plan(ot.shape[1], dev)
+                    row["queue"] = dict(zip(dda.QUEUE_FIELDS, dda._launch(
+                        ot, dt, grid)[2].tolist()))
+                res[f"k4_occ{int(occ)}_{name}"] = row
+    if "k5" in kernels:
+        ip._mxu_lib()
+        res["k5_ptxas"] = cs.ptxas_entry(ip.LIBRARY_MXU[0])
+        res["k5_build_s"] = nvcc.builds.get(ip.LIBRARY_MXU[0], {}).get(
+            "seconds")
+        stable, mxu, _, nbc5, nsc5, eps, shift = ip.build_sphere_table_mxu(
+            scene, device=dev)
+        org, dirs = rays["mxu"]
+        args = ((org - shift[None, :]).T.contiguous(), dirs.T.contiguous(),
+                stable, mxu, 64 * nbc5, 64 * nsc5, eps)
+        row = dict(rays=org.shape[0], vs_plain=cs.exact(
+            "k5", ip.closest_hit_mxu(*args), ip.closest_hit_mxu_plain(*args)))
+        row["kernel_ms"], _ = cs.cuda_ms(lambda: ip.closest_hit_mxu(*args),
+                                         6, setup=cs.hold_card,
+                                         skip_first=True)
+        row["k2_ms"] = k2["mxu"][2]
+        if hasattr(ip, "closest_hit_mxu_plan"):
+            row["plan"] = ip.closest_hit_mxu_plan(org.shape[0],
+                                                  args[4] + args[5], dev)
+            row["uncut_ms"], _ = cs.cuda_ms(
+                lambda: ip._mxu_launch(*args, forced=1), 6,
+                setup=cs.hold_card, skip_first=True)
+        res["k5_procedural10000"] = row
+    return res
+
+
+def sphere_bounds() -> dict:
+    """This checkout's K4 and K5 bounds on the rays measure_spheres
+    times."""
+    import torch
+
+    import chip_smoke as cs
+    from smallpt_tpu_torch.core.scene import procedural_sphere_scene, scene_to
+    from smallpt_tpu_torch.ops import dda
+    from smallpt_tpu_torch.ops import intersect_pallas as ip
+
+    dev = torch.device("cuda")
+    scene = procedural_sphere_scene(10000)
+    rays = sphere_rays(dev)
+    out = {}
+    for occ in cs.DDA_OCC:
+        grid = dda.build_dda_grid(scene, occ_target=occ, k_max=128,
+                                  device=dev)
+        for name in ("bounce", "camera"):
+            ot, dt = (x.T.contiguous() for x in rays[name])
+            cnt = {}
+            dda.closest_hit_dda_plain(ot, dt, grid, counts=cnt)
+            b = cs.k4_bound(cnt, ot.shape[1], grid)
+            out[f"k4_occ{int(occ)}_{name}"] = {
+                k: b[k] for k in ("bound_ms", "bound_by",
+                                  "bound_ms_every_test_full")}
+    stable, mxu, _, nbc5, nsc5, _, shift = ip.build_sphere_table_mxu(
+        scene, device=dev)
+    org, dirs = rays["mxu"]
+    b = cs.k5_bound((org - shift[None, :]).T.contiguous(),
+                    dirs.T.contiguous(), stable, mxu, 64 * nbc5, 64 * nsc5,
+                    scene=scene_to(scene, dev), org=org.T.contiguous())
+    out["k5_procedural10000"] = {k: b.get(k) for k in (
+        "bound_ms", "bound_by", "bound_algorithm", "bound_ms_staged_sweep",
+        "bound_ms_grid_walk", "bound_ms_every_pair_full")}
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--kernels", default="k2",
+                   help="kernels to measure: k2, k4, k5 (comma-separated)")
     p.add_argument("--trees", default="",
                    help="source trees to measure in turn, each in a fresh "
                         "process (default: this checkout)")
@@ -152,11 +305,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_k2_cut: no CUDA device", file=sys.stderr)
         return 1
+    kernels = args.kernels.split(",")
     if args.worker:
-        print(json.dumps(measure(args.bounds)), flush=True)
+        res = measure(args.bounds) if "k2" in kernels else {}
+        if {"k4", "k5"} & set(kernels):
+            res.update(measure_spheres(kernels))
+        print(json.dumps(res), flush=True)
         return 0
     os.makedirs(BUILD, exist_ok=True)
-    torch.save(capture(torch.device("cuda")), LAUNCHES)
+    if "k2" in kernels:
+        torch.save(capture(torch.device("cuda")), LAUNCHES)
     from smallpt_tpu_torch.ops import intersect_pallas as ip
 
     # this checkout's library is built here, so its ptxas lines are read
@@ -170,6 +328,7 @@ def main() -> int:
     for k, tree in enumerate(trees):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
+             "--kernels", args.kernels,
              *(["--bounds"] if k == 0 else [])],
             env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
             text=True, timeout=1800, cwd=REPO)
@@ -177,16 +336,20 @@ def main() -> int:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return proc.returncode
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        if tree == REPO:
+        if tree == REPO and "ptxas" in runs[-1]:
             runs[-1]["ptxas"] = runs[-1]["ptxas"] or own_ptxas
         print(json.dumps(runs[-1]), flush=True)
+    out = dict(runs=runs)
+    if {"k4", "k5"} & set(kernels):
+        out["bounds"] = sphere_bounds()
+        print(json.dumps(out["bounds"]), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump(dict(device=smi, runs=runs), f, indent=1)
+        json.dump(dict(device=smi, **out), f, indent=1)
     print(smi)
     return 0
 

@@ -46,20 +46,22 @@
 //   warps an SM; 8 KB of shared memory a block); on a 10,000-sphere
 //   bounce they ran 6% ahead of two rays and 12% ahead of one, on path
 //   4's 25 M Cornell rays 5% and 22% (PERF.md);
-// - an early miss in K2's own copies of the two tests (stable_tt,
-//   direct_tt; lane.cuh's, which K1 and K3 share, keep the JAX order):
-//   where !(det >= 0 && r > 0) the pair is dropped before the square
-//   roots, the roots and the division that only a hit needs, and before
-//   the fold's compare (the whole test gives 3e38 there, never below the
-//   fold's best, which starts at 3e38). The same ops in the same order
-//   otherwise, so the same bits, NaN included. On 10,000 spheres ~0.1% of
-//   the pairs and 0.2-1.1% of the (32 rays, row) pairs go past det;
+// - an early miss in lane.cuh's early_stable_tt and early_direct_tt,
+//   shared with K3, K4 and K5 (lane.cuh's sphere_tt and sphere_tt_fast,
+//   which K1 shares, keep the JAX order): where !(det >= 0 && r > 0) the
+//   pair is dropped before the square roots, the roots and the division
+//   that only a hit needs, and before the fold's compare (the whole test
+//   gives 3e38 there, never below the fold's best, which starts at 3e38).
+//   The same ops in the same order otherwise, so the same bits, NaN
+//   included. On 10,000 spheres ~0.1% of the pairs and 0.2-1.1% of the
+//   (32 rays, row) pairs go past det;
 // - the launch fills the card: where its ray blocks would leave part of
 //   the blocks the card holds at once (the fill: the SMs times this
 //   kernel's occupancy, read once a device) idle, the rows are cut into
 //   ranges of whole chunks, one unit (a block) a (ray block, range): the
 //   fewest ranges whose units run in full-row waves within 5% of the ideal
-//   (plan.cuh::make_plan, shared with K6). Each unit folds its rows in
+//   (plan.cuh::make_plan, shared with K5 and K6, as are the staging,
+//   stage_places, and the merge, finish_unit). Each unit folds its rows in
 //   order with the strict < from (3e38, slot 0) and writes a partial (t,
 //   slot) a ray; the last unit of a ray block to finish (a counter a ray
 //   block, zeroed on the stream before the launch) folds the partials in
@@ -90,57 +92,6 @@ constexpr int kBlockRays = kBlock * kRays;
 constexpr int kChunk = 2 * kBlock;         // table rows staged at once
 constexpr int kWarps = kBlock / 32;
 
-// lane.cuh::sphere_tt with the miss decided first (K8's
-// sphere_tt_miss_first): where det < 0 or NaN, or the radius is not
-// positive, it returns false before the two square roots and the division
-// that only a hit needs (the whole test's 3e38 there is never below a
-// fold's best, which starts at 3e38, so the fold skips the pair);
-// otherwise true and the whole test's tt, op for op. c = [cx cy cz r].
-__device__ __forceinline__ bool stable_tt(float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float4 c, float seps, float& tt) {
-  const float opx = c.x - ox;
-  const float opy = c.y - oy;
-  const float opz = c.z - oz;
-  const float b = opx * dx + opy * dy + opz * dz;
-  const float fx = opx - b * dx;
-  const float fy = opy - b * dy;
-  const float fz = opz - b * dz;
-  const float pp = fx * fx + fy * fy + fz * fz;
-  const float sp = sqrtf(pp);
-  const float det = (c.w - sp) * (c.w + sp);
-  if (!(det >= 0.0f && c.w > 0.0f)) return false;
-  const float s = sqrtf(fmaxf(det, 0.0f));
-  const float opn = sqrtf(b * b + pp);
-  const float cc = (opn - c.w) * (opn + c.w);
-  const float denom = b + s;
-  const float t_near = denom > 0.0f ? cc / denom : -kBig;
-  tt = t_near > seps ? t_near : (denom > seps ? denom : kBig);
-  return true;
-}
-
-// lane.cuh::sphere_tt_fast with the miss decided first, as stable_tt:
-// false where det < 0 or NaN, or the radius is not positive, before the
-// square root and the roots; otherwise true and the whole test's tt. rr =
-// r * r, rounded once as there. c = [cx cy cz r].
-__device__ __forceinline__ bool direct_tt(float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float4 c, float rr, float seps,
-                                          float& tt) {
-  const float opx = c.x - ox;
-  const float opy = c.y - oy;
-  const float opz = c.z - oz;
-  const float b = opx * dx + opy * dy + opz * dz;
-  const float op2 = opx * opx + opy * opy + opz * opz;
-  const float det = b * b - op2 + rr;
-  if (!(det >= 0.0f && c.w > 0.0f)) return false;
-  const float s = sqrtf(fmaxf(det, 0.0f));
-  const float t0 = b - s;
-  const float t1 = b + s;
-  tt = t0 > seps ? t0 : (t1 > seps ? t1 : kBig);
-  return true;
-}
-
 __global__ void __launch_bounds__(kBlock)
     closest_hit_kernel(const float* __restrict__ org,
                        const float* __restrict__ dir,
@@ -150,21 +101,12 @@ __global__ void __launch_bounds__(kBlock)
   __shared__ float4 s_c[kChunk], s_e[kChunk];
   __shared__ int s_warp[4 * kWarps];
   __shared__ int s_last;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays];
   float bt[kRays];
   int bi[kRays];
+  load_rays<kBlock, kRays>(org, dir, n, ox, oy, oz, dx, dy, dz);
 #pragma unroll
   for (int j = 0; j < kRays; ++j) {
-    const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
-    // a ray past the last traces a finite dummy
-    const bool ray = i < n;
-    ox[j] = ray ? org[i] : 0.0f;
-    oy[j] = ray ? org[n + i] : 0.0f;
-    oz[j] = ray ? org[2 * n + i] : 0.0f;
-    dx[j] = ray ? dir[i] : 1.0f;
-    dy[j] = ray ? dir[n + i] : 0.0f;
-    dz[j] = ray ? dir[2 * n + i] : 0.0f;
     bt[j] = kBig;
     bi[j] = 0;
   }
@@ -172,46 +114,27 @@ __global__ void __launch_bounds__(kBlock)
   const int hi = min(n_rows, lo + range_rows);
   for (int base = lo; base < hi; base += kChunk) {
     // stage the chunk's live rows (r > 0) in table order, two rows a
-    // thread, their places from the warps' ballots; the part-A ones (slot
-    // < n_a) come first, m_a of them
-    bool live[2];
-    unsigned ball[2], ball_a[2];
+    // thread; the part-A ones (slot < n_a) come first, m_a of them
+    bool live[2], in_a[2];
     float4 c[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int k = base + h * kBlock + threadIdx.x;
       live[h] = false;
+      in_a[h] = k < n_a;
       if (k < hi) {
         c[h] = __ldg(rows + 2 * k);
         live[h] = c[h].w > 0.0f;
       }
-      ball[h] = __ballot_sync(0xffffffffu, live[h]);
-      ball_a[h] = __ballot_sync(0xffffffffu, live[h] && k < n_a);
     }
-    __syncthreads();  // the previous chunk's readers are done
-    if (lane == 0) {
-      s_warp[warp] = __popc(ball[0]);
-      s_warp[kWarps + warp] = __popc(ball[1]);
-      s_warp[2 * kWarps + warp] = __popc(ball_a[0]);
-      s_warp[3 * kWarps + warp] = __popc(ball_a[1]);
-    }
-    __syncthreads();
-    int m = 0, m_a = 0, off[2] = {0, 0};
-#pragma unroll
-    for (int e = 0; e < 2 * kWarps; ++e) {
-      if (e == warp) off[0] = m;
-      if (e == kWarps + warp) off[1] = m;
-      m += s_warp[e];
-      m_a += s_warp[2 * kWarps + e];
-    }
-    const unsigned below = (1u << lane) - 1u;
+    int at[2], m, m_a;
+    stage_places<kWarps>(live, in_a, s_warp, at, m, m_a);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (live[h]) {
         const int k = base + h * kBlock + threadIdx.x;
-        const int at = off[h] + __popc(ball[h] & below);
-        s_c[at] = c[h];
-        s_e[at] = make_float4(
+        s_c[at[h]] = c[h];
+        s_e[at[h]] = make_float4(
             __ldg(reinterpret_cast<const float*>(rows) + 8 * k + 4),
             c[h].w * c[h].w, __int_as_float(k), 0.0f);
       }
@@ -222,8 +145,8 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
       for (int j = 0; j < kRays; ++j) {
         float tt;
-        if (stable_tt(ox[j], oy[j], oz[j], dx[j], dy[j], dz[j], r, e.x,
-                      tt) &&
+        if (early_stable_tt(ox[j], oy[j], oz[j], dx[j], dy[j], dz[j], r, e.x,
+                            tt) &&
             tt < bt[j]) {
           bt[j] = tt;
           bi[j] = __float_as_int(e.z);
@@ -235,8 +158,8 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
       for (int j = 0; j < kRays; ++j) {
         float tt;
-        if (direct_tt(ox[j], oy[j], oz[j], dx[j], dy[j], dz[j], r, e.y, e.x,
-                      tt) &&
+        if (early_direct_tt(ox[j], oy[j], oz[j], dx[j], dy[j], dz[j], r, e.y,
+                            e.x, tt) &&
             tt < bt[j]) {
           bt[j] = tt;
           bi[j] = __float_as_int(e.z);
@@ -244,45 +167,15 @@ __global__ void __launch_bounds__(kBlock)
       }
     }
   }
-  if (gridDim.y == 1) {
+  float2 best[kRays];
 #pragma unroll
-    for (int j = 0; j < kRays; ++j) {
-      const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
-      if (i < n) {
-        t_out[i] = bt[j];
-        slot_out[i] = bi[j];
-      }
-    }
-    return;
-  }
-  // a range of several: this unit's partials, then the last unit of the
-  // ray block folds them all in range order
-#pragma unroll
-  for (int j = 0; j < kRays; ++j) {
-    const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
-    if (i < n)
-      part[(size_t)blockIdx.y * n + i] =
-          make_float2(bt[j], __int_as_float(bi[j]));
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(done + blockIdx.x, 1) == (int)gridDim.y - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-#pragma unroll
-  for (int j = 0; j < kRays; ++j) {
-    const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
-    if (i >= n) continue;
-    float2 best = __ldcg(part + i);
-    for (int r = 1; r < (int)gridDim.y; ++r) {
-      const float2 p = __ldcg(part + (size_t)r * n + i);
-      if (p.x < best.x) best = p;
-    }
-    t_out[i] = best.x;
-    slot_out[i] = __float_as_int(best.y);
-  }
+  for (int j = 0; j < kRays; ++j)
+    best[j] = make_float2(bt[j], __int_as_float(bi[j]));
+  finish_unit<kBlock, kRays>(best, part, done, n, &s_last,
+                             [=](int i, float2 b) {
+                               t_out[i] = b.x;
+                               slot_out[i] = __float_as_int(b.y);
+                             });
 }
 
 }  // namespace

@@ -47,7 +47,8 @@
 //   occupancy, read once a device) partly idle, the rows are cut into
 //   ranges of whole chunks, one unit (a block) a (ray block, range): the
 //   fewest ranges whose units run in full-row waves within 5% of the ideal
-//   (plan.cuh::make_plan, shared with K2). Each unit folds its rows in
+//   (plan.cuh::make_plan, shared with K2 and K5, as are the staging,
+//   stage_places, and the merge, finish_unit). Each unit folds its rows in
 //   order with the strict < from (3e38, row 0) and writes a partial (t,
 //   row, u, v) a ray; the last unit of a ray block to finish (a counter a
 //   ray block, zeroed on the stream before the launch) folds the partials
@@ -86,23 +87,14 @@ __global__ void __launch_bounds__(kBlock)
                        int range_rows, float eps) {
   __shared__ float4 s_a[kChunk], s_b[kChunk], s_c[kChunk];
   __shared__ int s_idx[kChunk];
-  __shared__ int s_warp[2 * kWarps];
+  __shared__ int s_warp[4 * kWarps];
   __shared__ int s_last;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays];
   float bt[kRays], bu[kRays], bv[kRays];
   int bi[kRays];
+  load_rays<kBlock, kRays>(org, dir, n, ox, oy, oz, dx, dy, dz);
 #pragma unroll
   for (int j = 0; j < kRays; ++j) {
-    const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
-    // a ray past the last traces a finite dummy
-    const bool ray = i < n;
-    ox[j] = ray ? org[i] : 0.0f;
-    oy[j] = ray ? org[n + i] : 0.0f;
-    oz[j] = ray ? org[2 * n + i] : 0.0f;
-    dx[j] = ray ? dir[i] : 1.0f;
-    dy[j] = ray ? dir[n + i] : 0.0f;
-    dz[j] = ray ? dir[2 * n + i] : 0.0f;
     bt[j] = kBig;
     bu[j] = 0.0f;
     bv[j] = 0.0f;
@@ -111,11 +103,11 @@ __global__ void __launch_bounds__(kBlock)
   const int lo = blockIdx.y * range_rows;
   const int hi = min(n_rows, lo + range_rows);
   for (int base = lo; base < hi; base += kChunk) {
-    // stage the chunk's live rows in row order, two rows a thread, their
-    // places from the warps' ballots; a row is live where it is valid and
-    // its n is not (0, 0, 0): with n = 0, dn is 0 (or NaN) for every ray
+    // stage the chunk's live rows in row order, two rows a thread; a row is
+    // live where it is valid and its n is not (0, 0, 0): with n = 0, dn is
+    // 0 (or NaN) for every ray
     bool live[2];
-    unsigned ball[2];
+    const bool one_class[2] = {false, false};
     float4 cn[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -127,31 +119,17 @@ __global__ void __launch_bounds__(kBlock)
             __ldg(reinterpret_cast<const float*>(rows + 4 * k + 3)) > 0.5f &&
             !(cn[h].y == 0.0f && cn[h].z == 0.0f && cn[h].w == 0.0f);
       }
-      ball[h] = __ballot_sync(0xffffffffu, live[h]);
     }
-    __syncthreads();  // the previous chunk's readers are done
-    if (lane == 0) {
-      s_warp[warp] = __popc(ball[0]);
-      s_warp[kWarps + warp] = __popc(ball[1]);
-    }
-    __syncthreads();
-    int m = 0, off[2] = {0, 0};
-#pragma unroll
-    for (int e = 0; e < 2 * kWarps; ++e) {
-      if (e == warp) off[0] = m;
-      if (e == kWarps + warp) off[1] = m;
-      m += s_warp[e];
-    }
-    const unsigned below = (1u << lane) - 1u;
+    int at[2], m, m_first;
+    stage_places<kWarps>(live, one_class, s_warp, at, m, m_first);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (live[h]) {
         const int k = base + h * kBlock + threadIdx.x;
-        const int at = off[h] + __popc(ball[h] & below);
-        s_a[at] = __ldg(rows + 4 * k);
-        s_b[at] = __ldg(rows + 4 * k + 1);
-        s_c[at] = cn[h];
-        s_idx[at] = k;
+        s_a[at[h]] = __ldg(rows + 4 * k);
+        s_b[at[h]] = __ldg(rows + 4 * k + 1);
+        s_c[at[h]] = cn[h];
+        s_idx[at[h]] = k;
       }
     }
     __syncthreads();
@@ -171,49 +149,17 @@ __global__ void __launch_bounds__(kBlock)
       }
     }
   }
-  if (gridDim.y == 1) {
+  float4 best[kRays];
 #pragma unroll
-    for (int j = 0; j < kRays; ++j) {
-      const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
-      if (i < n) {
-        t_out[i] = bt[j];
-        tri_out[i] = bi[j];
-        u_out[i] = bu[j];
-        v_out[i] = bv[j];
-      }
-    }
-    return;
-  }
-  // a range of several: this unit's partials, then the last unit of the
-  // ray block folds them all in range order
-#pragma unroll
-  for (int j = 0; j < kRays; ++j) {
-    const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
-    if (i < n)
-      part[(size_t)blockIdx.y * n + i] =
-          make_float4(bt[j], __int_as_float(bi[j]), bu[j], bv[j]);
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(done + blockIdx.x, 1) == (int)gridDim.y - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-#pragma unroll
-  for (int j = 0; j < kRays; ++j) {
-    const int i = blockIdx.x * kBlockRays + j * kBlock + threadIdx.x;
-    if (i >= n) continue;
-    float4 best = __ldcg(part + i);
-    for (int r = 1; r < (int)gridDim.y; ++r) {
-      const float4 p = __ldcg(part + (size_t)r * n + i);
-      if (p.x < best.x) best = p;
-    }
-    t_out[i] = best.x;
-    tri_out[i] = __float_as_int(best.y);
-    u_out[i] = best.z;
-    v_out[i] = best.w;
-  }
+  for (int j = 0; j < kRays; ++j)
+    best[j] = make_float4(bt[j], __int_as_float(bi[j]), bu[j], bv[j]);
+  finish_unit<kBlock, kRays>(best, part, done, n, &s_last,
+                             [=](int i, float4 b) {
+                               t_out[i] = b.x;
+                               tri_out[i] = __float_as_int(b.y);
+                               u_out[i] = b.z;
+                               v_out[i] = b.w;
+                             });
 }
 
 }  // namespace

@@ -1,7 +1,9 @@
 // Per-lane device code shared by the megakernel (megakernel.cu, K1), the
-// streaming DDA kernel (stream_dda.cu, K3) and the binned bounce
-// (stream_binned.cu, K8): the launch arguments, PCG4D and its uniforms, the
-// sphere test, camera regeneration, the BSDF and Russian roulette shade, the
+// streaming DDA kernel (stream_dda.cu, K3), the binned bounce
+// (stream_binned.cu, K8) and the closest-hit sweeps K2 (closest_hit.cu),
+// K4 (dda.cu) and K5 (closest_hit_mxu.cu): the launch arguments, PCG4D
+// and its uniforms, the sphere tests (whole, and with the miss decided
+// first), camera regeneration, the BSDF and Russian roulette shade, the
 // NEE cone sample and the UV AOV's polynomial trig. One copy of each formula
 // serves every kernel, as the JAX package's stream_dda.py mirrors
 // _mega_kernel line for line. Every function keeps the JAX kernels' op
@@ -205,6 +207,60 @@ __device__ __forceinline__ float sphere_tt_fast(float ox, float oy, float oz,
   const float t1 = b + s;
   const float tt = t0 > seps ? t0 : (t1 > seps ? t1 : kBig);
   return (det >= 0.0f && sr > 0.0f) ? tt : kBig;
+}
+
+// sphere_tt with the miss decided first: where det < 0 or NaN, or the
+// radius is not positive, it returns false before the two square roots and
+// the division that only a hit needs; otherwise true and the whole test's
+// tt, op for op. The whole test's 3e38 on a miss never goes below a fold's
+// best, which starts at 3e38, so a fold may skip the pair. c = [cx cy cz
+// r]. The closest-hit sweeps K2 (closest_hit.cu), K4 (dda.cu) and K5
+// (closest_hit_mxu.cu) and the DDA walk K3 (stream_dda.cu) call it.
+__device__ __forceinline__ bool early_stable_tt(float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float4 c, float seps,
+                                                float& tt) {
+  const float opx = c.x - ox;
+  const float opy = c.y - oy;
+  const float opz = c.z - oz;
+  const float b = opx * dx + opy * dy + opz * dz;
+  const float fx = opx - b * dx;
+  const float fy = opy - b * dy;
+  const float fz = opz - b * dz;
+  const float pp = fx * fx + fy * fy + fz * fz;
+  const float sp = sqrtf(pp);
+  const float det = (c.w - sp) * (c.w + sp);
+  if (!(det >= 0.0f && c.w > 0.0f)) return false;
+  const float s = sqrtf(fmaxf(det, 0.0f));
+  const float opn = sqrtf(b * b + pp);
+  const float cc = (opn - c.w) * (opn + c.w);
+  const float denom = b + s;
+  const float t_near = denom > 0.0f ? cc / denom : -kBig;
+  tt = t_near > seps ? t_near : (denom > seps ? denom : kBig);
+  return true;
+}
+
+// sphere_tt_fast with the miss decided first: false where det < 0 or NaN,
+// or the radius is not positive, before the square root and the roots;
+// otherwise true and the whole test's tt, op for op. rr = r * r, the one
+// rounding sphere_tt_fast takes (a caller may stage it once a row). c =
+// [cx cy cz r]. K2 and K4 call it.
+__device__ __forceinline__ bool early_direct_tt(float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float4 c, float rr,
+                                                float seps, float& tt) {
+  const float opx = c.x - ox;
+  const float opy = c.y - oy;
+  const float opz = c.z - oz;
+  const float b = opx * dx + opy * dy + opz * dz;
+  const float op2 = opx * opx + opy * opy + opz * opz;
+  const float det = b * b - op2 + rr;
+  if (!(det >= 0.0f && c.w > 0.0f)) return false;
+  const float s = sqrtf(fmaxf(det, 0.0f));
+  const float t0 = b - s;
+  const float t1 = b + s;
+  tt = t0 > seps ? t0 : (t1 > seps ? t1 : kBig);
+  return true;
 }
 
 // A pixel lane: its image coordinates and its streaming key word a.

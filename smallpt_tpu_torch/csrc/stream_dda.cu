@@ -49,12 +49,12 @@
 //   least id: the plain version's cell fold whatever the order. A slot's id
 //   (the (C, K, 8) cell table, as the plain version reads it) is read only
 //   where a thread's best changes or ties;
-// - an early miss in K3's own copy of the stable test (stable_tt; lane.cuh's
-//   sphere_tt, which K1 shares, keeps the JAX order): where !(det >= 0 &&
-//   r > 0) the slot is dropped before the square roots, the division and
-//   the fold's compare (the whole test gives 3e38 there, which never
-//   decides a fold: the running fold takes a cell's best only below 3e38).
-//   The always sweep takes the same copy;
+// - an early miss in lane.cuh's early_stable_tt, shared with K2, K4 and K5
+//   (lane.cuh's sphere_tt, which K1 shares, keeps the JAX order): where
+//   !(det >= 0 && r > 0) the slot is dropped before the square roots, the
+//   division and the fold's compare (the whole test gives 3e38 there,
+//   which never decides a fold: the running fold takes a cell's best only
+//   below 3e38). The always sweep takes the same test;
 // - the walk as its own loop: a walk step that does not end the walk does
 //   nothing else in its iteration, so the warp steps its walking lanes
 //   back to back (each step an iteration of its lane, up to the cap) until
@@ -156,34 +156,6 @@ struct Hot {
 struct Path {
   float wx, wy, wz, rx, ry, rz;
 };
-
-// lane.cuh::sphere_tt with the miss decided first (closest_hit.cu's
-// stable_tt): where det < 0 or NaN, or the radius is not positive, it
-// returns false before the two square roots and the division that only a
-// hit needs; otherwise true and the whole test's tt, op for op.
-// c = [cx cy cz r].
-__device__ __forceinline__ bool stable_tt(float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float4 c, float seps, float& tt) {
-  const float opx = c.x - ox;
-  const float opy = c.y - oy;
-  const float opz = c.z - oz;
-  const float b = opx * dx + opy * dy + opz * dz;
-  const float fx = opx - b * dx;
-  const float fy = opy - b * dy;
-  const float fz = opz - b * dz;
-  const float pp = fx * fx + fy * fy + fz * fz;
-  const float sp = sqrtf(pp);
-  const float det = (c.w - sp) * (c.w + sp);
-  if (!(det >= 0.0f && c.w > 0.0f)) return false;
-  const float s = sqrtf(fmaxf(det, 0.0f));
-  const float opn = sqrtf(b * b + pp);
-  const float cc = (opn - c.w) * (opn + c.w);
-  const float denom = b + s;
-  const float t_near = denom > 0.0f ? cc / denom : -kBig;
-  tt = t_near > seps ? t_near : (denom > seps ? denom : kBig);
-  return true;
-}
 
 // One axis of the grid clip (stream_dda.py's axis_clip): the entry and exit
 // t of the slab [g0, g1], and the direction kept off zero.
@@ -328,9 +300,9 @@ __device__ __forceinline__ void sweep_cells(const Launch& L, const Grid& g,
 #pragma unroll
       for (int j = 0; j < kWalkers; ++j) {
         float tt;
-        if (q >= cnt[j] || !stable_tt(ray[j][0], ray[j][1], ray[j][2],
-                                      ray[j][3], ray[j][4], ray[j][5], c[j],
-                                      g.eps, tt))
+        if (q >= cnt[j] ||
+            !early_stable_tt(ray[j][0], ray[j][1], ray[j][2], ray[j][3],
+                             ray[j][4], ray[j][5], c[j], g.eps, tt))
           continue;
         // the slot's id, in the cell table after its [cx cy cz r]
         const float* id = L.cells + ((gq[j] - L.geom) + q) * kSlot + 4;
@@ -553,8 +525,8 @@ __device__ __forceinline__ bool init_walk(const Launch& L, const Grid& g,
     const float4 c = make_float4(smem[s], smem[na + s], smem[2 * na + s],
                                  smem[3 * na + s]);
     float tt;
-    if (!stable_tt(h.ox, h.oy, h.oz, idx, idy, idz, c, smem[4 * na + s],
-                   tt))
+    if (!early_stable_tt(h.ox, h.oy, h.oz, idx, idy, idz, c,
+                         smem[4 * na + s], tt))
       continue;
     const float sid = smem[5 * na + s];
     if (tt < kBig && (tt < abt || (tt == abt && sid < abid))) {

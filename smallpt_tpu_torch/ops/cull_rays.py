@@ -22,7 +22,10 @@ float32 numpy, of one kind:
 - "one_lane_misses": every ray hits near the first local chunk's box but
   ray 37, which starts outside the room and points away.
 ``table`` is the mesh's brute table (mesh_pallas.build_tri_table), on the
-device the surface kinds' first hits are found on (closest_tri)."""
+device the surface kinds' first hits are found on (closest_tri).
+
+``rotated_ball_mesh`` builds a mesh whose triangles share no normals, the
+case K7's normal cones are at their weakest on."""
 
 from __future__ import annotations
 
@@ -37,6 +40,35 @@ ROOM_LO, ROOM_HI = (5, 5, 25), (95, 75, 145)
 
 def _unit(d):
     return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def rotated_ball_mesh(n_balls: int = 12, seed: int = 0,
+                      subdiv_longitude: int = 4):
+    """A MeshScene of n_balls lat/long balls (core/scene.py::
+    make_sphere_tri_mesh at the origin, radius 2 to 6) placed through
+    core/scene.py::make_instanced_mesh_scene, each turned by its own
+    random rotation and moved into the room: unlike procedural_mesh_scene's
+    balls, whose copies share their normals, no two balls share one, so
+    graze_cones finds a cone for about every few rows."""
+    from smallpt_tpu_torch.core.scene import (
+        make_instanced_mesh_scene, make_sphere_tri_mesh,
+    )
+
+    r = np.random.default_rng(seed)
+    instances = []
+    for _ in range(n_balls):
+        q, rr = np.linalg.qr(r.normal(size=(3, 3)))
+        q = q * np.sign(np.diag(rr))[None, :]
+        if np.linalg.det(q) < 0:
+            q[:, 0] = -q[:, 0]
+        t34 = np.concatenate([q, r.uniform(ROOM_LO, ROOM_HI)[:, None]],
+                             axis=1)
+        p, nn, t = make_sphere_tri_mesh((0.0, 0.0, 0.0),
+                                        float(r.uniform(2.0, 6.0)),
+                                        subdiv_longitude)
+        instances.append((p, nn, t, t34, ((0, 0, 0), tuple(
+            r.uniform(0.2, 0.9, 3)), 0)))
+    return make_instanced_mesh_scene(instances)
 
 
 def local_boxes(accel):

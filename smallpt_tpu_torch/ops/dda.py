@@ -25,6 +25,10 @@ layout K3 reads), filled from the front and padded with r = 0, id = 3e38;
 its values equal the JAX split's sum, field f of slot q of cell c at
 ``cells3.sum(0)[f * K + q, c]``.
 
+Two tables derived once a grid from ``cells`` serve the kernel's warp
+sweep of a cell (``slot_tables``, shared with K3): each cell's count of
+filled slots and each slot's [cx cy cz r].
+
 ``closest_hit_dda`` launches K4 on a CUDA tensor (and counts the launch in
 ``closest_hit_dda.launches``) or raises; on a CPU tensor it runs
 ``closest_hit_dda_plain``, the same function in the kernel's op order.
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -125,6 +130,19 @@ def bin_local_spheres(c: np.ndarray, r: np.ndarray, lids: np.ndarray,
     return nb, ext_lo, cell, cells, k, sorted(overflow_ids)
 
 
+def slot_tables(cells: torch.Tensor):
+    """(slot_count (C,) int32, slot_geom (C, K, 4) f32) of a (C, K, 8) cell
+    table, on its device: the filled slots of each cell (id below 3e38)
+    and each slot's [cx cy cz r]. Raises unless every cell's slots fill
+    from the front, as bin_local_spheres fills them."""
+    filled = cells[..., 4] < _BIGID
+    count = filled.sum(dim=1, dtype=torch.int32)
+    slot = torch.arange(cells.shape[1], device=cells.device)
+    if not torch.equal(filled, slot[None, :] < count[:, None]):
+        raise ValueError("every cell's slots must fill from the front")
+    return count, cells[..., :4].contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class DDAGrid:
     """The tables of K4 for one sphere scene, on one device."""
@@ -149,6 +167,12 @@ class DDAGrid:
     @property
     def device(self) -> torch.device:
         return self.cells.device
+
+    @functools.cached_property
+    def slots(self) -> tuple:
+        """``slot_tables(cells)``: (slot_count (C,) int32, slot_geom (C, K,
+        4) f32), derived once a grid."""
+        return slot_tables(self.cells)
 
 
 def build_dda_grid(scene: SphereScene, occ_target: float = 24.0,
@@ -207,14 +231,39 @@ def _launch_args(grid: DDAGrid, n: int):
 
 
 def _kernel_lib():
-    """The entry point of the K4 library (built at first use)."""
+    """The entry points of the K4 library (built at first use): the launch
+    and its first wave."""
     from smallpt_tpu_torch.utils.nvcc import load_library
 
-    fn = load_library(*LIBRARY).smallpt_dda
+    lib = load_library(*LIBRARY)
+    fn, plan = lib.smallpt_dda, lib.smallpt_dda_plan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10
+        fn.argtypes = [ctypes.c_void_p] * 13
         fn.restype = ctypes.c_int
-    return fn
+        plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        plan.restype = ctypes.c_int
+    return fn, plan
+
+
+# the fields of K4's launch (csrc/dda.cu::smallpt_dda_plan) and of its
+# scratch after a launch (the queue's counter past the first wave, the rays
+# finished, the walk steps and the slots tested)
+PLAN_FIELDS = ("blocks", "threads", "n_sm", "per_sm")
+QUEUE_FIELDS = ("next", "rays", "walk_steps", "slot_tests")
+
+
+def dda_plan(n: int, device=None) -> dict:
+    """The launch K4 makes on a CUDA device (None: the current one) for n
+    rays: its first wave's blocks and threads (at most the blocks the card
+    holds at once) and the card's SMs and the kernel's blocks an SM;
+    PLAN_FIELDS -> int."""
+    device = torch.device("cuda" if device is None else device)
+    out = np.zeros(len(PLAN_FIELDS), np.int64)
+    with torch.cuda.device(device):
+        err = _kernel_lib()[1](int(n), out.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"smallpt_dda_plan: CUDA error {err}")
+    return dict(zip(PLAN_FIELDS, (int(x) for x in out)))
 
 
 def _check_grid(org, dirs, grid: DDAGrid) -> int:
@@ -247,25 +296,39 @@ def closest_hit_dda(org: torch.Tensor, dirs: torch.Tensor, grid: DDAGrid):
     part A), 0 on a miss — as the JAX kernel returns them.
 
     A CUDA tensor launches csrc/dda.cu (and counts the launch in
-    ``closest_hit_dda.launches``); a CPU tensor runs
-    ``closest_hit_dda_plain``."""
-    n = _check_grid(org, dirs, grid)
+    ``closest_hit_dda.launches``), which refuses a negative eps_local; a
+    CPU tensor runs ``closest_hit_dda_plain``."""
+    _check_grid(org, dirs, grid)
     if grid.device.type == "cpu":
         return closest_hit_dda_plain(org, dirs, grid)
-    fn = _kernel_lib()
-    t = torch.empty((n,), dtype=torch.float32, device=grid.device)
-    code = torch.empty((n,), dtype=torch.int32, device=grid.device)
+    t, code, _ = _launch(org, dirs, grid)
+    closest_hit_dda.launches += 1
+    return t, code
+
+
+def _launch(org, dirs, grid: DDAGrid):
+    """closest_hit_dda's launch of K4 on checked CUDA arguments, uncounted:
+    (t, code, queue), queue the launch's (4,) int64 scratch
+    (QUEUE_FIELDS), read after the launch."""
+    fn = _kernel_lib()[0]
+    n = org.shape[1]
+    dev = grid.device
+    count, geom = grid.slots
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    code = torch.empty((n,), dtype=torch.int32, device=dev)
+    # zeroed by the launcher on the stream
+    queue = torch.empty((len(QUEUE_FIELDS),), dtype=torch.int64, device=dev)
     ints, floats = _launch_args(grid, n)
-    with torch.cuda.device(grid.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(org.data_ptr(), dirs.data_ptr(), grid.part_a.data_ptr(),
                  grid.overflow.data_ptr(), grid.cells.data_ptr(),
-                 t.data_ptr(), code.data_ptr(), ints.ctypes.data,
+                 geom.data_ptr(), count.data_ptr(), t.data_ptr(),
+                 code.data_ptr(), queue.data_ptr(), ints.ctypes.data,
                  floats.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(f"closest_hit_dda launch failed: CUDA error {err}")
-    closest_hit_dda.launches += 1
-    return t, code
+    return t, code, queue
 
 
 closest_hit_dda.launches = 0
@@ -279,6 +342,28 @@ def _fold_lex(tt, ids, bt, bid):
     idc = torch.where(tt <= m[:, None], ids, _BIGID).min(dim=1).values
     upd = (m < _BIG) & ((m < bt) | ((m == bt) & (idc < bid)))
     return torch.where(upd, m, bt), torch.where(upd, idc, bid)
+
+
+def _past_det(lane, cols, stable: bool):
+    """Where an early-miss test of the pairs (lane: six (n, 1) tensors;
+    cols: [cx cy cz r] broadcastable against them) goes on past its det
+    test: det >= 0 and r > 0, det in the stable form or the direct
+    quadratic, op for op as there."""
+    ox, oy, oz, dx, dy, dz = lane
+    cx, cy, cz, r = cols
+    opx = cx - ox
+    opy = cy - oy
+    opz = cz - oz
+    b = opx * dx + opy * dy + opz * dz
+    if stable:
+        fx = opx - b * dx
+        fy = opy - b * dy
+        fz = opz - b * dz
+        sp = torch.sqrt(fx * fx + fy * fy + fz * fz)
+        det = (r - sp) * (r + sp)
+    else:
+        det = b * b - (opx * opx + opy * opy + opz * opz) + r * r
+    return (det >= 0.0) & (r > 0.0)
 
 
 def _trace_plain(org, dirs, grid: DDAGrid, counts):
@@ -362,7 +447,11 @@ def _trace_plain(org, dirs, grid: DDAGrid, counts):
         btb[idx], bidb[idx] = b_t, b_i
         steps[idx] += 1
         if counts is not None:
-            counts["slot_tests"] += int((slots[..., 4] < _BIGID).sum())
+            filled = slots[..., 4] < _BIGID
+            counts["slot_tests"] += int(filled.sum())
+            counts["slot_past_det"] += int((filled & _past_det(
+                [v[idx] for v in lane], slots[..., :4].unbind(-1),
+                False)).sum())
         tx, ty, tz = (t_[idx] for t_ in tm)
         t_exit = torch.minimum(torch.minimum(tx, ty), tz)
         done = torch.minimum(bta[idx], b_t) <= t_exit
@@ -384,6 +473,10 @@ def _trace_plain(org, dirs, grid: DDAGrid, counts):
         counts["max_steps"] = max(counts["max_steps"], int(steps.max()))
         counts["part_a_tests"] += n * int((pa[:, 3] > 0).sum())
         counts["overflow_tests"] += n * int((of[:, 3] > 0).sum())
+        counts["part_a_past_det"] += int(_past_det(
+            lane, pa[:, :4][None].unbind(-1), True).sum())
+        counts["overflow_past_det"] += int(_past_det(
+            lane, of[:, :4][None].unbind(-1), False).sum())
     a_wins = bta <= btb
     best = torch.where(a_wins, bta, btb)
     code = torch.where(best >= _BIG, 0,
@@ -402,12 +495,15 @@ def closest_hit_dda_plain(org: torch.Tensor, dirs: torch.Tensor,
     counts: None, or a dict that gains "rays", "walk_steps" (cells the
     rays tested), "max_steps" (the most one ray tested), "slot_tests"
     (sphere tests in those cells, their empty slots not counted),
-    "part_a_tests" and "overflow_tests" (live rows swept by every ray):
+    "part_a_tests" and "overflow_tests" (live rows swept by every ray),
+    and "slot_past_det", "part_a_past_det" and "overflow_past_det" (the
+    pairs of each that the kernel's early-miss tests take on past det):
     the work of the run, for the kernel's bound."""
     n = _check_grid(org, dirs, grid)
     if counts is not None:
         for k in ("rays", "walk_steps", "slot_tests", "part_a_tests",
-                  "overflow_tests", "max_steps"):
+                  "overflow_tests", "max_steps", "slot_past_det",
+                  "part_a_past_det", "overflow_past_det"):
             counts.setdefault(k, 0)
     out = [_trace_plain(org[:, s:s + 65536], dirs[:, s:s + 65536], grid,
                         counts) for s in range(0, n, 65536)]

@@ -31,8 +31,9 @@ K5, the JAX package's MXU-assisted sweep (``_intersect_kernel_mxu``),
 becomes csrc/closest_hit_mxu.cu: ``build_sphere_table_mxu`` packs the
 small spheres as two 8-float coefficient rows each, in a frame recentred
 at their centroid; ``closest_hit_mxu`` launches K5 (counted in
-``closest_hit_mxu.launches``) or runs ``closest_hit_mxu_plain`` on a CPU
-tensor; ``intersect_spheres_mxu`` is the drop-in that refines K5's winner
+``closest_hit_mxu.launches``) on scratch of the size of its cut of the
+slots (``closest_hit_mxu_plan``, K2's rule) or runs
+``closest_hit_mxu_plain`` on a CPU tensor; ``intersect_spheres_mxu`` is the drop-in that refines K5's winner
 with ``_replay_winner`` in the unshifted frame.
 """
 
@@ -529,14 +530,34 @@ def build_sphere_table_mxu(scene: SphereScene, eps: float = 1e-4,
 
 
 def _mxu_lib():
-    """The entry point of the K5 library (built at first use)."""
+    """The entry points of the K5 library (built at first use): the launch
+    and its plan."""
     from smallpt_tpu_torch.utils.nvcc import load_library
 
-    fn = load_library(*LIBRARY_MXU).smallpt_closest_hit_mxu
+    lib = load_library(*LIBRARY_MXU)
+    fn, plan = lib.smallpt_closest_hit_mxu, lib.smallpt_closest_hit_mxu_plan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9
+        fn.argtypes = [ctypes.c_void_p] * 10
         fn.restype = ctypes.c_int
-    return fn
+        plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        plan.restype = ctypes.c_int
+    return fn, plan
+
+
+def closest_hit_mxu_plan(n: int, n_slots: int, device=None) -> dict:
+    """The cut K5 makes of a launch of n rays over n_slots slots (n_a +
+    n_b) on a CUDA device (None: the current one), as its launcher makes
+    it (csrc/plan.cuh, K2's rule): PLAN_FIELDS -> int."""
+    device = torch.device("cuda" if device is None else device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return dict(_mxu_plan(int(n), int(n_slots), device))
+
+
+@functools.lru_cache(maxsize=4096)
+def _mxu_plan(n: int, n_slots: int, device: torch.device) -> tuple:
+    """closest_hit_mxu_plan's items, asked of the library once a shape."""
+    return tuple(read_plan(_mxu_lib()[1], device, n, n_slots, 0).items())
 
 
 def closest_hit_mxu(org_c: torch.Tensor, dirs: torch.Tensor,
@@ -554,9 +575,10 @@ def closest_hit_mxu(org_c: torch.Tensor, dirs: torch.Tensor,
     them.
 
     A CUDA tensor launches csrc/closest_hit_mxu.cu (and counts the launch
-    in ``closest_hit_mxu.launches``); a CPU tensor runs
+    in ``closest_hit_mxu.launches``), on scratch of its plan's size
+    (``closest_hit_mxu_plan``); a CPU tensor runs
     ``closest_hit_mxu_plain``."""
-    n = _check_rays(org_c, dirs, stable_tbl, 8)
+    _check_rays(org_c, dirs, stable_tbl, 8)
     _check_rays(org_c, dirs, mxu_tbl, 8)
     if not (0 <= n_a <= stable_tbl.shape[0] and 0 <= n_b
             and n_b % _S_CHUNK == 0 and 2 * n_b <= mxu_tbl.shape[0]):
@@ -565,67 +587,98 @@ def closest_hit_mxu(org_c: torch.Tensor, dirs: torch.Tensor,
     if stable_tbl.device.type == "cpu":
         return closest_hit_mxu_plain(org_c, dirs, stable_tbl, mxu_tbl, n_a,
                                      n_b, eps_small)
-    fn = _mxu_lib()
-    t = torch.empty((n,), dtype=torch.float32, device=stable_tbl.device)
-    slot = torch.empty((n,), dtype=torch.int32, device=stable_tbl.device)
-    ints = np.array([n, n_a, n_b], np.int32)
+    out = _mxu_launch(org_c, dirs, stable_tbl, mxu_tbl, n_a, n_b, eps_small)
+    closest_hit_mxu.launches += 1
+    return out
+
+
+def _mxu_launch(org_c, dirs, stable_tbl, mxu_tbl, n_a: int, n_b: int,
+                eps_small: float, forced: int = 0):
+    """closest_hit_mxu's launch of K5 on checked CUDA arguments, uncounted.
+    forced > 0 cuts the slots into that many ranges in place of the plan's
+    own cut, which changes no bit of the result (chip_smoke.py checks the
+    merge so)."""
+    fn, plan = _mxu_lib()
+    dev, n = stable_tbl.device, org_c.shape[1]
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    words = (read_plan(plan, dev, n, n_a + n_b, forced) if forced else
+             closest_hit_mxu_plan(n, n_a + n_b, dev))["scratch_words"]
+    if words >= 2 ** 31:
+        raise ValueError(f"{n} rays over {n_a + n_b} slots need {words} "
+                         "words of scratch")
+    # the partials and counters of a cut launch, written before they are
+    # read; an uncut launch takes none
+    scratch = (torch.empty((words,), dtype=torch.int32, device=dev)
+               if words else None)
+    ints = np.array([n, n_a, n_b, words, forced], np.int32)
     eps = np.array([eps_small], np.float32)
-    with torch.cuda.device(stable_tbl.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(org_c.data_ptr(), dirs.data_ptr(), stable_tbl.data_ptr(),
                  mxu_tbl.data_ptr(), t.data_ptr(), slot.data_ptr(),
+                 0 if scratch is None else scratch.data_ptr(),
                  ints.ctypes.data, eps.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(f"closest_hit_mxu launch failed: CUDA error {err}")
-    closest_hit_mxu.launches += 1
     return t, slot
 
 
 closest_hit_mxu.launches = 0
 
 
-def _dot8(rows, feats):
-    """rows (M, 8) . feats (8 planes, each (N, 1)) -> (N, M), the eight
-    products summed left to right, zero terms included (K5's dot8)."""
-    p = rows[None, :, 0] * feats[0]
-    for k in range(1, 8):
-        p = p + rows[None, :, k] * feats[k]
-    return p
+def mxu_live_rows(mxu_tbl: torch.Tensor, n_b: int):
+    """The small class of an MXU table as K5 stages it: (live (L,) int64,
+    the small spheres whose det row has a non-zero column 7 (masked rows,
+    the big spheres and the padding, carry a 0 there), in order; coef (L,
+    7) f32, each live sphere's non-zero coefficients [cx cy cz 2cx 2cy 2cz
+    -q] as the table holds them)."""
+    chunks = mxu_tbl[:2 * n_b].view(-1, 2, _S_CHUNK, 8)
+    row1 = chunks[:, 0].reshape(-1, 8)
+    row2 = chunks[:, 1].reshape(-1, 8)
+    live = torch.nonzero(row2[:, 7] != 0.0)[:, 0]
+    coef = torch.cat([row1[live, 0:3], row2[live, 3:7]], dim=1)
+    return live, coef
 
 
 def closest_hit_mxu_plain(org_c, dirs, stable_tbl, mxu_tbl, n_a: int,
                           n_b: int, eps_small: float):
     """The plain PyTorch version of K5, in the kernel's op order: part A
-    is K2's plain stable sweep over stable_tbl's first n_a rows; each small
-    sphere's b = row1 . F - od and det = b * b + row2 . F, F = [dx dy dz
-    ox oy oz 1 oo], od = o . d, oo = o . o, s = sqrt(det) (NaN below 0, so
-    both root compares fail), the roots b - s and b + s against eps_small.
-    The two sweeps fold as one strict-< fold over the slots in order.
-    Returns (t, slot) as ``closest_hit_mxu``."""
+    is K2's plain stable sweep over stable_tbl's first n_a rows; each live
+    small sphere (``mxu_live_rows``; a masked row is left out) takes b =
+    ((cx dx + cy dy) + cz dz) - od, e = (((2cx ox + 2cy oy) + 2cz oz) +
+    (-q)) - oo, od = o . d and oo = o . o summed left to right, det = b b
+    + e, s = sqrt(det) (NaN below 0, so both root compares fail), the roots
+    b - s and b + s against eps_small. The two sweeps fold as one strict-<
+    fold over the slots in order. Returns (t, slot) as
+    ``closest_hit_mxu``."""
     n = org_c.shape[1]
     t_a, slot_a = closest_hit_plain(org_c, dirs, stable_tbl, n_a, 0)
     ox, oy, oz = (v[:, None] for v in org_c)
     dx, dy, dz = (v[:, None] for v in dirs)
     od = (ox * dx + oy * dy) + oz * dz
     oo = (ox * ox + oy * oy) + oz * oz
-    feats = (dx, dy, dz, ox, oy, oz, torch.ones_like(ox), oo)
-    chunks = mxu_tbl[:2 * n_b].view(-1, 2, _S_CHUNK, 8)
-    row1 = chunks[:, 0].reshape(-1, 8)
-    row2 = chunks[:, 1].reshape(-1, 8)
+    live, coef = mxu_live_rows(mxu_tbl, n_b)
     eps = float(np.float32(eps_small))
 
     def candidates(lo, hi):
-        b = _dot8(row1[lo:hi], feats) - od
-        det = b * b + _dot8(row2[lo:hi], feats)
+        cx, cy, cz, tx, ty, tz, nq = (coef[lo:hi, k][None, :]
+                                      for k in range(7))
+        b = cx * dx + cy * dy + cz * dz - od
+        e = tx * ox + ty * oy + tz * oz + nq - oo
+        det = b * b + e
         s_ = torch.sqrt(det)
         t0 = b - s_
         t1 = b + s_
         return (torch.where(t0 > eps, t0, torch.where(t1 > eps, t1, _BIG)),)
 
-    t_b, i_b = fold_rows(n, org_c.device, n_b, _chunk_rows(n), candidates)
+    t_b, i_b = fold_rows(n, org_c.device, live.shape[0], _chunk_rows(n),
+                         candidates)
     better = t_b < t_a
+    slot_b = (live.to(torch.int32)[i_b.long()] if live.numel()
+              else i_b) + n_a
     return (torch.where(better, t_b, t_a),
-            torch.where(better, i_b + n_a, slot_a))
+            torch.where(better, slot_b, slot_a))
 
 
 def intersect_spheres_mxu(org, dirs, scene: SphereScene, eps: float = 1e-4,
@@ -644,8 +697,8 @@ def intersect_spheres_mxu(org, dirs, scene: SphereScene, eps: float = 1e-4,
 
     precision is the JAX signature's matmul precision. The port computes
     in float32 whatever its value, as the JAX package's DEFAULT and
-    HIGHEST both do on the CPU; a TF32 tensor-core variant, the analog of
-    DEFAULT on a TPU, is speed work for later."""
+    HIGHEST both do on the CPU; the tensor cores, the analog of DEFAULT on
+    a TPU, are left out (csrc/closest_hit_mxu.cu's header says why)."""
     del precision
     if tables is None:
         tables = build_sphere_table_mxu(scene, eps=eps, eps_rel=eps_rel,

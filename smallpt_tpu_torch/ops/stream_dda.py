@@ -68,7 +68,9 @@ from smallpt_tpu_torch.config import Mode, RenderConfig
 from smallpt_tpu_torch.core import rng as prng
 from smallpt_tpu_torch.core.scene import SphereScene
 from smallpt_tpu_torch.ops import megakernel as mk
-from smallpt_tpu_torch.ops.dda import MAX_AXIS_CELLS, bin_local_spheres
+from smallpt_tpu_torch.ops.dda import (
+    MAX_AXIS_CELLS, bin_local_spheres, slot_tables,
+)
 from smallpt_tpu_torch.utils.device import resolve_device
 
 # The radius from which a sphere is wall-class: swept by every ray from the
@@ -137,19 +139,6 @@ class StreamDDATables:
     @property
     def device(self) -> torch.device:
         return self.cells.device
-
-
-def slot_tables(cells: torch.Tensor):
-    """(slot_count (C,) int32, slot_geom (C, K, 4) f32) of a (C, K, 8) cell
-    table, on its device: the filled slots of each cell (id below 3e38)
-    and each slot's [cx cy cz r]. Raises unless every cell's slots fill
-    from the front, as bin_local_spheres fills them."""
-    filled = cells[..., 4] < _BIGID
-    count = filled.sum(dim=1, dtype=torch.int32)
-    slot = torch.arange(cells.shape[1], device=cells.device)
-    if not torch.equal(filled, slot[None, :] < count[:, None]):
-        raise ValueError("every cell's slots must fill from the front")
-    return count, cells[..., :4].contiguous()
 
 
 def build_stream_dda_tables(scene: SphereScene, config: RenderConfig,

@@ -81,7 +81,7 @@ def _bits(x):
 
 
 def early_tt(lane, c, eps):
-    """The kernel's stable_tt: the stable form to det, then, only where det
+    """lane.cuh::early_stable_tt: the stable form to det, then, only where det
     >= 0 and r > 0, the rest of the test; (go, tt) with tt 3e38 where it
     has returned. lane: six (n,) tensors; c: four (n,) tensors."""
     ox, oy, oz, dx, dy, dz = lane

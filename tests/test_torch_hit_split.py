@@ -79,7 +79,7 @@ def _nan_past(go, x):
 
 
 def stable_tt(lane, cols):
-    """The kernel's stable_tt: the stable form to det, 3e38 unless det >= 0
+    """lane.cuh::early_stable_tt: the stable form to det, 3e38 unless det >= 0
     and r > 0, the rest of the test only past that; (go, tt)."""
     ox, oy, oz, dx, dy, dz = lane
     cx, cy, cz, r, eps = cols
@@ -108,7 +108,7 @@ def stable_tt(lane, cols):
 
 
 def direct_tt(lane, cols, rr):
-    """The kernel's direct_tt: the direct quadratic to det (rr = r * r, one
+    """lane.cuh::early_direct_tt: the direct quadratic to det (rr = r * r, one
     rounding a row), 3e38 unless det >= 0 and r > 0, the roots only past
     that; (go, tt)."""
     ox, oy, oz, dx, dy, dz = lane

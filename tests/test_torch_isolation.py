@@ -131,7 +131,9 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     bfn = types.SimpleNamespace(argtypes=None, restype=None)
     bwfn = types.SimpleNamespace(argtypes=None, restype=None)
     kfn = types.SimpleNamespace(argtypes=None, restype=None)
+    kpfn = types.SimpleNamespace(argtypes=None, restype=None)
     xfn = types.SimpleNamespace(argtypes=None, restype=None)
+    xpfn = types.SimpleNamespace(argtypes=None, restype=None)
     monkeypatch.setattr(nvcc, "load_library",
                         lambda name, src: types.SimpleNamespace(
                             smallpt_mega_pass=fn, smallpt_mega_plan=mpfn,
@@ -146,8 +148,9 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
                             smallpt_closest_tri_culled=cfn,
                             smallpt_stream_binned=bfn,
                             smallpt_stream_binned_scratch_words=bwfn,
-                            smallpt_dda=kfn,
-                            smallpt_closest_hit_mxu=xfn))
+                            smallpt_dda=kfn, smallpt_dda_plan=kpfn,
+                            smallpt_closest_hit_mxu=xfn,
+                            smallpt_closest_hit_mxu_plan=xpfn))
     assert mk._kernel_lib() is fn
     assert fn.argtypes == [ctypes.c_void_p] * 8
     assert fn.restype is ctypes.c_int
@@ -183,12 +186,16 @@ def test_kernel_binding_sets_pointer_argtypes(monkeypatch):
     assert bfn.restype is ctypes.c_int
     assert bwfn.argtypes == [ctypes.c_int, ctypes.c_int]
     assert bwfn.restype is ctypes.c_longlong
-    assert dda._kernel_lib() is kfn
-    assert kfn.argtypes == [ctypes.c_void_p] * 10
+    assert dda._kernel_lib() == (kfn, kpfn)
+    assert kfn.argtypes == [ctypes.c_void_p] * 13
     assert kfn.restype is ctypes.c_int
-    assert ip._mxu_lib() is xfn
-    assert xfn.argtypes == [ctypes.c_void_p] * 9
+    assert kpfn.argtypes == [ctypes.c_int, ctypes.c_void_p]
+    assert kpfn.restype is ctypes.c_int
+    assert ip._mxu_lib() == (xfn, xpfn)
+    assert xfn.argtypes == [ctypes.c_void_p] * 10
     assert xfn.restype is ctypes.c_int
+    assert xpfn.argtypes == [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    assert xpfn.restype is ctypes.c_int
 
 
 def test_build_key_covers_included_headers(monkeypatch, tmp_path):

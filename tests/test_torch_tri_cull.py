@@ -26,7 +26,10 @@ line far from the sliver hit it there, away from its chunk's box: the
 sweep finds those hits as the brute sweep does. The chunk box table
 (chunk_boxes) holds its rows and lists the slivers, the cones
 (graze_cones) hold every live local row but the slivers once, and the
-wrapper checks its box and cone arguments.
+wrapper checks its box and cone arguments. On a mesh whose triangles share
+no normals (ops/cull_rays.py::rotated_ball_mesh, randomly rotated
+instances), where the cones are many, the cull and the sweep pass the same
+gates on every kind of ray.
 """
 
 import numpy as np
@@ -338,6 +341,34 @@ def test_cones_hold_each_live_row_once(mesh):
     got = mp.graze_cones(acc.table, acc.n_glob_chunks)
     assert torch.equal(got[0], acc.cones)
     assert torch.equal(got[1], acc.cone_rows)
+
+
+@pytest.fixture(scope="module")
+def rotated():
+    scene = cr.rotated_ball_mesh()
+    return scene, ma.build_mesh_grid_accel(scene), mp.build_tri_table(scene)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_rotated_instances_share_no_cones(rotated, kind):
+    """A mesh whose triangles share no normals (12 balls placed by
+    make_instanced_mesh_scene, each turned by its own random rotation):
+    graze_cones finds a cone for every two rows or so, where the 60-ball
+    mesh's copies share theirs; the cull still drops no candidate at or
+    below a lane's winner, and the group sweep equals the brute sweep bit
+    for bit, on every kind of ray."""
+    scene, acc, brute = rotated
+    assert acc.cones.shape[0] * 2 >= acc.table.shape[0] - acc.slivers.numel()
+    o, d = _rays(kind, acc, brute, seed=40 + KINDS.index(kind), n=256)
+    dropped, _, _, _ = _culled(o, d, acc, brute)
+    assert not bool(dropped.any())
+    got, _, want, _ = _sweep(o, d, acc, brute, full=kind == "nan_inf")
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    hit = want[0] < BIG
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g[hit].numpy(), w[hit].numpy())
+    if kind in ("random", "grazing"):
+        assert bool(hit.any())
 
 
 def test_culled_wrapper_checks_its_boxes(mesh):

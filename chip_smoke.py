@@ -152,7 +152,17 @@ the main paths through the kernels and times them:
   s); ShardedBinnedRenderer on 10,000 spheres at 512x384 bit-equal to
   n_streams=2; the config-4 sharded replay step's gradients against the
   single-device step; then two gloo ranks spawned on the card, the MEGA
-  image of each against the single pass.
+  image of each against the single pass;
+- the main paths at full width against the port's f64 oracle
+  (smallpt_tpu_torch/oracle/numpy_oracle.py, oracle_phases), one frame at
+  1 spp, max_depth 12, key 21 each, under the JAX suite's oracle gates
+  (tests/test_golden.py:111-172) on a stratified pixel subsample: render's
+  per-pass megakernel (K1a) and StreamingRenderer (K1c, without and with
+  NEE) on the Cornell box at 1024x768; render's binned drain (K8) on
+  procedural_sphere_scene(2100, seed=7), StreamingRenderer's DDA route
+  (K3) and REGEN (K2) on procedural_sphere_scene(10000), at 512x384; FLAT
+  through K6, then K7, on procedural_mesh_scene(500) at 256x192; and the
+  oracle's uniforms drawn on the card, bit-equal to the CPU's.
 The megakernel's branches that the main paths do not take (thin lens,
 environment light, two NEE lights, row bands and sample slices, 2048
 spheres, the opted-in shared memory at 4096 spheres and the global-memory
@@ -245,6 +255,14 @@ KP_MEAN = 5e-3
 # of values against a stable-only K2 with everything else equal (PERF.md
 # §6, F8), above tests/test_megakernel.py::_compare's 2%.
 MAX_FRAC_PROCEDURAL = 0.05
+# The JAX suite's gates against its f64 oracle at full width, path for path
+# at 1 spp on a stratified pixel subsample (tests/test_golden.py:111-172):
+# at most ORACLE_MAX_FRAC of values more than 10% off on the Cornell box and
+# the mesh, MAX_FRAC_PROCEDURAL on the dense sphere scenes, and the means
+# within ORACLE_MEAN; the key of both tests.
+ORACLE_MAX_FRAC = 0.04
+ORACLE_MEAN = 0.1
+ORACLE_SEED = 21
 
 
 def phase(name: str, **info) -> None:
@@ -6245,6 +6263,213 @@ def host_surfaces(dev) -> dict:
     return out
 
 
+def oracle_gate(rad: np.ndarray, scene, camera, cfg, key, step: int,
+                stream: bool, max_frac: float, device) -> dict:
+    """A route's one-frame summed radiance rad (H, W, 3) against the port's
+    f64 oracle (smallpt_tpu_torch/oracle/numpy_oracle.py) on every step-th
+    pixel, the oracle replaying the route's keying: StreamUniformProvider
+    for the streaming and binned routes, else PrecomputedUniformProvider,
+    its uniforms drawn on ``device``. The gate of tests/test_golden.py
+    (gate(): at most max_frac of values with |a-b|/(1+|b|) > 0.1, the
+    means within ORACLE_MEAN). Raises on a failed gate."""
+    from smallpt_tpu_torch.oracle.numpy_oracle import (
+        Oracle, PrecomputedUniformProvider, StreamUniformProvider,
+    )
+
+    pixels = np.arange(0, cfg.n_pixels, step, dtype=np.int64)
+    sids = (pixels[:, None] * cfg.spp + np.arange(cfg.spp)).reshape(-1)
+    t = time.perf_counter()
+    provider = (StreamUniformProvider(key, cfg, sids, device=device)
+                if stream else
+                PrecomputedUniformProvider(key, sids=sids, device=device))
+    ovals = Oracle(scene, camera, cfg, provider).render_pixels(pixels)
+    oracle_s = time.perf_counter() - t
+    rvals = np.asarray(rad).reshape(-1, 3)[pixels]
+    return dict(gate(rvals, ovals, max_frac, ORACLE_MEAN),
+                pixels=len(pixels), mean=float(rvals.mean()),
+                oracle_mean=float(ovals.mean()), oracle_s=oracle_s,
+                keying="stream" if stream else "classic")
+
+
+def provider_draws(provider, sids, hists, depths, slots) -> np.ndarray:
+    """Every uniform a provider gives the samples sids: camera, lens, and
+    at each (hist, depth) the shade and NEE draws of each light slot, in
+    one float64 vector."""
+    rows = []
+    for s in sids:
+        rows += [provider.camera(s), provider.lens(s)]
+        for h in hists:
+            for d in depths:
+                rows.append(provider.shade(s, h, d))
+                rows += [provider.nee(s, h, d, k) for k in slots]
+    return np.concatenate(rows)
+
+
+def uniforms_card_vs_cpu(key, cfg, sids, dev) -> dict:
+    """The oracle's providers draw on the card what they draw on the CPU,
+    bit for bit: every uniform of sids through PrecomputedUniformProvider
+    (split histories 0-2) and StreamUniformProvider (history 0), and the
+    per-sample UniformProvider on the first 8 sids, at every depth below
+    cfg.max_depth and NEE slots 0 and 1."""
+    from smallpt_tpu_torch.oracle.numpy_oracle import (
+        PrecomputedUniformProvider, StreamUniformProvider, UniformProvider,
+    )
+
+    depths = range(cfg.max_depth)
+    out = {}
+    for name, make, n, hists in (
+            ("precomputed", lambda d: PrecomputedUniformProvider(
+                key, sids=sids, device=d), len(sids), (0, 1, 2)),
+            ("stream", lambda d: StreamUniformProvider(
+                key, cfg, sids, device=d), len(sids), (0,)),
+            ("per_sample", lambda d: UniformProvider(key, device=d), 8,
+             (0, 1, 2))):
+        card, cpu = (provider_draws(make(d), sids[:n], hists, depths, (0, 1))
+                     for d in (dev, "cpu"))
+        if not np.array_equal(card.view(np.uint64), cpu.view(np.uint64)):
+            raise AssertionError(f"uniforms {name}: the card's draws differ "
+                                 f"from the CPU's in "
+                                 f"{int((card != cpu).sum())} values")
+        out[name] = dict(sids=n, values=int(card.size), equal=True)
+    return out
+
+
+def oracle_phases(dev) -> dict:
+    """The main paths at full width against the port's f64 oracle, each
+    one frame at 1 spp, jitter 1, max_depth 12 (the JAX suite's oracle
+    settings) through its entry point on the card, seed or key 21, the
+    launch counts zeroed before the frame and its kernel's count read
+    after (oracle_gate's subsample, keying and gate per phase):
+    - K1a: engine/renderer.py::render of the Cornell box at 1024x768 (the
+      per-pass megakernel route), every 4,243rd pixel, classic keying;
+    - K1c: StreamingRenderer (one stream) on the same, budget 1, drained,
+      without and with NEE on sphere 8, streaming keying;
+    - K8: render of procedural_sphere_scene(2100, seed=7) at 512x384 (the
+      binned drain above MEGA_MAX_SPHERES), every 1,051st pixel, streaming
+      keying, MAX_FRAC_PROCEDURAL;
+    - K3: StreamingRenderer on procedural_sphere_scene(10000) at 512x384
+      (dda_auto), budget 1, drained, streaming keying, MAX_FRAC_PROCEDURAL;
+    - K2: render with REGEN and Intersector.PALLAS on the same scene,
+      classic keying, MAX_FRAC_PROCEDURAL (the K1a-vs-K2 gate of path 2,
+      F8);
+    - K6, then K7: render with FLAT and Intersector.PALLAS of
+      procedural_mesh_scene(500) at 256x192, every 263rd pixel, classic
+      keying, then the same frame with MESH_ACCEL_MIN_TRIS = 1 (as
+      flat_culled_path sets it), bit-equal to K6's.
+    Then the providers' draws on the card against the CPU's for the first
+    phase's samples (uniforms_card_vs_cpu). Each phase prints its line."""
+    import torch
+
+    from smallpt_tpu_torch.config import (
+        CameraModel, Filter, Intersector, RenderConfig, Scheduler,
+    )
+    from smallpt_tpu_torch.core import rng
+    from smallpt_tpu_torch.core.camera import smallpt_camera
+    from smallpt_tpu_torch.core.scene import (
+        cornell_box_scene, procedural_mesh_scene, procedural_sphere_scene,
+    )
+    from smallpt_tpu_torch.engine import renderer
+    from smallpt_tpu_torch.engine.streaming import StreamingRenderer
+
+    cam, key = smallpt_camera(), rng.base_key(ORACLE_SEED)
+    base = RenderConfig(width=1024, height=768, jitter_size=1,
+                        spp_per_cell=1, max_depth=12,
+                        camera_model=CameraModel.LEGACY, filter=Filter.TENT)
+    out = {}
+
+    def frame(name, kernel, fn):
+        """fn()'s (H, W, 3) radiance on the host, the host seconds of the
+        frame and the launches of ``kernel`` in it (raises at none)."""
+        torch.cuda.synchronize()
+        zero_counts()
+        t = time.perf_counter()
+        rad = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launched = counts()
+        if not launched[kernel]:
+            raise AssertionError(f"{name}: {kernel} did not launch "
+                                 f"({launched})")
+        return rad.cpu().numpy(), dict(frame_s=seconds,
+                                       launches={kernel: launched[kernel]})
+
+    def streamed(scene, cfg, dda: bool):
+        def fn():
+            r = StreamingRenderer(scene, cam, cfg, seed=ORACLE_SEED,
+                                  device=dev)
+            if (r._dda is not None) != dda:
+                raise AssertionError("StreamingRenderer took the other "
+                                     "route")
+            r.step(n_iters=cfg.max_depth + 16, add_samples=1)
+            r.flush()
+            rad, w = r.accumulators()
+            if not bool((w == 1).all()):
+                raise AssertionError(f"weights {float(w.min())}.."
+                                     f"{float(w.max())}, want 1")
+            return rad
+        return fn
+
+    def run(name, kernel, fn, scene, cfg, step, stream, max_frac):
+        rad, info = frame(name, kernel, fn)
+        out[name] = dict(info, **oracle_gate(
+            rad, scene, cam, cfg, key, step, stream, max_frac, dev))
+        phase(name, **out[name])
+        return rad
+
+    cornell = cornell_box_scene()
+    run("oracle_mega_cornell_1024x768", "mega_pass",
+        lambda: renderer.render(cornell, cam, base, key, device=dev),
+        cornell, base, 4243, False, ORACLE_MAX_FRAC)
+    for name, cfg in (("oracle_stream_cornell_1024x768", base),
+                      ("oracle_stream_cornell_1024x768_nee",
+                       base.replace(nee_lights=(8,)))):
+        run(name, "stream_step", streamed(cornell, cfg, False), cornell, cfg,
+            4243, True, ORACLE_MAX_FRAC)
+
+    pcfg = base.replace(width=512, height=384)
+    small = procedural_sphere_scene(2100, seed=7)
+    run("oracle_binned_procedural2100_512x384", "stream_step_binned",
+        lambda: renderer.render(small, cam, pcfg, key, device=dev),
+        small, pcfg, 1051, True, MAX_FRAC_PROCEDURAL)
+    big = procedural_sphere_scene(10000)
+    run("oracle_dda_procedural10000_512x384", "stream_step_dda",
+        streamed(big, pcfg, True), big, pcfg, 1051, True,
+        MAX_FRAC_PROCEDURAL)
+    rcfg = pcfg.replace(scheduler=Scheduler.REGEN,
+                        intersector=Intersector.PALLAS)
+    run("oracle_regen_procedural10000_512x384", "closest_hit",
+        lambda: renderer.render(big, cam, rcfg, key, device=dev),
+        big, rcfg, 1051, False, MAX_FRAC_PROCEDURAL)
+
+    mesh = procedural_mesh_scene(500)
+    mcfg = base.replace(width=256, height=192, scheduler=Scheduler.FLAT,
+                        intersector=Intersector.PALLAS)
+    name = "oracle_mesh500_256x192"
+    rad6 = run(name, "closest_tri",
+               lambda: renderer.render(mesh, cam, mcfg, key, device=dev),
+               mesh, mcfg, 263, False, ORACLE_MAX_FRAC)
+    old = renderer.MESH_ACCEL_MIN_TRIS
+    renderer.MESH_ACCEL_MIN_TRIS = 1
+    try:
+        rad7, info = frame(
+            name, "closest_tri_culled",
+            lambda: renderer.render(mesh, cam, mcfg, key, device=dev))
+    finally:
+        renderer.MESH_ACCEL_MIN_TRIS = old
+    if not np.array_equal(rad6, rad7):
+        raise AssertionError(f"{name}: the K7 frame differs from the K6 "
+                             "frame")
+    out[name]["culled"] = dict(info, bit_equal_to_k6=True)
+    phase(f"{name}_culled", **out[name]["culled"])
+
+    pixels = np.arange(0, base.n_pixels, 4243, dtype=np.int64)
+    out["uniforms"] = uniforms_card_vs_cpu(key, base, pixels, dev)
+    phase("oracle_uniforms_card_vs_cpu", **out["uniforms"])
+    out["oracle_s"] = sum(v["oracle_s"] for v in out.values()
+                          if "oracle_s" in v)
+    return out
+
+
 def trace_pass(step, tdir) -> dict:
     """utils/metrics.py::trace over one call of step (a K1a pass): the
     file it wrote, its events, its device-kernel events and their device
@@ -6677,6 +6902,13 @@ def main() -> int:
     shards["replay"] = shard_replay(dev)
     phase("shard_replay_cornell_512x512", **shards["replay"])
     phase("distributed_two_ranks", **distributed_two_ranks(dev))
+
+    # ---- 57-66. the main paths at full width against the port's f64
+    # oracle, each through its kernel; the providers' draws, card vs CPU -----
+    t_oracle = time.perf_counter()
+    oracle = oracle_phases(dev)
+    phase("oracle_main_paths", seconds=time.perf_counter() - t_oracle,
+          oracle_s=oracle["oracle_s"])
 
     def wf_kernel(name, path, entry, replaces, cmp_stats):
         launch = path["kernel"]["middle"]

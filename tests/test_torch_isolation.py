@@ -50,7 +50,9 @@ assert {{"smallpt_tpu_torch.engine.streaming",
          "smallpt_tpu_torch.parallel.stream_shard",
          "smallpt_tpu_torch.parallel.binned_shard",
          "smallpt_tpu_torch.parallel.replay_shard",
-         "smallpt_tpu_torch.parallel.distributed"}} <= set(names)
+         "smallpt_tpu_torch.parallel.distributed",
+         "smallpt_tpu_torch.oracle",
+         "smallpt_tpu_torch.oracle.numpy_oracle"}} <= set(names)
 from smallpt_tpu_torch.utils import nvcc
 # importing every module (K8's wrapper and stream_binned.cu's library
 # among them) builds and loads no kernel
@@ -70,9 +72,9 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     # every submodule imported, the streaming, wavefront, mesh streaming
-    # and binned routes', K4's, the host surfaces' and the multi-device
-    # modules among them
-    assert int(proc.stdout.split()[-1]) >= 38
+    # and binned routes', K4's, the host surfaces', the multi-device and
+    # the oracle's modules among them
+    assert int(proc.stdout.split()[-1]) >= 40
 
 
 def _sources():
